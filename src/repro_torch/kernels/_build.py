@@ -1,0 +1,82 @@
+"""Build the port's CUDA sources into shared libraries, at first use.
+
+Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
+``nvcc`` compiles it in seconds into ``build/kernels/<name>-<hash>.so`` at the
+root of the checkout, keyed by a hash of the source and the flags; ``ctypes``
+loads it.  ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory,
+spills) is kept beside the library as ``<name>-<hash>.log``.
+
+A missing ``nvcc`` or a failed build raises: nothing here falls back to a
+plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler; raises when the toolkit is absent."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if NVCC_DEFAULT.exists():
+        return str(NVCC_DEFAULT)
+    raise RuntimeError("nvcc not found (neither on PATH nor under "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot be built")
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all(names) -> dict[str, Path]:
+    """Compile every named source that is not built yet, all ``nvcc``
+    processes started together; returns ``{name: library path}``."""
+    targets = {name: _target(name) for name in names}
+    todo = {name: t for name, t in targets.items() if not t.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        compiler = nvcc()
+        procs = {}
+        for name, t in todo.items():
+            tmp = t.with_name(f"{t.stem}.{os.getpid()}.tmp.so")
+            procs[name] = (tmp, subprocess.Popen(
+                [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            t = todo[name]
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
+                continue
+            t.with_suffix(".log").write_text(out)
+            os.replace(tmp, t)
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return targets
+
+
+def build_log(name: str) -> str:
+    """The ``-Xptxas -v`` report of the built library ``name``."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed and load it."""
+    return ctypes.CDLL(str(build_all([name])[name]))

@@ -1,0 +1,191 @@
+"""The ``SpectralSolver`` contract — port of ``repro.solvers.base``.
+
+One workload of the paper's simulation cycle (§1.2):
+
+    forward 3D FFT → spectral computation → inverse 3D FFT → local computation
+
+* ``init_state()``        — the t=0 :class:`SolverState`;
+* ``step(state)``         — advance one Δt, eagerly on the solver's device;
+* ``observables(state)``  — scalar diagnostics as ``{name: float}``.
+
+Concrete solvers implement ``initial_fields`` / ``step_fields`` /
+``observables_fields`` and ``validate``; the base class owns plan
+construction, the device, and the run loop.  The FFT plan knobs come from
+``plan_cfg``, over the same pipelined/switched default as the reference.
+
+This slice runs on one rank (a 1×1 :class:`PencilGrid`); a larger grid
+raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import abc
+import dataclasses
+from typing import ClassVar
+
+import numpy as np
+import torch
+
+from repro_torch.core import precision
+from repro_torch.core.decomposition import PencilGrid, require_single_rank
+from repro_torch.core.fft3d import FFT3DPlan
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass
+class SolverState:
+    """Evolving solver state: a tuple of field tensors + the host clock."""
+
+    fields: tuple
+    t: float = 0.0
+    n_steps: int = 0
+
+
+def normalize_config(cfg: dict) -> dict:
+    """Copy of ``cfg`` with the legacy ``net`` knob mapped onto
+    ``comm_engine`` (copy of ``repro.tuning.space.normalize_config``)."""
+    cfg = dict(cfg)
+    if not cfg.get("comm_engine") and "net" in cfg:
+        cfg["comm_engine"] = cfg["net"]
+    return cfg
+
+
+def state_from_numpy(fields, device, *, t: float = 0.0,
+                     n_steps: int = 0) -> SolverState:
+    """A :class:`SolverState` on ``device`` from a tuple of arrays (e.g. a
+    reference solver's fields, converted with ``np.asarray``)."""
+    dev = resolve_device(device)
+    return SolverState(
+        fields=tuple(torch.from_numpy(np.array(a)).to(dev) for a in fields),
+        t=float(t), n_steps=int(n_steps))
+
+
+def state_to_numpy(state: SolverState) -> tuple:
+    """The state's fields as a tuple of numpy arrays."""
+    return tuple(a.detach().cpu().numpy() for a in state.fields)
+
+
+#: Observables that measure roundoff (an error norm, a mean that is zero
+#: analytically, a divergence): two runs agree on them only to the scale of
+#: what they measure, so ``observables_rel_err`` divides by at least this.
+OBSERVABLE_SCALES = {"err_inf": 1.0, "err_l2": 1.0, "mean": 1.0,
+                     "max_div": 100.0}
+
+
+def observables_rel_err(a: dict, b: dict) -> float:
+    """Largest relative difference of two observable dicts,
+    ``|a−b| / max(|a|, |b|, scale)`` with the floors of
+    ``OBSERVABLE_SCALES`` (0 for every other observable)."""
+    worst = 0.0
+    for k in a:
+        if k == "t":
+            continue
+        den = max(abs(a[k]), abs(b[k]), OBSERVABLE_SCALES.get(k, 0.0))
+        if den > 0:
+            worst = max(worst, abs(a[k] - b[k]) / den)
+    return worst
+
+
+class SpectralSolver(abc.ABC):
+    """Common contract every FFT-cycle simulation workload implements."""
+
+    case: ClassVar[str]            # registry name (``--case`` on the CLI)
+    real: ClassVar[bool] = True    # r2c transform (False: planar complex)
+    components: ClassVar[int] = 0  # leading vector axis (0 = scalar field)
+
+    def __init__(self, grid: PencilGrid, n, *, dt: float = 1e-2,
+                 dtype="float64", plan_cfg: dict | None = None,
+                 device="cuda"):
+        require_single_rank(grid, f"solvers.{self.case}")
+        self.device = resolve_device(device)
+        self.n = (n, n, n) if isinstance(n, int) else tuple(n)
+        self.dt = float(dt)
+        self.dtype = precision.require_dtype(dtype, who=f"solvers.{self.case}")
+        self.torch_dtype = precision.torch_dtype(self.dtype)
+        cfg = dict(schedule="pipelined", chunks=2, backend="jnp",
+                   comm_engine="switched", r2c_packed=False,
+                   fused_roundtrip=False)
+        self.vector_mode = "streaming"
+        if plan_cfg:
+            plan_cfg = normalize_config(plan_cfg)
+            cfg.update({k: plan_cfg[k] for k in cfg if k in plan_cfg})
+            self.vector_mode = plan_cfg.get("vector_mode", self.vector_mode)
+        self.plan = FFT3DPlan(n=self.n, grid=grid, real=self.real,
+                              dtype=self.dtype.name, **cfg)
+
+    # ---- solver-specific hooks ------------------------------------------
+    @abc.abstractmethod
+    def initial_fields(self) -> tuple:
+        """The t=0 field tuple, on the solver's device."""
+
+    @abc.abstractmethod
+    def step_fields(self, plan: FFT3DPlan, fields) -> tuple:
+        """One Δt of the FFT→spectral→iFFT→local cycle."""
+
+    @abc.abstractmethod
+    def observables_fields(self, plan: FFT3DPlan, fields) -> dict:
+        """Scalar diagnostics as 0-d tensors."""
+
+    def spectral_kernel(self, plan: FFT3DPlan, dtype, device):
+        """The k-space stage as a ``DiagonalKernel`` (on ``device``) when
+        it is a pointwise-diagonal multiply, else ``None``."""
+        del plan, dtype, device
+        return None
+
+    @abc.abstractmethod
+    def validate(self, history: list[dict]) -> tuple[bool, list[str]]:
+        """(ok, report lines) judging a run against the analytic reference;
+        ``history[i]`` is ``observables`` after i steps, with ``"t"``."""
+
+    def params(self) -> dict:
+        """Physics parameters identifying this problem."""
+        return {"dt": self.dt}
+
+    # ---- helpers for the cases -------------------------------------------
+    def _axes_1d(self):
+        """The 1D grids ``(x, y, z)`` of the 2π³ torus, float64 numpy."""
+        nx, ny, nz = self.n
+        return tuple(np.linspace(0, 2 * np.pi, m, endpoint=False)
+                     for m in (nx, ny, nz))
+
+    def _on_device(self, a) -> torch.Tensor:
+        """A float64 numpy factor as a float64 tensor on the device."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # ---- public contract -------------------------------------------------
+    def init_state(self, plan: FFT3DPlan | None = None) -> SolverState:
+        if plan is not None and plan != self.plan:
+            raise ValueError("a solver steps the plan it was built for")
+        return SolverState(fields=self.initial_fields(), t=0.0, n_steps=0)
+
+    def step(self, state: SolverState) -> SolverState:
+        return SolverState(fields=tuple(self.step_fields(self.plan, state.fields)),
+                           t=state.t + self.dt, n_steps=state.n_steps + 1)
+
+    def observables(self, state: SolverState) -> dict:
+        out = {k: float(v) for k, v in
+               self.observables_fields(self.plan, state.fields).items()}
+        out["t"] = state.t
+        return out
+
+    def run(self, steps: int, *, callback=None):
+        """Advance ``steps`` Δt from t=0; returns (state, observable history)."""
+        state = self.init_state()
+        history = [self.observables(state)]
+        if callback:
+            callback(state, history[-1])
+        for _ in range(steps):
+            state = self.step(state)
+            history.append(self.observables(state))
+            if callback:
+                callback(state, history[-1])
+        return state, history
+
+    def plan_config(self) -> dict:
+        """The FFT-plan knobs this solver runs (bench metadata)."""
+        p = self.plan
+        return {"backend": p.backend, "schedule": p.schedule,
+                "chunks": p.chunks, "comm_engine": p.comm_engine,
+                "net": p.net, "vector_mode": self.vector_mode,
+                "r2c_packed": p.r2c_packed,
+                "fused_roundtrip": p.fused_roundtrip, "dtype": p.dtype}

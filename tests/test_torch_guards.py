@@ -1,0 +1,113 @@
+"""Guards of the PyTorch/CUDA port: it stands apart from JAX and from the
+JAX package, it never falls back to the CPU or to the plain version, and
+it refuses what this slice does not run (a grid of more than one rank)."""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core import decomposition as dec
+from repro_torch.core import spectral as sp
+from repro_torch.core.fft3d import FFT3DPlan, make_fft3d
+from repro_torch.kernels import _build
+from repro_torch.solvers import cli, make_solver
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.MULTILINE)
+
+
+def test_import_leaves_jax_and_repro_out():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "             or k == 'repro' or k.startswith('repro.'))\n"
+        "print('LOADED', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True, timeout=120).stdout
+    assert "LOADED []" in out, out
+
+
+def test_sources_import_neither_jax_nor_repro():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 15
+    for f in files:
+        hits = FORBIDDEN.findall(f.read_text())
+        assert not hits, f"{f.relative_to(REPO)} imports {hits}"
+
+
+def test_default_device_is_cuda_and_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_solver("heat", dec.PencilGrid.from_mesh(1, 1), 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_fft3d(dec.PencilGrid.from_mesh(1, 1), 8)
+
+
+@pytest.mark.parametrize("pu,pv", [(2, 1), (1, 2), (4, 2)])
+def test_multi_rank_grid_raises(pu, pv):
+    grid = dec.PencilGrid.from_mesh(pu, pv)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        make_solver("poisson", grid, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        make_fft3d(grid, 8, device="cpu")
+    plan = FFT3DPlan(n=(8, 8, 8), grid=grid)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        sp.grid_sum(plan, torch.zeros(()))
+
+
+def test_cli_refuses_what_is_not_ported(capsys):
+    assert cli.main(["--case", "heat", "--mesh", "2x2", "--device", "cpu"]) == 1
+    assert "Queue 1 item 5" in capsys.readouterr().err
+    assert cli.main(["--case", "heat", "--autotune", "--device", "cpu"]) == 1
+    assert cli.main(["--case", "heat", "--backend", "mxu", "--device", "cpu"]) == 1
+    assert "Queue 2 item 6" in capsys.readouterr().err
+    assert cli.main(["--case", "poisson", "--n", "8", "--steps", "1",
+                     "--device", "cpu", "--backend", "pallas", "--quiet"]) == 0
+    assert "poisson: OK" in capsys.readouterr().out
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "NVCC_DEFAULT", tmp_path / "nvcc")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()
+
+
+def test_failed_build_raises(monkeypatch, tmp_path):
+    false = shutil.which("false")
+    monkeypatch.setattr(_build, "nvcc", lambda: false)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc failed for fft_radix2.cu"):
+        _build.build_all(["fft_radix2"])
+    assert not list(tmp_path.glob("*.so"))
+
+
+def _smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    r = _smoke(REPO)
+    assert r.returncode != 0 and '"ok"' not in r.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    r = _smoke(tmp_path)
+    assert r.returncode != 0 and '"ok"' not in r.stdout
