@@ -4,29 +4,43 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout (it imports ``src/repro_torch``; nothing of
-JAX or of the JAX package ``repro``).  Phases, each fatal on failure:
+JAX or of the JAX package ``repro``).  It covers the two FFT kernels of the
+main path: ``fft_radix2`` (backend ``"pallas"``) and ``fft_mxu`` (backend
+``"mxu"``, the four-step FFT on the FP64 tensor cores).  Phases, each fatal
+on failure:
 
 1. card — ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
-2. build — every CUDA source of the main path, with ``nvcc``'s register,
-   shared-memory and spill report;
-3. kernel vs plain — the radix-2 FFT kernel against its plain PyTorch
-   version on the same CUDA tensors, f64 and f32, forward and inverse, at
-   the main path's shapes (N=512 with 512·512 and 257·512 rows) and the
-   edges N=2 and N=8192.  Tolerance: max|Δ| ≤ 1e-12·max|y| in f64 and
-   ≤ 1e-5·max|y| in f32 — same twiddles, same operation order, only the
-   compiler's FMA contraction differs;
-4. timing — kernel, plain version and ``torch.fft.fft`` (a yardstick the
-   port never calls) at the main path's N=512 f64 shapes, CUDA events, and
-   the bound (bytes moved over 3.35 TB/s, flops over the FP64 peak);
+2. build — both CUDA sources, ``nvcc`` processes started together, with
+   each one's register, shared-memory and spill report;
+3. kernel vs plain — each kernel against its plain PyTorch version on the
+   same CUDA tensors, f64 and f32, forward and inverse, at the main path's
+   shapes (N=512 with 512·512 and 257·512 rows; for ``fft_mxu`` also N=256
+   with 512·256 rows) and the edges (N=2 and 8192 for ``fft_radix2``, N=4,
+   16 and 8192 for ``fft_mxu``).  Tolerance: max|Δ| ≤ 1e-12·max|y| in f64
+   and ≤ 1e-5·max|y| in f32.  ``fft_radix2`` has the same twiddles and
+   operation order as its plain version, only the compiler's FMA
+   contraction differs; ``fft_mxu`` sums in another order inside its
+   tensor-core tiles than cuBLAS does in the plain version's products
+   (which run with TF32 off);
+4. timing — each kernel, its plain version and ``torch.fft.fft`` (a
+   yardstick the port never calls) at the main path's N=512 f64 shapes,
+   CUDA events, and the bound: the larger of the bytes moved over
+   3.35 TB/s and the flops over the peak of the units the kernel runs on
+   (FP64 CUDA cores, 34 TFLOP/s, for ``fft_radix2``; FP64 tensor cores,
+   67 TFLOP/s, for ``fft_mxu``);
 5. main path — ``heat`` (fused roundtrip off and on), ``poisson`` and
    ``nls`` at N=512 f64 and ``navier_stokes`` at N=256 f64 through
-   ``make_solver(..., device="cuda", plan_cfg={"backend": "pallas"})`` on
-   a 1×1 grid: each must pass ``validate()``, end with finite fields of the
-   expected shapes, launch the kernel and never call the plain version;
-   then the same runs with ``backend="ref"`` (the plain version), which
-   must agree per step to ≤1e-10 relative (``observables_rel_err``);
-6. breakdown — ``torch.profiler`` over one heat step at N=512: device time
-   by kernel and the device's idle share (informational).
+   ``make_solver(..., device="cuda", plan_cfg={"backend": ...})`` on a 1×1
+   grid, once on ``"pallas"`` and once on ``"mxu"``, every launch and call
+   count set to 0 just before each backend's runs and read just after:
+   each run must pass ``validate()`` and end with finite fields of the
+   expected shapes, its own kernel must have launched, and neither the
+   other kernel nor any plain version may have run; then the same runs
+   with ``backend="ref"`` (the plain version), which both must agree with
+   per step to ≤1e-10 relative (``observables_rel_err``);
+6. breakdown — ``torch.profiler`` over one heat step at N=512 on each
+   kernel backend: device time by kernel and the device's idle share
+   (informational).
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Full results go to
@@ -48,7 +62,11 @@ OUT = os.path.join(HERE, "build", "chip_smoke.json")
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP64_FLOPS = 34e12            # H100 SXM data sheet, FP64 without tensor cores
+FP64_TC_FLOPS = 67e12         # H100 SXM data sheet, FP64 tensor cores
+FP32_FLOPS = 67e12            # H100 SXM data sheet, FP32 without tensor cores
 TOL = {"float64": 1e-12, "float32": 1e-5}
+KERNELS = ("fft_radix2", "fft_mxu")
+BACKEND = {"fft_radix2": "pallas", "fft_mxu": "mxu"}
 
 # (case, N, steps, extra plan knobs): the main path at the paper's
 # fft512_p1 size; Navier–Stokes at N=256 for memory and time
@@ -91,11 +109,13 @@ def build():
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build_all(["fft_radix2"])
-    say(f"build: fft_radix2 in {time.perf_counter() - t0:.2f} s")
-    for line in _build.build_log("fft_radix2").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            say(f"  ptxas: {line.strip()}")
+    _build.build_all(KERNELS)
+    say(f"build: {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s")
+    for name in KERNELS:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "smem" in line \
+                    or "Compiling entry" in line:
+                say(f"  ptxas {name}: {line.strip()[:150]}")
 
 
 def _rand(shape, dtype, gen):
@@ -103,39 +123,60 @@ def _rand(shape, dtype, gen):
     return torch.randn(shape, dtype=dtype, device="cuda", generator=gen)
 
 
+def _pair(name):
+    """(kernel wrapper, plain version), both taking ``inverse=``."""
+    from repro_torch.kernels import fft_mxu, fft_radix2, ref
+
+    if name == "fft_mxu":
+        return fft_mxu.fft1d_mxu, fft_mxu.four_step_planar
+
+    def plain(xr, xi, inverse=False):
+        return (ref.ifft_dif_planar if inverse else ref.fft_dif_planar)(xr, xi)
+    return fft_radix2.fft1d_radix2, plain
+
+
+# (rows, N) held against the plain version: the main path's shapes first
+CHECK_SHAPES = {
+    "fft_radix2": ((512 * 512, 512), (257 * 512, 512), (4096, 2), (1024, 8192)),
+    "fft_mxu": ((512 * 512, 512), (257 * 512, 512), (512 * 256, 256),
+                (4096, 4), (4096, 16), (1024, 8192)),
+}
+MAIN_N = (512, 256)
+
+
 def kernel_vs_plain(gen):
-    """Phase 3: returns the max abs error at the main path's f64 shapes."""
+    """Phase 3: returns, per kernel, the max abs error at the main path's
+    f64 shapes."""
     import torch
 
-    from repro_torch.kernels import fft_radix2, ref
-
-    shapes = ((512 * 512, 512), (257 * 512, 512), (4096, 2), (1024, 8192))
-    main_abs = 0.0
-    for dtype in (torch.float64, torch.float32):
-        for rows, n in shapes:
-            xr, xi = _rand((rows, n), dtype, gen), _rand((rows, n), dtype, gen)
-            for inverse in (False, True):
-                kr, ki = fft_radix2.fft1d_radix2(xr, xi, inverse=inverse)
-                plain = ref.ifft_dif_planar if inverse else ref.fft_dif_planar
-                pr, pi = plain(xr, xi)
-                torch.cuda.synchronize()
-                scale = max(pr.abs().max().item(), pi.abs().max().item())
-                err = max((kr - pr).abs().max().item(),
-                          (ki - pi).abs().max().item())
-                tol = TOL[str(dtype).removeprefix("torch.")]
-                ok = err <= tol * scale
-                say(f"kernel vs plain: {str(dtype)[6:]} rows={rows} N={n} "
-                    f"{'inverse' if inverse else 'forward'}: max|d| {err:.3e} "
-                    f"= {err / scale:.3e} max|y| (tol {tol:g}) "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    fail(f"fft_radix2 disagrees with its plain version at "
-                         f"rows={rows} N={n} {dtype} inverse={inverse}")
-                if dtype == torch.float64 and n == 512:
-                    main_abs = max(main_abs, err)
-                del kr, ki, pr, pi
-            del xr, xi
-            torch.cuda.empty_cache()
+    main_abs = {}
+    for name in KERNELS:
+        kernel, plain = _pair(name)
+        main_abs[name] = 0.0
+        for dtype in (torch.float64, torch.float32):
+            for rows, n in CHECK_SHAPES[name]:
+                xr, xi = _rand((rows, n), dtype, gen), _rand((rows, n), dtype, gen)
+                for inverse in (False, True):
+                    kr, ki = kernel(xr, xi, inverse=inverse)
+                    pr, pi = plain(xr, xi, inverse=inverse)
+                    torch.cuda.synchronize()
+                    scale = max(pr.abs().max().item(), pi.abs().max().item())
+                    err = max((kr - pr).abs().max().item(),
+                              (ki - pi).abs().max().item())
+                    tol = TOL[str(dtype).removeprefix("torch.")]
+                    ok = err <= tol * scale
+                    say(f"kernel vs plain: {name} {str(dtype)[6:]} rows={rows} "
+                        f"N={n} {'inverse' if inverse else 'forward'}: max|d| "
+                        f"{err:.3e} = {err / scale:.3e} max|y| (tol {tol:g}) "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        fail(f"{name} disagrees with its plain version at "
+                             f"rows={rows} N={n} {dtype} inverse={inverse}")
+                    if dtype == torch.float64 and n in MAIN_N:
+                        main_abs[name] = max(main_abs[name], err)
+                    del kr, ki, pr, pi
+                del xr, xi
+                torch.cuda.empty_cache()
     return main_abs
 
 
@@ -153,41 +194,54 @@ def _time_ms(fn, iters: int, warmup: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def timing(gen):
-    """Phase 4: the kernel at the main path's N=512 f64 shapes — 512·512
-    rows (the kernels line), 256·512 rows (one X-phase slab of the heat
-    and poisson steps) and 257·512 rows (the Y and Z phases)."""
+def _work(name, rows, n, item):
+    """(bytes, flops, peak flop/s) of one call: input and output read or
+    written once, plus the tables; the flops the algorithm needs."""
     import math
 
-    import torch
+    from repro_torch.kernels import fft_mxu
 
-    from repro_torch.kernels import fft_radix2, ref
+    if name == "fft_mxu":
+        p = fft_mxu.plan_np(n, "float64")
+        tables = 2 * (p.n1 * p.n1 + p.n1 * p.n2 + p.n2 * p.n2) * item
+        return (4 * rows * n * item + tables, fft_mxu.fft_mxu_flops(n) * rows,
+                FP64_TC_FLOPS if item == 8 else FP32_FLOPS)
+    stages = int(math.log2(n))
+    return (4 * rows * n * item + 2 * stages * (n // 2) * item,
+            5 * n * stages * rows, FP64_FLOPS if item == 8 else FP32_FLOPS)
+
+
+def timing(gen):
+    """Phase 4: each kernel at the main path's N=512 f64 shapes — 512·512
+    rows (the kernels line), 256·512 rows (one X-phase slab of the heat
+    and poisson steps) and 257·512 rows (the Y and Z phases)."""
+    import torch
 
     n, item, out = 512, 8, []
     for rows in (512 * 512, 256 * 512, 257 * 512):
         xr = _rand((rows, n), torch.float64, gen)
         xi = _rand((rows, n), torch.float64, gen)
         z = torch.complex(xr, xi)
-        ms = _time_ms(lambda: fft_radix2.fft1d_radix2(xr, xi), iters=20,
-                      warmup=3)
-        plain_ms = _time_ms(lambda: ref.fft_dif_planar(xr, xi), iters=3,
-                            warmup=1)
         library_ms = _time_ms(lambda: torch.fft.fft(z), iters=20, warmup=3)
-        stages = int(math.log2(n))
-        moved = 4 * rows * n * item + 2 * stages * (n // 2) * item
-        flops = 5 * n * stages * rows
-        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / FP64_FLOPS * 1e3
-        t = {"rows": rows, "n": n, "dtype": "float64", "ms": ms,
-             "plain_ms": plain_ms, "library_ms": library_ms,
-             "bytes": moved, "flops": flops,
-             "bound_ms": max(bytes_ms, ops_ms),
-             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-        say(f"timing fft_radix2 rows={rows} N={n} f64: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, torch.fft {library_ms:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {moved} B, {flops} "
-            f"flop), {t['bound_ms'] / ms:.1%} of the bound")
-        out.append(t)
+        for name in KERNELS:
+            kernel, plain = _pair(name)
+            ms = _time_ms(lambda: kernel(xr, xi), iters=20, warmup=3)
+            plain_ms = _time_ms(lambda: plain(xr, xi), iters=3, warmup=1)
+            moved, flops, peak = _work(name, rows, n, item)
+            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / peak * 1e3
+            t = {"kernel": name, "rows": rows, "n": n, "dtype": "float64",
+                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                 "bytes": moved, "flops": flops,
+                 "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            say(f"timing {name} rows={rows} N={n} f64: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.3f} ms, torch.fft {library_ms:.4f} ms, "
+                f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {moved} B "
+                f"{bytes_ms:.4f} ms, {flops:.0f} flop {ops_ms:.4f} ms), "
+                f"{t['bound_ms'] / ms:.1%} of the bound")
+            out.append(t)
+            torch.cuda.empty_cache()
         del xr, xi, z
         torch.cuda.empty_cache()
     return out
@@ -231,55 +285,76 @@ def _expected_shapes(case, n):
             "navier_stokes": [(3, kx, n, n)] * 2}[case]
 
 
+def _counts():
+    from repro_torch.kernels import fft_mxu, fft_radix2, ref
+    return {"fft_radix2": fft_radix2.launches, "fft_mxu": fft_mxu.launches,
+            "ref.calls": ref.calls, "fft_mxu.plain_calls": fft_mxu.plain_calls}
+
+
+def _drive(name):
+    """One kernel's main path: every count set to 0 just before its runs
+    and read just after; its kernel must have launched, and neither the
+    other kernel nor a plain version may have run."""
+    from repro_torch.kernels import fft_mxu, fft_radix2, ref
+
+    fft_radix2.launches = fft_mxu.launches = 0
+    ref.calls = fft_mxu.plain_calls = 0
+    runs = []
+    for case, n, steps, knobs in MAIN_PATH:
+        before = _counts()[name]
+        r = _run_case(case, n, steps, knobs, BACKEND[name])
+        r["launches"] = _counts()[name] - before
+        runs.append(r)
+    counts = _counts()
+    say(f"main path {BACKEND[name]!r}: counts {counts}")
+    if counts[name] == 0:
+        fail(f"the {BACKEND[name]!r} main path never launched {name}")
+    others = {k: v for k, v in counts.items() if k != name and v}
+    if others:
+        fail(f"the {BACKEND[name]!r} main path ran {others}")
+    return runs, counts[name]
+
+
 def main_path():
-    """Phase 5: the pallas runs are the main path (counts zeroed just
-    before, read just after); the ref runs follow for the comparison."""
-    from repro_torch.kernels import fft_radix2, ref
+    """Phase 5: each kernel backend's runs are its main path; the ref
+    runs follow once, for the comparison of both."""
     from repro_torch.solvers.base import observables_rel_err
 
-    runs = []
-    fft_radix2.launches = 0
-    ref.calls = 0
-    for case, n, steps, knobs in MAIN_PATH:
-        before = fft_radix2.launches
-        r = _run_case(case, n, steps, knobs, "pallas")
-        r["launches"] = fft_radix2.launches - before
-        runs.append(r)
-    launches, plain_calls = fft_radix2.launches, ref.calls
-    say(f"main path: fft_radix2.launches={launches}, plain-version calls="
-        f"{plain_calls}")
-    if launches == 0:
-        fail("the main path never launched the fft_radix2 kernel")
-    if plain_calls:
-        fail(f"the main path called the plain version {plain_calls} times")
-
-    for r, (case, n, steps, knobs) in zip(runs, MAIN_PATH):
+    driven = {name: _drive(name) for name in KERNELS}
+    for i, (case, n, steps, knobs) in enumerate(MAIN_PATH):
         plain = _run_case(case, n, steps, knobs, "ref")
-        r["ref_step_ms"] = plain["step_ms"]
-        r["obs_rel_err"] = max(observables_rel_err(a, b) for a, b in
-                               zip(r["history"], plain["history"]))
         tag = f"{case} N={n}" + (" fused" if knobs else "")
-        say(f"{tag}: {r['launches']} launches ({r['launches'] // steps}/step), "
-            f"ms/step {[round(t, 3) for t in r['step_ms']]} "
-            f"(ref {[round(t, 3) for t in plain['step_ms']]}), peak "
-            f"{r['peak_bytes'] / 2**30:.2f} GiB, obs vs ref "
-            f"{r['obs_rel_err']:.2e}, validate {r['validate']}: "
-            f"{'; '.join(r['validate_lines'])}")
-        if not (r["validate"] and plain["validate"]):
-            fail(f"{tag}: validate() failed: {r['validate_lines']} / "
-                 f"ref {plain['validate_lines']}")
-        if not r["finite"] or r["shapes"] != _expected_shapes(case, n):
-            fail(f"{tag}: fields finite={r['finite']} shapes={r['shapes']}")
-        if r["obs_rel_err"] > 1e-10:
-            fail(f"{tag}: observables differ from the ref run by "
-                 f"{r['obs_rel_err']:.3e} > 1e-10")
-    return runs, launches
+        if not plain["validate"]:
+            fail(f"{tag}: validate() failed on ref: {plain['validate_lines']}")
+        for name in KERNELS:
+            r = driven[name][0][i]
+            r["ref_step_ms"] = plain["step_ms"]
+            r["obs_rel_err"] = max(observables_rel_err(a, b) for a, b in
+                                   zip(r["history"], plain["history"]))
+            say(f"{tag} {r['backend']}: {r['launches']} launches "
+                f"({r['launches'] // steps}/step), ms/step "
+                f"{[round(t, 3) for t in r['step_ms']]} (ref "
+                f"{[round(t, 3) for t in plain['step_ms']]}), peak "
+                f"{r['peak_bytes'] / 2**30:.2f} GiB, obs vs ref "
+                f"{r['obs_rel_err']:.2e}, validate {r['validate']}: "
+                f"{'; '.join(r['validate_lines'])}")
+            if not r["validate"]:
+                fail(f"{tag} {r['backend']}: validate() failed: "
+                     f"{r['validate_lines']}")
+            if not r["finite"] or r["shapes"] != _expected_shapes(case, n):
+                fail(f"{tag} {r['backend']}: fields finite={r['finite']} "
+                     f"shapes={r['shapes']}")
+            if r["obs_rel_err"] > 1e-10:
+                fail(f"{tag} {r['backend']}: observables differ from the ref "
+                     f"run by {r['obs_rel_err']:.3e} > 1e-10")
+    return ({name: runs for name, (runs, _) in driven.items()},
+            {name: launches for name, (_, launches) in driven.items()})
 
 
-def breakdown():
-    """Phase 6: where one heat step at N=512 (backend pallas) spends the
-    card's time, by kernel name, from ``torch.profiler``; device busy time
-    over the step's host-clock time gives the idle share."""
+def breakdown(backend):
+    """Phase 6: where one heat step at N=512 spends the card's time, by
+    kernel name, from ``torch.profiler``; device busy time over the step's
+    host-clock time gives the idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -287,7 +362,7 @@ def breakdown():
     from repro_torch.solvers import make_solver
 
     solver = make_solver("heat", PencilGrid.from_mesh(1, 1), 512,
-                         device="cuda", plan_cfg={"backend": "pallas"})
+                         device="cuda", plan_cfg={"backend": backend})
     state = solver.step(solver.init_state())
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -302,14 +377,16 @@ def breakdown():
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    out = {"case": "heat", "n": 512, "wall_ms": wall_ms, "busy_ms": busy_ms,
+    out = {"case": "heat", "n": 512, "backend": backend, "wall_ms": wall_ms,
+           "busy_ms": busy_ms,
            "kernels": [{"ms": ms, "count": c, "name": k[:120]}
                        for ms, c, k in rows]}
     if not rows:
-        say("breakdown: the profiler saw no device time (not measured)")
+        say(f"breakdown {backend}: the profiler saw no device time "
+            "(not measured)")
         return out
-    say(f"breakdown heat N=512 step: wall {wall_ms:.3f} ms, device busy "
-        f"{busy_ms:.3f} ms, idle {1 - busy_ms / wall_ms:.1%}")
+    say(f"breakdown heat N=512 step, backend {backend!r}: wall {wall_ms:.3f} "
+        f"ms, device busy {busy_ms:.3f} ms, idle {1 - busy_ms / wall_ms:.1%}")
     for ms, c, k in rows[:8]:
         say(f"  {ms:9.3f} ms {ms / busy_ms:6.1%} x{c:<4d} {k[:90]}")
     del solver, state
@@ -317,26 +394,33 @@ def breakdown():
     return out
 
 
+REPLACES = {"fft_radix2": "src/repro/kernels/fft_radix2.py:90",
+            "fft_mxu": "src/repro/kernels/fft_mxu.py:80"}
+
+
 def main() -> int:
     name, smi = card()
     sys.path.insert(0, SRC)
     import torch
 
+    # the plain versions' products go through cuBLAS: full f32, no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
     build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_abs = kernel_vs_plain(gen)
     times = timing(gen)
     runs, launches = main_path()
-    prof = breakdown()
+    prof = [breakdown(BACKEND[k]) for k in KERNELS]
 
-    t = times[0]
-    kernels = [{
-        "name": "fft_radix2", "route": "cuda",
-        "source": "src/repro_torch/csrc/fft_radix2.cu",
-        "replaces": "src/repro/kernels/fft_radix2.py:90",
-        "launches": launches, "max_abs_err": max_abs, "ms": t["ms"],
-        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"]}]
+    kernels = []
+    for k in KERNELS:
+        t = next(t for t in times if t["kernel"] == k)  # 512·512 rows
+        kernels.append({
+            "name": k, "route": "cuda", "source": f"src/repro_torch/csrc/{k}.cu",
+            "replaces": REPLACES[k], "launches": launches[k],
+            "max_abs_err": max_abs[k], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump({"card": smi, "device": name, "timing": times,

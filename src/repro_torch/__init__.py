@@ -3,9 +3,10 @@
 A second package beside the JAX reference, following its layout module by
 module (``core``, ``kernels``, ``solvers``).  It imports ``torch`` and
 numpy only.  Entry points take an explicit ``device`` and run on ``cuda``
-unless the caller asks for ``"cpu"``; the radix-2 FFT engine (backend
-``"pallas"`` in a plan config, for parity with the reference's names) is a
-hand-written CUDA kernel, ``csrc/fft_radix2.cu``.
+unless the caller asks for ``"cpu"``.  The two FFT engines of a plan are
+hand-written CUDA kernels (backend names as in the reference's plan
+configs): the radix-2 engine, ``"pallas"``, is ``csrc/fft_radix2.cu``; the
+four-step FFT on the FP64 tensor cores, ``"mxu"``, is ``csrc/fft_mxu.cu``.
 
 This slice covers the single-rank solver step: a 1×1 pencil grid, where
 every fold is a local permute.

@@ -7,7 +7,8 @@ reference ``plan_cfg`` means the same thing here.  Backends:
   (:mod:`repro_torch.kernels.fft_radix2`); the name is the reference's;
 * ``"ref"``    — its plain PyTorch version (:mod:`repro_torch.kernels.ref`);
 * ``"jnp"``    — ``torch.fft``, the library FFT (the reference's XLA FFT);
-* ``"mxu"``    — the four-step matmul FFT, not ported yet.
+* ``"mxu"``    — the hand-written four-step FFT CUDA kernel, its products on
+  the FP64 tensor cores in f64 (:mod:`repro_torch.kernels.fft_mxu`).
 """
 
 from __future__ import annotations

@@ -41,7 +41,7 @@ class FFT3DPlan:
     n: tuple[int, int, int]
     grid: PencilGrid
     real: bool = False
-    backend: str = "jnp"             # "pallas" | "ref" | "jnp"
+    backend: str = "jnp"             # "pallas" | "mxu" | "ref" | "jnp"
     schedule: Schedule = "sequential"
     chunks: int = 1                  # pipelined slab count (1 = sequential)
     net: str = "switched"            # fabric: "switched" | "torus" (derived)

@@ -7,7 +7,8 @@ of the port uses; ``backend`` selects:
   version for a tensor on the CPU),
 * ``"ref"``    — the plain PyTorch version with the identical dataflow,
 * ``"jnp"``    — ``torch.fft``, the library FFT (the reference's XLA FFT),
-* ``"mxu"``    — the four-step matmul FFT: not ported yet.
+* ``"mxu"``    — the four-step FFT CUDA kernel, FP64 tensor cores in f64
+  (:mod:`.fft_mxu`; its plain version for a tensor on the CPU).
 
 All take/return planar complex (re, im) pairs, any float dtype.
 """
@@ -17,19 +18,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.fft_mxu import fft1d_mxu
 from repro_torch.kernels.fft_radix2 import fft1d_radix2
 
 BACKENDS = ("pallas", "ref", "jnp", "mxu")
 
 
 def check_backend(backend: str) -> None:
-    """Refuse an unknown backend, and ``mxu``, which is not ported yet."""
+    """Refuse an unknown backend."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown FFT backend {backend!r}; have {BACKENDS}")
-    if backend == "mxu":
-        raise NotImplementedError(
-            "backend 'mxu' (the four-step matmul FFT, kernels/fft_mxu.py) is "
-            "not ported yet: ROADMAP Queue 2 item 6")
 
 
 def fft1d(x_re, x_im, *, axis: int = -1, backend: str = "pallas",
@@ -45,17 +43,21 @@ def fft1d(x_re, x_im, *, axis: int = -1, backend: str = "pallas",
         f = _ref.ifft_dif_planar if inverse else _ref.fft_dif_planar
         yr, yi = f(xr, xi)
     else:
-        yr, yi = fft1d_radix2(xr.contiguous(), xi.contiguous(), inverse=inverse)
+        f = fft1d_mxu if backend == "mxu" else fft1d_radix2
+        yr, yi = f(xr.contiguous(), xi.contiguous(), inverse=inverse)
     return yr.movedim(-1, axis), yi.movedim(-1, axis)
 
 
 def rfft1d(x, *, axis: int = -1, backend: str = "pallas", packed: bool = False):
     """Real-to-complex FFT keeping N/2+1 bins (paper §3.2.5).
 
-    ``packed=True`` runs the even/odd packing (one N/2-point complex FFT);
-    it needs an even length and raises ``ValueError`` otherwise.  Packed
-    transforms use the kernel only for ``backend="pallas"``, as in the
-    reference; every other backend packs on the plain version.
+    ``packed=True`` runs the even/odd packing (one N/2-point complex FFT,
+    on the selected backend); it needs an even length and raises
+    ``ValueError`` otherwise (under ``"mxu"`` also below N = 8, where the
+    four-step kernel would get fewer than 4 points).  The
+    reference packs on its plain version for every backend but
+    ``"pallas"``; here only ``"ref"`` does, so that no kernel backend
+    reaches the plain version on the card.
     """
     check_backend(backend)
     xr = x.movedim(axis, -1)
@@ -65,20 +67,15 @@ def rfft1d(x, *, axis: int = -1, backend: str = "pallas", packed: bool = False):
             f"rfft1d(packed=True) requires an even transform length (the "
             f"even/odd packing splits n into two n/2 streams), got n={n}; "
             f"use packed=False for odd lengths")
-    if packed:
-        yr, yi = (_ref.rfft_packed_planar(xr) if backend != "pallas"
-                  else _rfft_packed_pallas(xr))
+    if packed and backend == "ref":
+        yr, yi = _ref.rfft_packed_planar(xr)
+    elif packed:
+        zr, zi = fft1d(xr[..., 0::2], xr[..., 1::2], axis=-1, backend=backend)
+        yr, yi = _ref.untangle_packed(zr, zi, n)
     else:
         zr, zi = fft1d(xr, torch.zeros_like(xr), axis=-1, backend=backend)
         yr, yi = zr[..., : n // 2 + 1], zi[..., : n // 2 + 1]
     return yr.movedim(-1, axis), yi.movedim(-1, axis)
-
-
-def _rfft_packed_pallas(x):
-    """Packed R2C on top of the radix-2 kernel (the untangle stays plain)."""
-    n = x.shape[-1]
-    zr, zi = fft1d_radix2(x[..., 0::2].contiguous(), x[..., 1::2].contiguous())
-    return _ref.untangle_packed(zr, zi, n)
 
 
 def irfft1d(x_re, x_im, *, n: int, axis: int = -1, backend: str = "pallas"):

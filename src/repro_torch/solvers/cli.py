@@ -2,12 +2,15 @@
 
     PYTHONPATH=src python -m repro_torch.solvers.cli --case heat --n 512 \\
         --mesh 1x1 --backend pallas
+    PYTHONPATH=src python -m repro_torch.solvers.cli --case heat --n 512 \\
+        --mesh 1x1 --backend mxu
     PYTHONPATH=src python -m repro_torch.solvers.cli --case poisson --n 16 \\
         --device cpu
 
 Takes the flags of ``repro.solvers.cli`` plus ``--device`` (default
 ``cuda``) and ``--backend`` (the plan's 1D FFT engine: ``pallas`` is the
-radix-2 CUDA kernel, ``ref`` its plain version, ``jnp`` ``torch.fft``).
+radix-2 CUDA kernel, ``mxu`` the four-step CUDA kernel on the FP64 tensor
+cores, ``ref`` the radix-2 plain version, ``jnp`` ``torch.fft``).
 Runs ``--steps`` cycles printing the observables, then the case's analytic
 validation (non-zero exit on failure).  Only the ``1x1`` mesh runs in this
 port so far; any other mesh, ``--autotune`` and ``--trace`` exit 1 naming
@@ -40,7 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "overlap_ring | pallas_ring | bidi_ring)")
     ap.add_argument("--backend", default="",
                     help="1D FFT engine: pallas (the radix-2 CUDA kernel) | "
-                         "ref | jnp (default: the solver's plan default)")
+                         "mxu (the four-step CUDA kernel) | ref | jnp "
+                         "(default: the solver's plan default)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu for a CPU run)")
     ap.add_argument("--autotune", action="store_true",

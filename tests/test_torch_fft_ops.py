@@ -20,7 +20,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.fft_radix2 import fft1d_pallas, ifft1d_pallas
-from repro_torch.kernels import fft_radix2, ops, ref
+from repro_torch.kernels import fft_mxu, fft_radix2, ops, ref
 
 TOL = {np.float64: dict(rtol=1e-12, atol=1e-12),
        np.float32: dict(rtol=1e-4, atol=1e-3)}
@@ -135,8 +135,26 @@ def test_rfft_packed_rejects_odd_length(backend):
 
 def test_backend_errors():
     x = torch.zeros(2, 8, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
-        ops.fft1d(x, x, backend="mxu")
+    # backend "mxu" is ported: it gives a result, the four-step plain
+    # version on a CPU tensor
+    calls = fft_mxu.plain_calls
+    yr, yi = ops.fft1d(x + 1.0, x, backend="mxu")
+    assert fft_mxu.plain_calls == calls + 1
+    np.testing.assert_allclose(yr.numpy(), np.fft.fft(np.ones((2, 8))).real,
+                               atol=1e-12)
+    assert yi.shape == (2, 8)
+    # the four-step wrapper's refusals
+    with pytest.raises(ValueError, match="power of two >= 4"):
+        fft_mxu.fft1d_mxu(torch.zeros(2, 2), torch.zeros(2, 2))
+    with pytest.raises(ValueError, match="power of two >= 4"):
+        fft_mxu.fft1d_mxu(torch.zeros(2, 12), torch.zeros(2, 12))
+    with pytest.raises(ValueError, match="share shape"):
+        fft_mxu.fft1d_mxu(torch.zeros(2, 8), torch.zeros(3, 8))
+    with pytest.raises(ValueError, match="share shape"):
+        fft_mxu.fft1d_mxu(x, x.float())
+    m = torch.empty(2, 8, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fft_mxu.fft1d_mxu(m, m)
     with pytest.raises(ValueError, match="unknown FFT backend"):
         ops.fft1d(x, x, backend="cufft")
     with pytest.raises(ValueError, match="power of two"):
