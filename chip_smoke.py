@@ -4,30 +4,37 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout (it imports ``src/repro_torch``; nothing of
-JAX or of the JAX package ``repro``).  It covers the two FFT kernels of the
-main path: ``fft_radix2`` (backend ``"pallas"``) and ``fft_mxu`` (backend
-``"mxu"``, the four-step FFT on the FP64 tensor cores).  Phases, each fatal
-on failure:
+JAX or of the JAX package ``repro``).  It covers the five kernels of the
+main path: ``fft_radix2`` (backend ``"pallas"``), ``fft_mxu`` (backend
+``"mxu"``, the four-step FFT on the FP64 tensor cores), and the NIC
+engine's ``ring_payload``, ``ring_send`` and ``ring_land``
+(``csrc/ring_rdma.cu``, engines ``pallas_ring``/``bidi_ring`` on a grid of
+more than one rank).  Phases, each fatal on failure:
 
 1. card — ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
-2. build — both CUDA sources, ``nvcc`` processes started together, with
-   each one's register, shared-memory and spill report;
-3. kernel vs plain — each kernel against its plain PyTorch version on the
-   same CUDA tensors, f64 and f32, forward and inverse, at the main path's
-   shapes (N=512 with 512·512 and 257·512 rows; for ``fft_mxu`` also N=256
-   with 512·256 rows) and the edges (N=2 and 8192 for ``fft_radix2``, N=4,
-   16 and 8192 for ``fft_mxu``).  Tolerance: max|Δ| ≤ 1e-12·max|y| in f64
-   and ≤ 1e-5·max|y| in f32.  ``fft_radix2`` has the same twiddles and
-   operation order as its plain version, only the compiler's FMA
-   contraction differs; ``fft_mxu`` sums in another order inside its
-   tensor-core tiles than cuBLAS does in the plain version's products
-   (which run with TF32 off);
-4. timing — each kernel, its plain version and ``torch.fft.fft`` (a
-   yardstick the port never calls) at the main path's N=512 f64 shapes,
-   CUDA events, and the bound: the larger of the bytes moved over
-   3.35 TB/s and the flops over the peak of the units the kernel runs on
-   (FP64 CUDA cores, 34 TFLOP/s, for ``fft_radix2``; FP64 tensor cores,
-   67 TFLOP/s, for ``fft_mxu``);
+2. build — the three CUDA sources, ``nvcc`` processes started together,
+   with each one's register, shared-memory and spill report;
+3. kernel vs plain — each FFT kernel against its plain PyTorch version on
+   the same CUDA tensors, f64 and f32, forward and inverse, at the main
+   path's shapes (N=512 with 512·512 and 257·512 rows; for ``fft_mxu``
+   also N=256 with 512·256 rows) and the edges (N=2 and 8192 for
+   ``fft_radix2``, N=4, 16 and 8192 for ``fft_mxu``).  Tolerance: max|Δ| ≤
+   1e-12·max|y| in f64 and ≤ 1e-5·max|y| in f32.  ``fft_radix2`` has the
+   same twiddles and operation order as its plain version, only the
+   compiler's FMA contraction differs; ``fft_mxu`` sums in another order
+   inside its tensor-core tiles than cuBLAS does in the plain version's
+   products (which run with TF32 off).  Then ``ring_payload`` in its three
+   modes (forward, inverse, roundtrip) against ``payload_plain``, f64 and
+   f32, N=16, 512 and 8192, the same tolerances; ``ring_send`` and
+   ``ring_land`` against plain indexing, bit for bit (the "peer" slot a
+   second buffer of this process);
+4. timing — each kernel, its plain version and PyTorch's own call where
+   one computes the same function (``torch.fft.fft``; a yardstick the port
+   never calls) at the main path's shapes, CUDA events, and the bound:
+   the larger of the bytes moved over 3.35 TB/s (for the wire kernels
+   2·bytes: on one card a copy reads and writes the same memory) and the
+   flops over the peak of the units the kernel runs on (FP64 CUDA cores,
+   34 TFLOP/s; FP64 tensor cores, 67 TFLOP/s, for ``fft_mxu``);
 5. main path — ``heat`` (fused roundtrip off and on), ``poisson`` and
    ``nls`` at N=512 f64 and ``navier_stokes`` at N=256 f64 through
    ``make_solver(..., device="cuda", plan_cfg={"backend": ...})`` on a 1×1
@@ -37,10 +44,24 @@ on failure:
    expected shapes, its own kernel must have launched, and neither the
    other kernel nor any plain version may have run; then the same runs
    with ``backend="ref"`` (the plain version), which both must agree with
-   per step to ≤1e-10 relative (``observables_rel_err``);
+   per step to ≤1e-10 relative (``observables_rel_err``).  The ``"pallas"``
+   heat (fused) and nls runs keep their fields in ``build/chip_smoke_ref/``;
 6. breakdown — ``torch.profiler`` over one heat step at N=512 on each
-   kernel backend: device time by kernel and the device's idle share
-   (informational).
+   FFT kernel backend: device time by kernel and the device's idle share
+   (informational);
+7. multi-rank — one spawn of 4 rank processes on the one card
+   (``repro_torch.dist.run_ranks``): ``pallas_ring`` and ``bidi_ring``
+   fold and unfold N=64 blocks on 4×1, 2×2 and 1×4 over the peer-mapped
+   wire and over gloo, twice in a row with different data, bit for bit;
+   then the multi-rank main path at N=512 f64, 3 steps each — (a) nls 1×4
+   ``pallas_ring`` fused, chunks=4; (b) nls 4×1 ``bidi_ring`` composed;
+   (c) heat 2×2 ``pallas_ring`` fused, chunks=3 — each held to the 1×1
+   ``"pallas"`` run of phase 5: per-step observables and the final fields
+   (gathered to rank 0) within 1e-10, heat's initial fields equal to the
+   1×1 blocks; per rank, counts set to 0 just before the steps and read
+   just after: ``ring_payload``, ``ring_send``, ``ring_land`` and
+   ``fft_radix2`` launched, no plain version, and ``exchange_rounds``
+   equal to the round model summed over the wires.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Full results go to
@@ -67,6 +88,9 @@ FP32_FLOPS = 67e12            # H100 SXM data sheet, FP32 without tensor cores
 TOL = {"float64": 1e-12, "float32": 1e-5}
 KERNELS = ("fft_radix2", "fft_mxu")
 BACKEND = {"fft_radix2": "pallas", "fft_mxu": "mxu"}
+SOURCES = KERNELS + ("ring_rdma",)
+RING_KERNELS = ("ring_payload", "ring_send", "ring_land")
+REF_DIR = os.path.join(HERE, "build", "chip_smoke_ref")
 
 # (case, N, steps, extra plan knobs): the main path at the paper's
 # fft512_p1 size; Navier–Stokes at N=256 for memory and time
@@ -77,6 +101,29 @@ MAIN_PATH = (
     ("nls", 512, 3, {}),
     ("navier_stokes", 256, 2, {}),
 )
+#: the 1×1 radix-2 run (index in MAIN_PATH) each multi-rank case holds to
+REFERENCE = {"heat": 1, "nls": 3}
+
+# the multi-rank main path, 4 rank processes: (tag, case, mesh, plan)
+MULTI_RANK = (
+    # forward payloads, 3 roundtrip payloads with diag a step, 3 rounds
+    ("a", "nls", (1, 4), {"comm_engine": "pallas_ring", "backend": "pallas",
+                          "fused_roundtrip": True, "chunks": 4}),
+    # forward and inverse payloads, 2 bidi rounds (the even-P farthest block)
+    ("b", "nls", (4, 1), {"comm_engine": "bidi_ring", "backend": "pallas"}),
+    # kx padded to 258: 129 = 3·43 rows a slab axis, so chunks=3 fuses the
+    # Y<->Z roundtrip; the X<->Y step is not c2c and rides unfused
+    ("c", "heat", (2, 2), {"comm_engine": "pallas_ring", "backend": "pallas",
+                           "fused_roundtrip": True, "chunks": 3}),
+)
+MULTI_STEPS = 3
+WIRE_MESHES = ((4, 1), (2, 2), (1, 4))
+# ring kernels at the shapes of run (a): one round's chunk of a 128-row
+# slab (16384 rows of N=512 in 3 chunks) for the payload, one block of a
+# (128, 128, 512) Y-pencil slab cut in 4 along its last axis for the wire
+PAYLOAD_N = (16, 512, 8192)
+PAYLOAD_ROWS = {16: 4096, 512: 5462, 8192: 64}
+SLAB = (128, 128, 512)
 
 
 def fail(msg: str) -> None:
@@ -109,9 +156,9 @@ def build():
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build_all(KERNELS)
-    say(f"build: {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s")
-    for name in KERNELS:
+    _build.build_all(SOURCES)
+    say(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.2f} s")
+    for name in SOURCES:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "smem" in line \
                     or "Compiling entry" in line:
@@ -247,7 +294,15 @@ def timing(gen):
     return out
 
 
-def _run_case(case, n, steps, knobs, backend):
+def _save(path, fields):
+    import numpy as np
+    for i, f in enumerate(fields):
+        np.save(f"{path}_{i}.npy", f.cpu().numpy())
+
+
+def _run_case(case, n, steps, knobs, backend, save=None):
+    """One 1×1 run; ``save`` names where its initial and final fields go
+    (``.npy``), as the reference of the multi-rank runs."""
     import torch
 
     from repro_torch.core.decomposition import PencilGrid
@@ -257,6 +312,8 @@ def _run_case(case, n, steps, knobs, backend):
                          plan_cfg={"backend": backend, **knobs})
     torch.cuda.reset_peak_memory_stats()
     state = solver.init_state()
+    if save:
+        _save(f"{save}_init", state.fields)
     history = [solver.observables(state)]
     step_ms = []
     for _ in range(steps):
@@ -270,6 +327,8 @@ def _run_case(case, n, steps, knobs, backend):
     fields_ok = all(bool(torch.isfinite(f).all()) for f in state.fields)
     shapes = [tuple(f.shape) for f in state.fields]
     peak = torch.cuda.max_memory_allocated()
+    if save:
+        _save(save, state.fields)
     del solver, state
     torch.cuda.empty_cache()
     return {"case": case, "n": n, "backend": backend, **knobs,
@@ -300,9 +359,12 @@ def _drive(name):
     fft_radix2.launches = fft_mxu.launches = 0
     ref.calls = fft_mxu.plain_calls = 0
     runs = []
-    for case, n, steps, knobs in MAIN_PATH:
+    for i, (case, n, steps, knobs) in enumerate(MAIN_PATH):
         before = _counts()[name]
-        r = _run_case(case, n, steps, knobs, BACKEND[name])
+        # the radix-2 runs of REFERENCE are what the multi-rank runs hold to
+        save = (os.path.join(REF_DIR, case) if name == "fft_radix2"
+                and REFERENCE.get(case) == i else None)
+        r = _run_case(case, n, steps, knobs, BACKEND[name], save=save)
         r["launches"] = _counts()[name] - before
         runs.append(r)
     counts = _counts()
@@ -351,23 +413,17 @@ def main_path():
             {name: launches for name, (_, launches) in driven.items()})
 
 
-def breakdown(backend):
-    """Phase 6: where one heat step at N=512 spends the card's time, by
-    kernel name, from ``torch.profiler``; device busy time over the step's
-    host-clock time gives the idle share."""
+def _profile(step, label: str) -> dict:
+    """Device time by kernel name over one call of ``step()`` from
+    ``torch.profiler`` (this process's kernels), and the host-clock wall
+    time around it; busy over wall gives the idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.decomposition import PencilGrid
-    from repro_torch.solvers import make_solver
-
-    solver = make_solver("heat", PencilGrid.from_mesh(1, 1), 512,
-                         device="cuda", plan_cfg={"backend": backend})
-    state = solver.step(solver.init_state())
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state = solver.step(state)
+        step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -377,25 +433,387 @@ def breakdown(backend):
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    out = {"case": "heat", "n": 512, "backend": backend, "wall_ms": wall_ms,
-           "busy_ms": busy_ms,
-           "kernels": [{"ms": ms, "count": c, "name": k[:120]}
-                       for ms, c, k in rows]}
-    if not rows:
-        say(f"breakdown {backend}: the profiler saw no device time "
-            "(not measured)")
-        return out
-    say(f"breakdown heat N=512 step, backend {backend!r}: wall {wall_ms:.3f} "
-        f"ms, device busy {busy_ms:.3f} ms, idle {1 - busy_ms / wall_ms:.1%}")
-    for ms, c, k in rows[:8]:
-        say(f"  {ms:9.3f} ms {ms / busy_ms:6.1%} x{c:<4d} {k[:90]}")
+    lines = [f"breakdown {label}: the profiler saw no device time (not measured)"]
+    if rows:
+        lines = [f"breakdown {label}: wall {wall_ms:.3f} ms, device busy "
+                 f"{busy_ms:.3f} ms, idle {1 - busy_ms / wall_ms:.1%}"]
+        lines += [f"  {ms:9.3f} ms {ms / busy_ms:6.1%} x{c:<4d} {k[:90]}"
+                  for ms, c, k in rows[:8]]
+    return {"label": label, "wall_ms": wall_ms, "busy_ms": busy_ms,
+            "kernels": [{"ms": ms, "count": c, "name": k[:120]}
+                        for ms, c, k in rows], "lines": lines}
+
+
+def breakdown(backend):
+    """Phase 6: where one heat step at N=512 spends the card's time."""
+    import torch
+
+    from repro_torch.core.decomposition import PencilGrid
+    from repro_torch.solvers import make_solver
+
+    solver = make_solver("heat", PencilGrid.from_mesh(1, 1), 512,
+                         device="cuda", plan_cfg={"backend": backend})
+    state = solver.step(solver.init_state())
+    out = _profile(lambda: solver.step(state),
+                   f"heat N=512 step, backend {backend!r}")
+    for line in out["lines"]:
+        say(line)
     del solver, state
     torch.cuda.empty_cache()
     return out
 
 
+def ring_vs_plain(gen):
+    """Phase 3, the ring kernels: ``ring_payload`` in its three modes against
+    ``payload_plain`` (f64 and f32, N=16, 512, 8192, tolerance ``TOL``);
+    ``ring_send``/``ring_land`` against plain indexing, bit for bit, the
+    "peer" slot a second buffer of this process.  Returns each kernel's
+    max abs error at the main path's shape (N=512 f64)."""
+    import torch
+
+    from repro_torch.kernels import fft_radix2, ring_rdma
+
+    err512 = 0.0
+    for mode in ("forward", "inverse", "roundtrip"):
+        for dtype in (torch.float64, torch.float32):
+            for n in PAYLOAD_N:
+                rows = PAYLOAD_ROWS[n]
+                xr, xi, dr, di = (_rand((rows, n), dtype, gen) for _ in range(4))
+                diag = (dr, di) if mode == "roundtrip" else None
+                kr, ki = ring_rdma.ring_payload(xr, xi, diag=diag,
+                                                inverse=mode == "inverse")
+                twr, twi = fft_radix2.twiddles(n, dtype, xr.device)
+                pr, pi = ring_rdma.payload_plain(xr, xi, twr, twi, diag,
+                                                 mode == "inverse")
+                torch.cuda.synchronize()
+                scale = max(pr.abs().max().item(), pi.abs().max().item())
+                err = max((kr - pr).abs().max().item(),
+                          (ki - pi).abs().max().item())
+                tol = TOL[str(dtype).removeprefix("torch.")]
+                ok = err <= tol * scale
+                say(f"kernel vs plain: ring_payload {mode} {str(dtype)[6:]} "
+                    f"rows={rows} N={n}: max|d| {err:.3e} = "
+                    f"{err / scale:.3e} max|y| (tol {tol:g}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"ring_payload {mode} disagrees with its plain "
+                         f"version at rows={rows} N={n} {dtype}")
+                if dtype == torch.float64 and n == 512:
+                    err512 = max(err512, err)
+    p, blk = 4, SLAB[2] // 4
+    for dtype in (torch.float64, torch.float32):
+        xs = [_rand(SLAB, dtype, gen) for _ in range(2)]
+        slots = [torch.empty(SLAB[:2] + (blk,), dtype=dtype, device="cuda")
+                 for _ in range(2)]
+        ring_rdma.ring_send(xs, 1, p, 2, slots)
+        outs = [torch.empty((SLAB[0], p * SLAB[1], blk), dtype=dtype,
+                            device="cuda") for _ in range(2)]
+        ring_rdma.ring_land(slots, outs, 2, p, 1)
+        ring_rdma.ring_land([x[..., :blk] for x in xs], outs, 0, p, 1)
+        torch.cuda.synchronize()
+        send_ok = all(torch.equal(s_, x[..., blk:2 * blk]) for s_, x in zip(slots, xs))
+        land_ok = all(torch.equal(o[:, 2 * SLAB[1]:3 * SLAB[1]], s_)
+                      and torch.equal(o[:, :SLAB[1]], x[..., :blk])
+                      for o, s_, x in zip(outs, slots, xs))
+        say(f"kernel vs plain: ring_send {str(dtype)[6:]} {SLAB} block 1 of "
+            f"{p}: {'bit for bit' if send_ok else 'FAIL'}; ring_land (a "
+            f"slot, and the own block strided): "
+            f"{'bit for bit' if land_ok else 'FAIL'}")
+        if not (send_ok and land_ok):
+            fail("ring_send/ring_land disagree with plain indexing")
+    return {"ring_payload": err512, "ring_send": 0.0, "ring_land": 0.0}
+
+
+def ring_timing(gen):
+    """Phase 4, the ring kernels at run (a)'s shapes, f64, CUDA events:
+    each kernel, its plain version, PyTorch's own call where one computes
+    the same function (``torch._foreach_copy_`` of both arrays' blocks for
+    the wire kernels), and the bound.  The roundtrip mode has no one
+    PyTorch call; ``torch.fft.fft`` + multiply + ``torch.fft.ifft`` are
+    timed apart and reported as their sum (``library_sum_ms``)."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import fft_radix2, ring_rdma
+
+    n, item, rows = 512, 8, PAYLOAD_ROWS[512]
+    stages = int(math.log2(n))
+    twr, twi = fft_radix2.twiddles(n, torch.float64, torch.device("cuda"))
+    xr, xi, dr, di = (_rand((rows, n), torch.float64, gen) for _ in range(4))
+    z, d = torch.complex(xr, xi), torch.complex(dr, di)
+    lib = {"fft": _time_ms(lambda: torch.fft.fft(z), 20, 3),
+           "ifft": _time_ms(lambda: torch.fft.ifft(z), 20, 3),
+           "mul": _time_ms(lambda: z * d, 20, 3)}
+    out = []
+    for mode in ("forward", "inverse", "roundtrip"):
+        diag = (dr, di) if mode == "roundtrip" else None
+        inv = mode == "inverse"
+        ms = _time_ms(lambda: ring_rdma.ring_payload(xr, xi, diag=diag,
+                                                     inverse=inv), 20, 3)
+        plain_ms = _time_ms(lambda: ring_rdma.payload_plain(
+            xr, xi, twr, twi, diag, inv), 3, 1)
+        arrays = 6 if diag else 4
+        moved = arrays * rows * n * item + 2 * stages * (n // 2) * item
+        flops = rows * (5 * n * stages * (2 if diag else 1)
+                        + (6 * n if diag else 0))
+        t = {"kernel": "ring_payload", "mode": mode, "rows": rows, "n": n,
+             "ms": ms, "plain_ms": plain_ms, "bytes": moved, "flops": flops,
+             "library_ms": {"forward": lib["fft"], "inverse": lib["ifft"]}.get(mode),
+             "library_sum_ms": (lib["fft"] + lib["mul"] + lib["ifft"]
+                                if diag else None)}
+        out.append(t)
+    blk = SLAB[2] // 4
+    xs = [_rand(SLAB, torch.float64, gen) for _ in range(2)]
+    slots = [torch.empty(SLAB[:2] + (blk,), dtype=torch.float64, device="cuda")
+             for _ in range(2)]
+    outs = [torch.empty((SLAB[0], 4 * SLAB[1], blk), dtype=torch.float64,
+                        device="cuda") for _ in range(2)]
+
+    blocks = [x[..., blk:2 * blk] for x in xs]
+    places = [o[:, SLAB[1]:2 * SLAB[1]] for o in outs]
+
+    def send_plain():
+        for s_, b in zip(slots, blocks):
+            s_.copy_(b)
+
+    def land_plain():
+        for o, s_ in zip(places, slots):
+            o.copy_(s_)
+    moved = 2 * SLAB[0] * SLAB[1] * blk * item  # both arrays' block
+    for name, kernel, plain, library in (
+            ("ring_send", lambda: ring_rdma.ring_send(xs, 1, 4, 2, slots),
+             send_plain, lambda: torch._foreach_copy_(slots, blocks)),
+            ("ring_land", lambda: ring_rdma.ring_land(slots, outs, 1, 4, 1),
+             land_plain, lambda: torch._foreach_copy_(places, slots))):
+        # on one card a copy reads and writes HBM: 2 * bytes
+        out.append({"kernel": name, "mode": "2 arrays",
+                    "shape": SLAB[:2] + (blk,), "ms": _time_ms(kernel, 50, 5),
+                    "plain_ms": _time_ms(plain, 50, 5), "bytes": 2 * moved,
+                    "flops": 0, "library_ms": _time_ms(library, 50, 5),
+                    "library_sum_ms": None})
+    for t in out:
+        bytes_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = t["flops"] / FP64_FLOPS * 1e3
+        t["bound_ms"] = max(bytes_ms, ops_ms)
+        t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        lib = (f"torch {t['library_ms']:.4f} ms" if t["library_ms"] is not None
+               else (f"fft+mul+ifft (a sum of 3 calls) {t['library_sum_ms']:.4f} ms"
+                     if t["library_sum_ms"] is not None else "no one torch call"))
+        say(f"timing {t['kernel']} {t['mode']} f64: kernel {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, {lib}, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}: {t['bytes']} B), {t['bound_ms'] / t['ms']:.1%} "
+            "of the bound")
+    del xr, xi, dr, di, z, d, xs, slots, outs, blocks, places
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ring_counts():
+    from repro_torch.kernels import fft_radix2, ref, ring_rdma
+    return {"ring_payload": ring_rdma.payload_launches,
+            "ring_send": ring_rdma.send_launches,
+            "ring_land": ring_rdma.land_launches,
+            "fft_radix2": fft_radix2.launches, "ref.calls": ref.calls,
+            "payload_plain": ring_rdma.plain_calls}
+
+
+def _zero_ring_counts():
+    from repro_torch.kernels import fft_radix2, ref, ring_rdma
+    ring_rdma.payload_launches = ring_rdma.send_launches = 0
+    ring_rdma.land_launches = ring_rdma.plain_calls = 0
+    fft_radix2.launches = ref.calls = 0
+
+
+def _wire_vs_plain(ctx):
+    """Phase 7, in each rank: both NIC engines' fold and unfold of N=64
+    blocks on the peer-mapped wire and on the gloo wire (the same random
+    blocks, on the card and on the host), twice in a row with different
+    data; True where they match bit for bit."""
+    import torch
+
+    from repro_torch import dist
+    from repro_torch.core import comm
+    from repro_torch.core.decomposition import XY_STEP, YZ_STEP
+    from repro_torch.core.engine_spec import EngineSpec
+
+    same = {}
+    for pu, pv in WIRE_MESHES:
+        c = dist.regrid(pu, pv)
+        grid = c.grid()
+        for engine in ("pallas_ring", "bidi_ring"):
+            eng = comm.build_engine(EngineSpec(engine=engine), grid)
+            ok = True
+            for seed in (1, 2):
+                g = torch.Generator().manual_seed(1000 * seed + ctx.rank)
+                x = torch.randn(64 // pu, 64 // pv, 64, dtype=torch.float64,
+                                generator=g)
+                for step in (XY_STEP, YZ_STEP):
+                    a = eng.fold_step(step, x.to(c.device))
+                    b = eng.fold_step(step, x)
+                    ua, ub = eng.unfold_step(step, a), eng.unfold_step(step, b)
+                    ok = ok and torch.equal(a.cpu(), b) \
+                        and torch.equal(ua.cpu(), ub) and torch.equal(ub, x)
+            same[f"{pu}x{pv}/{engine}"] = ok
+    return same
+
+
+def _multi_rank_run(ctx, tag, case, mesh, cfg, ref_hist, n):
+    """Phase 7, in each rank: one multi-rank run of the main path at N=n,
+    its counts set to 0 just before its steps and read just after."""
+    import numpy as np
+    import torch
+
+    from repro_torch import dist
+    from repro_torch.core import transpose as tr
+    from repro_torch.core.fft3d import gather_pencil
+    from repro_torch.solvers import make_solver
+    from repro_torch.solvers.base import observables_rel_err
+
+    c = dist.regrid(*mesh)
+    grid = c.grid()
+    dev = c.device
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    solver = make_solver(case, grid, n, device=dev, plan_cfg=cfg)
+    state = solver.init_state()
+    r = {"tag": tag, "case": case, "mesh": list(mesh), **cfg}
+    if case == "heat":  # block for block the 1x1 initial field
+        u, v = grid.coords
+        whole = np.load(os.path.join(REF_DIR, "heat_init_0.npy"), mmap_mode="r")
+        a, b = whole.shape[0] // grid.pu, whole.shape[1] // grid.pv
+        block = torch.from_numpy(np.array(whole[u * a:(u + 1) * a, v * b:(v + 1) * b]))
+        r["init_blocks"] = bool(torch.equal(state.fields[0].cpu(), block))
+    before = {k: (w.exchanges, w.rounds) for k, w in c.wires().items()}
+    history = [solver.observables(state)]
+    step_ms = []
+    if cuda:
+        torch.cuda.synchronize(dev)
+    _zero_ring_counts()
+    for _ in range(MULTI_STEPS):
+        t0 = time.perf_counter()
+        state = solver.step(state)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        history.append(solver.observables(state))
+    r["counts"] = _ring_counts()
+    model = tr.bidi_rounds if cfg["comm_engine"] == "bidi_ring" else tr.ring_rounds
+    r["wires"] = {}
+    for (dim, kind), w in c.wires().items():
+        if kind == dev.type:
+            ex0, ro0 = before.get((dim, kind), (0, 0))
+            r["wires"][dim] = {"p": w.p, "exchanges": w.exchanges - ex0,
+                               "rounds": w.rounds - ro0,
+                               "model_rounds": (w.exchanges - ex0) * model(w.p)}
+    r["exchange_rounds"] = solver.plan.engine().exchange_rounds
+    r["step_ms"] = step_ms
+    r["obs_rel_err"] = max(observables_rel_err(a, b)
+                           for a, b in zip(history, ref_hist))
+    r["history"] = history
+    r["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    fields = [gather_pencil(f, grid) for f in state.fields]
+    if cuda:  # one more step, every rank; rank 0 traces its own kernels
+        step = (lambda: solver.step(state))
+        if ctx.rank == 0:
+            r["breakdown"] = _profile(step, f"({tag}) {case} {mesh[0]}x{mesh[1]} "
+                                            "step, rank 0's kernels")
+        else:
+            step()
+    if ctx.rank == 0:
+        errs = []
+        for i, f in enumerate(fields):
+            want = np.load(os.path.join(REF_DIR, f"{case}_{i}.npy"), mmap_mode="r")
+            got = f.numpy()
+            errs.append(float(np.abs(got - want).max() / np.abs(want).max())
+                        if got.shape == want.shape else float("inf"))
+        r["field_rel_err"] = max(errs)
+        r["finite"] = all(bool(torch.isfinite(f).all()) for f in fields)
+        r["shapes"] = [list(f.shape) for f in fields]
+    del solver, state, fields
+    if cuda:
+        torch.cuda.empty_cache()
+    return r
+
+
+def _ranks_main(ctx, ref_hists, n=512):
+    """Everything the 4 rank processes do: the wire against its plain
+    version, then the three runs of the multi-rank main path."""
+    return {"rank": ctx.rank, "wire": _wire_vs_plain(ctx),
+            "runs": [_multi_rank_run(ctx, tag, case, mesh, cfg, ref_hists[case], n)
+                     for tag, case, mesh, cfg in MULTI_RANK]}
+
+
+def multi_rank(runs):
+    """Phase 7: one spawn of 4 rank processes on the one card (the parent's
+    cache freed first): the wire against its plain version, then the
+    multi-rank main path held against the 1×1 radix-2 runs of phase 5 —
+    per-step observables and final fields within 1e-10, counts of every
+    kernel the run's mode uses above 0, no plain version, and
+    ``exchange_rounds`` equal to the round model summed over the wires."""
+    import torch
+
+    from repro_torch import dist
+
+    ref_hists = {case: runs["fft_radix2"][i]["history"]
+                 for case, i in REFERENCE.items()}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = dist.run_ranks(_ranks_main, 4, 1, device="cuda", args=(ref_hists,),
+                           timeout=900)
+    say(f"multi-rank: 4 rank processes on one card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for key in ranks[0]["wire"]:
+        same = all(r["wire"][key] for r in ranks)
+        say(f"wire vs plain {key} N=64, two exchanges a fold: "
+            f"{'bit for bit' if same else 'FAIL'} on every rank")
+        if not same:
+            fail(f"the peer-mapped wire disagrees with gloo: {key}")
+    launches = dict.fromkeys(RING_KERNELS, 0)
+    for i, (tag, case, mesh, cfg) in enumerate(MULTI_RANK):
+        rs = [r["runs"][i] for r in ranks]
+        r0 = rs[0]
+        name = f"({tag}) {case} {mesh[0]}x{mesh[1]} {cfg['comm_engine']}"
+        for rank, r in enumerate(rs):
+            c = r["counts"]
+            say(f"{name} rank {rank}: ms/step {[round(t, 3) for t in r['step_ms']]}, counts {c}, "
+                f"exchange_rounds {r['exchange_rounds']}, wires {r['wires']}, "
+                f"peak {r['peak_bytes'] / 2**30:.2f} GiB, obs vs 1x1 "
+                f"{r['obs_rel_err']:.2e}")
+            for k in ("ring_payload", "ring_send", "ring_land", "fft_radix2"):
+                if c[k] == 0:
+                    fail(f"{name}: {k} never launched")
+            if c["ref.calls"] or c["payload_plain"]:
+                fail(f"{name}: a plain version ran: {c}")
+            wire_rounds = sum(w["rounds"] for w in r["wires"].values())
+            if r["exchange_rounds"] != wire_rounds or any(
+                    w["rounds"] != w["model_rounds"] for w in r["wires"].values()):
+                fail(f"{name}: exchange_rounds {r['exchange_rounds']} vs the "
+                     f"wires {r['wires']}")
+            if r["obs_rel_err"] > 1e-10:
+                fail(f"{name}: observables differ from the 1x1 run by "
+                     f"{r['obs_rel_err']:.3e} > 1e-10")
+            if r.get("init_blocks") is False:
+                fail(f"{name}: initial fields differ from the 1x1 blocks")
+            for k in RING_KERNELS:
+                launches[k] += c[k]
+        for line in r0.get("breakdown", {}).get("lines", []):
+            say(line)
+        say(f"{name}: final fields vs 1x1 {r0['field_rel_err']:.2e} max|y|, "
+            f"finite {r0['finite']}, shapes {r0['shapes']}"
+            + (f", initial fields = 1x1 blocks on every rank" if "init_blocks" in r0 else ""))
+        if not r0["finite"] or r0["field_rel_err"] > 1e-10:
+            fail(f"{name}: final fields differ from the 1x1 run by "
+                 f"{r0['field_rel_err']:.3e} (finite {r0['finite']})")
+    return ranks, launches
+
+
 REPLACES = {"fft_radix2": "src/repro/kernels/fft_radix2.py:90",
-            "fft_mxu": "src/repro/kernels/fft_mxu.py:80"}
+            "fft_mxu": "src/repro/kernels/fft_mxu.py:80",
+            "ring_payload": "src/repro/kernels/ring_rdma.py:153",
+            "ring_send": "src/repro/kernels/ring_rdma.py:88",
+            "ring_land": "src/repro/kernels/ring_rdma.py:101"}
 
 
 def main() -> int:
@@ -408,9 +826,14 @@ def main() -> int:
     build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_abs = kernel_vs_plain(gen)
+    max_abs.update(ring_vs_plain(gen))
     times = timing(gen)
+    ring_times = ring_timing(gen)
+    os.makedirs(REF_DIR, exist_ok=True)
     runs, launches = main_path()
     prof = [breakdown(BACKEND[k]) for k in KERNELS]
+    ranks, ring_launches = multi_rank(runs)
+    launches.update(ring_launches)
 
     kernels = []
     for k in KERNELS:
@@ -421,11 +844,19 @@ def main() -> int:
             "max_abs_err": max_abs[k], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    for k in RING_KERNELS:
+        t = next(t for t in ring_times if t["kernel"] == k)  # payload: forward
+        kernels.append({
+            "name": k, "route": "cuda", "source": "src/repro_torch/csrc/ring_rdma.cu",
+            "replaces": REPLACES[k], "launches": launches[k],
+            "max_abs_err": max_abs[k], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
-        json.dump({"card": smi, "device": name, "timing": times,
-                   "kernels": kernels, "runs": runs, "breakdown": prof},
-                  f, indent=1)
+        json.dump({"card": smi, "device": name, "timing": times + ring_times,
+                   "kernels": kernels, "runs": runs, "breakdown": prof,
+                   "multi_rank": ranks}, f, indent=1)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

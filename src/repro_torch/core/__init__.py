@@ -1,2 +1,2 @@
-"""Geometry, transposes, engines, the single-rank 3D FFT and the spectral
-operators of the port."""
+"""Geometry, transposes, engines, the 3D FFT and the spectral operators of
+the port."""

@@ -118,16 +118,6 @@ class PencilGrid:
         return s * (nx * ny * nz + 2 * ny * nz) // self.p
 
 
-def require_single_rank(grid: PencilGrid, who: str) -> None:
-    """Refuse a grid of more than one rank: this slice of the port runs on
-    one rank only."""
-    if grid.p > 1:
-        raise NotImplementedError(
-            f"{who}: a {grid.pu}x{grid.pv} grid needs the multi-rank comm "
-            "engines on torch.distributed, ROADMAP Queue 1 item 5; this port "
-            "runs the 1x1 grid only")
-
-
 # ---------------------------------------------------------------------------
 # Communication DAG: axis-labelled transpose steps
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Single-rank 3D FFT over the pencil pipeline — port of ``repro.core.fft3d``.
+"""3D FFT over the pencil pipeline — port of ``repro.core.fft3d``.
 
 The transpose method (§3.2.4): local X FFT → X↔Y fold → local Y FFT → Y↔Z
 fold → local Z FFT, walked over the plan's :class:`CommDAG` through a
@@ -13,8 +13,13 @@ multiply (:class:`DiagonalKernel`) → inverse FFT; with the plan's
 ``fused_roundtrip`` knob on, the Y↔Z phase pair runs slab by slab through
 ``run_roundtrip``.
 
-On one rank every fold is a local permute, so the "local" functions are the
-whole transform; :func:`make_fft3d` wraps them as entry points on a device.
+The "local" functions run on this rank's pencil; on one rank every fold is
+a local permute and they are the whole transform.  On a grid of more ranks
+each rank process (:func:`repro_torch.dist.run_ranks`) calls them on its
+own block, where the reference runs them inside ``shard_map``;
+:func:`scatter_pencil` and :func:`gather_pencil` cut a global pencil into
+the blocks and put it back together on rank 0.  :func:`make_fft3d` wraps
+the local functions as entry points on a device.
 """
 
 from __future__ import annotations
@@ -23,11 +28,12 @@ import dataclasses
 from typing import Literal
 
 import torch
+import torch.distributed as tdist
 import torch.nn.functional as F
 
+from repro_torch import dist
 from repro_torch.core import comm, precision
-from repro_torch.core.decomposition import (CommDAG, PencilGrid, fft3d_dag,
-                                            require_single_rank)
+from repro_torch.core.decomposition import CommDAG, PencilGrid, fft3d_dag
 from repro_torch.core.engine_spec import EngineSpec
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
@@ -49,6 +55,8 @@ class FFT3DPlan:
     comm_engine: str = ""            # "" -> engine named by ``net``
     dtype: str = ""                  # "" -> caller-supplied tensors decide
     fused_roundtrip: bool = False    # slab-streamed diagonal roundtrips
+    _engine: object = dataclasses.field(default=None, init=False,
+                                        repr=False, compare=False)
 
     def __post_init__(self):
         self.grid.validate(self.n)
@@ -87,7 +95,12 @@ class FFT3DPlan:
         return fft3d_dag(self.real)
 
     def engine(self) -> comm.TransposeEngine:
-        return comm.build_engine(self.spec(), self.grid)
+        """The plan's engine, built once (its ``exchange_rounds`` counts
+        over every transform of the plan)."""
+        if self._engine is None:
+            object.__setattr__(self, "_engine",
+                               comm.build_engine(self.spec(), self.grid))
+        return self._engine
 
     @property
     def kx(self) -> int:
@@ -272,18 +285,54 @@ def ifft3d_vector_local(plan: FFT3DPlan, kr, ki,
 # entry point
 # ---------------------------------------------------------------------------
 
+def scatter_pencil(x, grid: PencilGrid) -> torch.Tensor:
+    """This rank's block of a global pencil (X-pencil ``(..., Ny, Nz, Nx)``
+    or Z-pencil ``(..., Kx, Ny, Nz)``): axis −3 cut by ``u``, axis −2 by
+    ``v``, as the reference's ``P(u, v, None)`` sharding does."""
+    x = torch.as_tensor(x)
+    u, v = grid.coords
+    a = x.shape[-3] // grid.pu
+    b = x.shape[-2] // grid.pv
+    return x[..., u * a:(u + 1) * a, v * b:(v + 1) * b, :]
+
+
+def gather_pencil(local: torch.Tensor, grid: PencilGrid):
+    """The global pencil from every rank's block (:func:`scatter_pencil`'s
+    inverse), on the CPU of rank 0; None on the other ranks.  Collective
+    over the ranks (gloo on the host)."""
+    if grid.p == 1:
+        return local.detach().cpu()
+    t = local.detach().to("cpu").contiguous()
+    rank = dist.context().rank
+    parts = [torch.empty_like(t) for _ in range(grid.p)] if rank == 0 else None
+    tdist.gather(t, parts, dst=0)
+    if rank != 0:
+        return None
+    a, b = t.shape[-3], t.shape[-2]
+    out = torch.empty(t.shape[:-3] + (a * grid.pu, b * grid.pv, t.shape[-1]),
+                      dtype=t.dtype)
+    for r, part in enumerate(parts):
+        u, v = dist.coords_of(r, grid.pv)
+        out[..., u * a:(u + 1) * a, v * b:(v + 1) * b, :] = part
+    return out
+
+
 def make_fft3d(grid: PencilGrid, n, *, spec: EngineSpec | None = None,
                real: bool | None = None, components: int = 0,
                device="cuda"):
-    """Build ``(forward, inverse, plan)`` on ``device`` for a 1×1 grid.
+    """Build ``(forward, inverse, plan)`` on ``device`` for this rank.
 
-    Layout as in the reference: forward takes the X-pencil ``(Ny, Nz, Nx)``
-    (plus a leading component axis if ``components``) and returns the
-    Z-pencil spectrum ``(Kx, Ny, Nz)`` as a planar pair; inverse undoes it.
-    Inputs (tensors or numpy arrays) are moved to ``device``.  ``real``
-    describes the problem and overrides ``spec.real`` when given.
+    Layout as in the reference, per rank: forward takes this rank's block
+    of the X-pencil ``(Ny/Pu, Nz/Pv, Nx)`` (plus a leading component axis
+    if ``components``) and returns its block of the Z-pencil spectrum
+    ``(Kx/Pu, Ny/Pv, Nz)`` as a planar pair; inverse undoes it.  On a grid
+    of more than one rank, call it in every rank process of
+    :func:`repro_torch.dist.run_ranks` (the grid takes this rank's
+    coordinates).  Inputs (tensors or numpy arrays) are moved to
+    ``device``.  ``real`` describes the problem and overrides ``spec.real``
+    when given.
     """
-    require_single_rank(grid, "make_fft3d")
+    grid = dist.bind_grid(grid, "make_fft3d")
     dev = resolve_device(device)
     n = (n, n, n) if isinstance(n, int) else tuple(n)
     s = spec if spec is not None else EngineSpec()

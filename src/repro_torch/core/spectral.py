@@ -5,13 +5,16 @@ fields — local shape ``(..., Kx/Pu, Ny/Pv, Nz)`` — carried as planar
 ``(re, im)`` tensor pairs.  The local wavenumber slabs depend on this
 rank's ``(u, v)`` grid coordinates, which come from ``plan.grid.coords``.
 Wavenumber helpers take the ``dtype`` and ``device`` of the fields they
-serve.  The grid reductions are the identity on one rank.
+serve.  The grid reductions (``lax.psum``/``lax.pmax`` in the reference)
+are the identity on one rank and an all-reduce over the ranks' gloo group
+otherwise: they carry a few observable scalars, through the host.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch import dist
 from repro_torch.core import precision
 from repro_torch.core.fft3d import FFT3DPlan, fft3d_vector_local, ifft3d_vector_local
 
@@ -152,22 +155,14 @@ def rotational_nonlinear_term(plan: FFT3DPlan, vr, vi, *,
     return nr, ni
 
 
-def _single_rank_reduction(plan: FFT3DPlan, x, op: str):
-    if plan.grid.p > 1:
-        raise NotImplementedError(
-            f"grid_{op} over {plan.grid.p} ranks needs torch.distributed, "
-            "ROADMAP Queue 1 item 5")
-    return x
-
-
 def grid_sum(plan: FFT3DPlan, x):
     """Sum of local scalar ``x`` over the whole Pu×Pv processor grid."""
-    return _single_rank_reduction(plan, x, "sum")
+    return x if plan.grid.p == 1 else dist.all_reduce(x, "sum")
 
 
 def grid_max(plan: FFT3DPlan, x):
     """Max of local scalar ``x`` over the whole Pu×Pv processor grid."""
-    return _single_rank_reduction(plan, x, "max")
+    return x if plan.grid.p == 1 else dist.all_reduce(x, "max")
 
 
 def energy_spectrum_total(plan: FFT3DPlan, vr, vi):

@@ -20,13 +20,16 @@
 // one row, loads it once with coalesced reads, runs all log2(N) stages on
 // the 2*N*sizeof(T) bytes of dynamic shared memory (__syncthreads between
 // stages), and writes it once through the bit-reversal gather.  Device
-// memory sees exactly one read and one write of the data.
+// memory sees exactly one read and one write of the data.  The stages
+// themselves are radix2_stages.cuh, shared with the ring payload kernel.
 //
 // C interface (no PyTorch headers, bound with ctypes): each entry point
 // launches on the given stream and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "radix2_stages.cuh"
 
 namespace {
 
@@ -51,34 +54,12 @@ __global__ void fft_radix2_kernel(const T* __restrict__ xr,
   }
   __syncthreads();
 
-  const int halfn = n >> 1;
-  for (int s = 0; s < log2n; ++s) {
-    const int shift = log2n - s - 1;  // half = 2^shift butterfly span
-    const int half = 1 << shift;
-    const T* wr_row = twr + static_cast<size_t>(s) * halfn;
-    const T* wi_row = twi + static_cast<size_t>(s) * halfn;
-    for (int b = threadIdx.x; b < halfn; b += blockDim.x) {
-      const int g = b >> shift;            // butterfly group
-      const int j = b & (half - 1);        // position inside the group
-      const int ia = (g << (shift + 1)) + j;
-      const int ib = ia + half;
-      const T ar = sr[ia], ai = si[ia];
-      const T br = sr[ib], bi = si[ib];
-      const T dr = ar - br, di = ai - bi;
-      const T wr = wr_row[b], wi = wi_row[b];
-      sr[ia] = ar + br;
-      si[ia] = ai + bi;
-      sr[ib] = dr * wr - di * wi;
-      si[ib] = dr * wi + di * wr;
-    }
-    __syncthreads();
-  }
+  radix2::dif_stages(sr, si, twr, twi, n, log2n);
 
   T* outr = yr + base;
   T* outi = yi + base;
-  const int rshift = 32 - log2n;
   for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const int src = static_cast<int>(__brev(static_cast<unsigned>(k)) >> rshift);
+    const int src = radix2::bitrev(k, log2n);
     if (inverse) {
       outr[k] = sr[src] * scale;
       outi[k] = -si[src] * scale;
@@ -100,7 +81,7 @@ int launch(const void* xr, const void* xi, const void* twr, const void* twi,
       fft_radix2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = (n / 2 < 256) ? n / 2 : 256;
+  const int threads = radix2::threads_for(n);
   fft_radix2_kernel<T><<<static_cast<unsigned>(rows), threads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(xr), static_cast<const T*>(xi),

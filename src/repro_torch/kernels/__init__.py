@@ -1,2 +1,3 @@
-"""1D FFT engines of the port: the radix-2 and four-step CUDA kernels, their
-plain PyTorch versions, and the backend-dispatching wrappers of :mod:`.ops`."""
+"""Kernels of the port: the radix-2 and four-step FFT CUDA kernels, the
+ring kernels of the NIC engine (:mod:`.ring_rdma`), their plain PyTorch
+versions, and the backend-dispatching wrappers of :mod:`.ops`."""

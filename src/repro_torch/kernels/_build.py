@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
 ``nvcc`` compiles it in seconds into ``build/kernels/<name>-<hash>.so`` at the
-root of the checkout, keyed by a hash of the source and the flags; ``ctypes``
-loads it.  ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory,
-spills) is kept beside the library as ``<name>-<hash>.log``.
+root of the checkout, keyed by a hash of the source, the ``csrc/*.cuh``
+headers it includes and the flags; ``ctypes`` loads it.  A source that
+calls the CUDA driver API links ``libcuda`` (``LINK``).  ``nvcc``'s
+``-Xptxas -v`` report (registers, shared memory, spills) is kept beside the
+library as ``<name>-<hash>.log``.
 
 A missing ``nvcc`` or a failed build raises: nothing here falls back to a
 plain PyTorch version.
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -24,6 +27,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: extra link flags of the sources that need them
+LINK = {"ring_rdma": ("-lcuda",)}
+_INCLUDE = re.compile(rb'^\s*#include\s+"([\w.]+\.cuh)"', re.MULTILINE)
 
 
 def nvcc() -> str:
@@ -37,9 +43,15 @@ def nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
+def _flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + LINK.get(name, ())
+
+
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    src = (CSRC / f"{name}.cu").read_bytes()
+    headers = b"".join((CSRC / h.decode()).read_bytes()
+                       for h in _INCLUDE.findall(src))
+    digest = hashlib.sha256(src + headers + " ".join(_flags(name)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -55,7 +67,8 @@ def build_all(names) -> dict[str, Path]:
         for name, t in todo.items():
             tmp = t.with_name(f"{t.stem}.{os.getpid()}.tmp.so")
             procs[name] = (tmp, subprocess.Popen(
-                [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+                 *LINK.get(name, ())],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         failed = []
         for name, (tmp, proc) in procs.items():

@@ -31,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _launch, ref
 
 launches = 0
 plain_calls = 0
@@ -39,7 +39,10 @@ plain_calls = 0
 #: the kernel's range of N (shared memory bounds the top in f64)
 MIN_N, MAX_N = 4, 8192
 
-_lib = None
+_SIGNATURE = [ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_void_p]
+_LIB = _launch.Library("fft_mxu", {"fft_mxu_f32": _SIGNATURE,
+                                   "fft_mxu_f64": _SIGNATURE})
 _plans: dict = {}
 
 
@@ -123,60 +126,31 @@ def four_step_planar(x_re: torch.Tensor, x_im: torch.Tensor, *,
     return yr, yi
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = _build.load("fft_mxu")
-        for fn in (lib.fft_mxu_f32, lib.fft_mxu_f64):
-            fn.argtypes = [ctypes.c_void_p] * 10 + [
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
 def fft1d_mxu(x_re: torch.Tensor, x_im: torch.Tensor, *, inverse: bool = False):
     """Batched four-step FFT over the last axis (any leading shape), planar
     in and out.  ``inverse`` gives ``ifft`` by the conjugate trick."""
     global launches
-    if x_re.shape != x_im.shape or x_re.dtype != x_im.dtype \
-            or x_re.device != x_im.device:
-        raise ValueError("x_re and x_im must share shape, dtype and device: "
-                         f"{tuple(x_re.shape)}/{x_re.dtype}/{x_re.device} vs "
-                         f"{tuple(x_im.shape)}/{x_im.dtype}/{x_im.device}")
+    _launch.check_pair(x_re, x_im)
     n = x_re.shape[-1]
     _check_n(n)
-    if x_re.device.type == "cpu":
+    if _launch.runs_plain("fft1d_mxu", x_re):
         return four_step_planar(x_re, x_im, inverse=inverse)
-    if x_re.device.type != "cuda":
-        raise ValueError(f"fft1d_mxu runs on cuda or cpu tensors, got "
-                         f"{x_re.device}")
-    if x_re.dtype == torch.float32:
-        fn = _library().fft_mxu_f32
-    elif x_re.dtype == torch.float64:
-        fn = _library().fft_mxu_f64
-    else:
-        raise ValueError(f"fft1d_mxu takes float32 or float64, got {x_re.dtype}")
-    if not (x_re.is_contiguous() and x_im.is_contiguous()):
-        raise ValueError("fft1d_mxu needs contiguous inputs")
+    fn = _LIB.fn("fft_mxu_" + _launch.dtype_suffix("fft1d_mxu", x_re.dtype))
+    _launch.check_contiguous("fft1d_mxu", x_re, x_im)
     if n > MAX_N:
         raise ValueError(f"fft1d_mxu runs N <= {MAX_N} (one row in a block's "
                          f"shared memory), got {n}")
     rows = x_re.numel() // n
-    if rows >= 2 ** 31:
-        raise ValueError(f"{rows} rows exceed the grid limit of 2**31 - 1")
+    _launch.check_rows(rows)
     y_re = torch.empty_like(x_re)
     y_im = torch.empty_like(x_im)
     if rows == 0:
         return y_re, y_im
     p = plan(n, x_re.dtype, x_re.device)
     tables = [t.data_ptr() for pair in (p.d1, p.tw, p.d2) for t in pair]
-    with torch.cuda.device(x_re.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x_re.data_ptr(), x_im.data_ptr(), *tables, y_re.data_ptr(),
-                 y_im.data_ptr(), rows, n, int(inverse), stream)
-    if err != 0:
-        raise RuntimeError(f"fft_mxu kernel launch failed: CUDA error {err} "
-                           f"(rows={rows}, N={n}, {x_re.dtype})")
+    _launch.launch("fft_mxu", fn, x_re.device, x_re.data_ptr(),
+                   x_im.data_ptr(), *tables, y_re.data_ptr(), y_im.data_ptr(),
+                   rows, n, int(inverse),
+                   detail=f"rows={rows}, N={n}, {x_re.dtype}")
     launches += 1
     return y_re, y_im

@@ -21,27 +21,18 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _launch, ref
 
 launches = 0
 
 #: largest dynamic shared memory one block may use on Hopper (227 KB)
 MAX_SMEM_BYTES = 232448
 
-_lib = None
+_SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_void_p]
+_LIB = _launch.Library("fft_radix2", {"fft_radix2_f32": _SIGNATURE,
+                                      "fft_radix2_f64": _SIGNATURE})
 _twiddles: dict = {}
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = _build.load("fft_radix2")
-        for fn in (lib.fft_radix2_f32, lib.fft_radix2_f64):
-            fn.argtypes = [ctypes.c_void_p] * 6 + [
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
 
 
 def twiddles(n: int, dtype: torch.dtype, device: torch.device):
@@ -55,51 +46,38 @@ def twiddles(n: int, dtype: torch.dtype, device: torch.device):
     return _twiddles[key]
 
 
+def check_row_smem(n: int, dtype: torch.dtype) -> None:
+    """Refuse a row that does not fit one block's shared memory."""
+    smem = 2 * n * dtype.itemsize
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"N={n} in {dtype} needs {smem} bytes of shared "
+                         f"memory per row; the limit is {MAX_SMEM_BYTES}")
+
+
 def fft1d_radix2(x_re: torch.Tensor, x_im: torch.Tensor, *, inverse: bool = False):
     """Batched radix-2 FFT over the last axis (any leading shape), planar
     in and out.  ``inverse`` gives ``ifft`` by the conjugate trick."""
     global launches
-    if x_re.shape != x_im.shape or x_re.dtype != x_im.dtype \
-            or x_re.device != x_im.device:
-        raise ValueError("x_re and x_im must share shape, dtype and device: "
-                         f"{tuple(x_re.shape)}/{x_re.dtype}/{x_re.device} vs "
-                         f"{tuple(x_im.shape)}/{x_im.dtype}/{x_im.device}")
+    _launch.check_pair(x_re, x_im)
     n = x_re.shape[-1]
     if not (ref.is_pow2(n) and n >= 2):
         raise ValueError(f"N must be a power of two >= 2, got {n}")
-    if x_re.device.type == "cpu":
+    if _launch.runs_plain("fft1d_radix2", x_re):
         f = ref.ifft_dif_planar if inverse else ref.fft_dif_planar
         return f(x_re, x_im)
-    if x_re.device.type != "cuda":
-        raise ValueError(f"fft1d_radix2 runs on cuda or cpu tensors, got "
-                         f"{x_re.device}")
-    if x_re.dtype == torch.float32:
-        fn = _library().fft_radix2_f32
-    elif x_re.dtype == torch.float64:
-        fn = _library().fft_radix2_f64
-    else:
-        raise ValueError(f"fft1d_radix2 takes float32 or float64, got {x_re.dtype}")
-    if not (x_re.is_contiguous() and x_im.is_contiguous()):
-        raise ValueError("fft1d_radix2 needs contiguous inputs")
-    smem = 2 * n * x_re.element_size()
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"N={n} in {x_re.dtype} needs {smem} bytes of shared "
-                         f"memory per row; the limit is {MAX_SMEM_BYTES}")
+    fn = _LIB.fn("fft_radix2_" + _launch.dtype_suffix("fft1d_radix2", x_re.dtype))
+    _launch.check_contiguous("fft1d_radix2", x_re, x_im)
+    check_row_smem(n, x_re.dtype)
     rows = x_re.numel() // n
-    if rows >= 2 ** 31:
-        raise ValueError(f"{rows} rows exceed the grid limit of 2**31 - 1")
+    _launch.check_rows(rows)
     y_re = torch.empty_like(x_re)
     y_im = torch.empty_like(x_im)
     if rows == 0:
         return y_re, y_im
     twr, twi = twiddles(n, x_re.dtype, x_re.device)
-    with torch.cuda.device(x_re.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x_re.data_ptr(), x_im.data_ptr(), twr.data_ptr(),
-                 twi.data_ptr(), y_re.data_ptr(), y_im.data_ptr(), rows, n,
-                 int(inverse), stream)
-    if err != 0:
-        raise RuntimeError(f"fft_radix2 kernel launch failed: CUDA error {err} "
-                           f"(rows={rows}, N={n}, {x_re.dtype})")
+    _launch.launch("fft_radix2", fn, x_re.device, x_re.data_ptr(),
+                   x_im.data_ptr(), twr.data_ptr(), twi.data_ptr(),
+                   y_re.data_ptr(), y_im.data_ptr(), rows, n, int(inverse),
+                   detail=f"rows={rows}, N={n}, {x_re.dtype}")
     launches += 1
     return y_re, y_im

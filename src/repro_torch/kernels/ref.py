@@ -67,16 +67,16 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def fft_dif_planar(x_re: torch.Tensor, x_im: torch.Tensor):
-    """Radix-2 DIF FFT over the last axis; natural-order in and out."""
-    global calls
-    calls += 1
+def dif_planar(x_re: torch.Tensor, x_im: torch.Tensor, tw_re: torch.Tensor,
+               tw_im: torch.Tensor):
+    """The DIF stages over the last axis with the ``(log2 N, N/2)`` twiddle
+    tables ``tw_re``/``tw_im``, then the bit-reversal reorder: natural order
+    in and out.  Not counted in ``calls`` (the ring payload's plain version
+    counts its own)."""
     n = x_re.shape[-1]
     if not (is_pow2(n) and n >= 2):
         raise ValueError(f"N must be a power of two >= 2, got {n}")
     stages = n.bit_length() - 1
-    dtype, device = x_re.dtype, x_re.device
-    tw_re_np, tw_im_np = twiddle_table_np(n, _dtype_name(dtype))
     lead = x_re.shape[:-1]
 
     xr = x_re.reshape(-1, n)
@@ -84,8 +84,8 @@ def fft_dif_planar(x_re: torch.Tensor, x_im: torch.Tensor):
     for s in range(stages):
         half = n >> (s + 1)
         groups = 1 << s
-        wr = torch.as_tensor(tw_re_np[s].reshape(1, groups, half), device=device)
-        wi = torch.as_tensor(tw_im_np[s].reshape(1, groups, half), device=device)
+        wr = tw_re[s].reshape(1, groups, half)
+        wi = tw_im[s].reshape(1, groups, half)
         xr = xr.reshape(-1, groups, 2, half)
         xi = xi.reshape(-1, groups, 2, half)
         ar, br = xr[:, :, 0, :], xr[:, :, 1, :]
@@ -98,10 +98,22 @@ def fft_dif_planar(x_re: torch.Tensor, x_im: torch.Tensor):
         xr = torch.stack([tr, ur], dim=2).reshape(-1, n)
         xi = torch.stack([ti, ui], dim=2).reshape(-1, n)
     # Output of the DIF tree is bit-reversed; reorder to natural order.
-    perm = torch.as_tensor(bitrev_permutation(n), device=device)
+    perm = torch.as_tensor(bitrev_permutation(n), device=x_re.device)
     xr = xr[:, perm].reshape(*lead, n)
     xi = xi[:, perm].reshape(*lead, n)
     return xr, xi
+
+
+def fft_dif_planar(x_re: torch.Tensor, x_im: torch.Tensor):
+    """Radix-2 DIF FFT over the last axis; natural-order in and out."""
+    global calls
+    calls += 1
+    n = x_re.shape[-1]
+    if not (is_pow2(n) and n >= 2):
+        raise ValueError(f"N must be a power of two >= 2, got {n}")
+    tw_re, tw_im = twiddle_table_np(n, _dtype_name(x_re.dtype))
+    return dif_planar(x_re, x_im, torch.as_tensor(tw_re, device=x_re.device),
+                      torch.as_tensor(tw_im, device=x_re.device))
 
 
 def ifft_dif_planar(x_re: torch.Tensor, x_im: torch.Tensor):

@@ -13,8 +13,11 @@ Concrete solvers implement ``initial_fields`` / ``step_fields`` /
 construction, the device, and the run loop.  The FFT plan knobs come from
 ``plan_cfg``, over the same pipelined/switched default as the reference.
 
-This slice runs on one rank (a 1×1 :class:`PencilGrid`); a larger grid
-raises ``NotImplementedError``.
+On a grid of more than one rank every rank process of
+:func:`repro_torch.dist.run_ranks` builds the solver; each holds its block
+of the fields (the global fields, computed from the same 1D factors on
+every rank, cut by its grid coordinates) and the observables reduce over
+the ranks.
 """
 
 from __future__ import annotations
@@ -26,8 +29,9 @@ from typing import ClassVar
 import numpy as np
 import torch
 
+from repro_torch import dist
 from repro_torch.core import precision
-from repro_torch.core.decomposition import PencilGrid, require_single_rank
+from repro_torch.core.decomposition import PencilGrid
 from repro_torch.core.fft3d import FFT3DPlan
 from repro_torch.device import resolve_device
 
@@ -96,7 +100,7 @@ class SpectralSolver(abc.ABC):
     def __init__(self, grid: PencilGrid, n, *, dt: float = 1e-2,
                  dtype="float64", plan_cfg: dict | None = None,
                  device="cuda"):
-        require_single_rank(grid, f"solvers.{self.case}")
+        grid = dist.bind_grid(grid, f"solvers.{self.case}")
         self.device = resolve_device(device)
         self.n = (n, n, n) if isinstance(n, int) else tuple(n)
         self.dt = float(dt)
@@ -148,9 +152,17 @@ class SpectralSolver(abc.ABC):
         return tuple(np.linspace(0, 2 * np.pi, m, endpoint=False)
                      for m in (nx, ny, nz))
 
-    def _on_device(self, a) -> torch.Tensor:
-        """A float64 numpy factor as a float64 tensor on the device."""
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _on_device(self, a, axis: str = "x") -> torch.Tensor:
+        """A float64 numpy factor along grid ``axis`` (``"x"``, ``"y"`` or
+        ``"z"``, as :meth:`_axes_1d`) as a float64 tensor on the device,
+        cut to this rank's block: the X-pencil splits y over ``u`` and z
+        over ``v``."""
+        g = self.plan.grid
+        cut = {"x": (0, 1), "y": (g.coords[0], g.pu), "z": (g.coords[1], g.pv)}
+        i, parts = cut[axis]
+        size = len(a) // parts
+        a = np.ascontiguousarray(a[i * size:(i + 1) * size])
+        return torch.from_numpy(a).to(self.device)
 
     # ---- public contract -------------------------------------------------
     def init_state(self, plan: FFT3DPlan | None = None) -> SolverState:
@@ -180,6 +192,19 @@ class SpectralSolver(abc.ABC):
             if callback:
                 callback(state, history[-1])
         return state, history
+
+    # ---- not ported yet (each names its ROADMAP item) ---------------------
+    def batched_step(self, fields):
+        """Batched lanes of one problem (the serving layer's entry point)."""
+        raise NotImplementedError("batched steps are ROADMAP Queue 1 item 9")
+
+    def state_tree(self, state):
+        """The checkpointable state (the fleet's restart contract)."""
+        raise NotImplementedError("checkpoints are ROADMAP Queue 1 item 7")
+
+    def restore_state(self, manager, step=None):
+        """A state restored from a checkpoint, resharded onto this grid."""
+        raise NotImplementedError("checkpoints are ROADMAP Queue 1 item 7")
 
     def plan_config(self) -> dict:
         """The FFT-plan knobs this solver runs (bench metadata)."""

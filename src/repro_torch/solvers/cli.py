@@ -1,20 +1,24 @@
-"""Command line of the port's solvers: run a registered case on one device.
+"""Command line of the port's solvers: run a registered case on a grid.
 
     PYTHONPATH=src python -m repro_torch.solvers.cli --case heat --n 512 \\
         --mesh 1x1 --backend pallas
     PYTHONPATH=src python -m repro_torch.solvers.cli --case heat --n 512 \\
         --mesh 1x1 --backend mxu
-    PYTHONPATH=src python -m repro_torch.solvers.cli --case poisson --n 16 \\
-        --device cpu
+    PYTHONPATH=src python -m repro_torch.solvers.cli --case nls --n 512 \\
+        --mesh 1x4 --backend pallas --comm-engine pallas_ring
+    PYTHONPATH=src python -m repro_torch.solvers.cli --case heat --n 16 \\
+        --mesh 2x2 --comm-engine pallas_ring --device cpu
 
 Takes the flags of ``repro.solvers.cli`` plus ``--device`` (default
 ``cuda``) and ``--backend`` (the plan's 1D FFT engine: ``pallas`` is the
 radix-2 CUDA kernel, ``mxu`` the four-step CUDA kernel on the FP64 tensor
 cores, ``ref`` the radix-2 plain version, ``jnp`` ``torch.fft``).
 Runs ``--steps`` cycles printing the observables, then the case's analytic
-validation (non-zero exit on failure).  Only the ``1x1`` mesh runs in this
-port so far; any other mesh, ``--autotune`` and ``--trace`` exit 1 naming
-the ROADMAP item that brings them.
+validation (non-zero exit on failure).  ``--mesh PUxPV`` with more than
+one rank spawns the ranks (:func:`repro_torch.dist.run_ranks`, one process
+each; on the card they share it when there are fewer cards than ranks)
+and rank 0 prints.  ``--autotune`` and ``--trace`` exit 1 naming the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -61,6 +65,56 @@ def _fail(msg: str) -> int:
     return 1
 
 
+def _run(args, grid, plan_cfg, phys, rank: int = 0) -> int:
+    """Build the solver on this rank, run it, validate; rank 0 prints."""
+    import torch
+
+    from repro_torch.solvers import make_solver
+
+    def say(line=""):
+        if rank == 0:
+            print(line, flush=True)
+
+    try:
+        solver = make_solver(args.case, grid, args.n, device=args.device,
+                             dtype=args.dtype, plan_cfg=plan_cfg or None,
+                             **phys)
+    except (ValueError, RuntimeError, NotImplementedError) as e:
+        if rank == 0:
+            print(f"invalid problem: {e}", file=sys.stderr)
+        return 1
+    dev = solver.device
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    say(f"case={args.case} N={args.n}^3 mesh={grid.pu}x{grid.pv} "
+        f"dtype={solver.dtype.name} dt={solver.dt:g} "
+        f"plan={solver.plan.backend}/{solver.plan.schedule}"
+        f"/{solver.plan.comm_engine} [{dev}: {where}]")
+
+    def show(state, obs):
+        if args.quiet:
+            return
+        vals = "  ".join(f"{k} = {v:.6e}" for k, v in sorted(obs.items())
+                         if k != "t")
+        say(f"step {state.n_steps:3d}  t = {obs['t']:.4f}  {vals}")
+
+    t0 = time.perf_counter()
+    _, history = solver.run(args.steps, callback=show)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    ok, lines = solver.validate(history)
+    for line in lines:
+        say(line)
+    say(f"{args.case}: {'OK' if ok else 'FAILED'}   "
+        f"{wall / max(args.steps, 1) * 1e3:.1f} ms/step "
+        f"(incl. the kernel build and the observables)")
+    return 0 if ok else 1
+
+
+def _rank_main(ctx, args, plan_cfg, phys) -> int:
+    return _run(args, ctx.grid(), plan_cfg, phys, rank=ctx.rank)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.autotune:
@@ -73,15 +127,10 @@ def main(argv=None) -> int:
         pu, pv = (int(p) for p in args.mesh.lower().split("x"))
     except ValueError:
         return _fail(f"--mesh must look like PUxPV, got {args.mesh!r}")
-    if (pu, pv) != (1, 1):
-        return _fail(f"mesh {args.mesh}: the port runs the 1x1 grid only; "
-                     "multi-rank grids need the torch.distributed comm "
-                     "engines (ROADMAP Queue 1 item 5)")
 
-    import torch
-
+    from repro_torch import dist
     from repro_torch.core.decomposition import PencilGrid
-    from repro_torch.solvers import SOLVERS, make_solver
+    from repro_torch.solvers import SOLVERS
 
     if args.case not in SOLVERS:
         return _fail(f"unknown case {args.case!r}; have {sorted(SOLVERS)}")
@@ -99,38 +148,18 @@ def main(argv=None) -> int:
         plan_cfg["backend"] = args.backend
 
     try:
-        solver = make_solver(args.case, PencilGrid.from_mesh(pu, pv), args.n,
-                             device=args.device, dtype=args.dtype,
-                             plan_cfg=plan_cfg or None, **phys)
-    except (ValueError, RuntimeError, NotImplementedError) as e:
-        return _fail(f"invalid problem: {e}")
-    dev = solver.device
-    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"case={args.case} N={args.n}^3 mesh={pu}x{pv} "
-          f"dtype={solver.dtype.name} dt={solver.dt:g} "
-          f"plan={solver.plan.backend}/{solver.plan.schedule}"
-          f"/{solver.plan.comm_engine} [{dev}: {where}]", flush=True)
-
-    def show(state, obs):
-        if args.quiet:
-            return
-        vals = "  ".join(f"{k} = {v:.6e}" for k, v in sorted(obs.items())
-                         if k != "t")
-        print(f"step {state.n_steps:3d}  t = {obs['t']:.4f}  {vals}",
-              flush=True)
-
-    t0 = time.perf_counter()
-    _, history = solver.run(args.steps, callback=show)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t0
-    ok, lines = solver.validate(history)
-    for line in lines:
-        print(line)
-    print(f"{args.case}: {'OK' if ok else 'FAILED'}   "
-          f"{wall / max(args.steps, 1) * 1e3:.1f} ms/step "
-          f"(incl. the kernel build and the observables)")
-    return 0 if ok else 1
+        grid = PencilGrid.from_mesh(pu, pv)
+        grid.validate((args.n,) * 3)
+    except ValueError as e:
+        return _fail(f"invalid problem for mesh {args.mesh}: {e}")
+    if grid.p == 1:
+        return _run(args, grid, plan_cfg, phys)
+    try:
+        rcs = dist.run_ranks(_rank_main, pu, pv, device=args.device,
+                             args=(args, plan_cfg, phys))
+    except RuntimeError as e:
+        return _fail(f"mesh {args.mesh}: {e}")
+    return max(rcs)
 
 
 if __name__ == "__main__":

@@ -35,8 +35,8 @@ class HeatSolver(SpectralSolver):
         mx, my, mz = self.mode
         # (y, z, x) X-pencil, the reference's sin(mx X)·cos(my Y)·cos(mz Z)
         u0 = (self._on_device(np.sin(mx * x))[None, None, :]
-              * self._on_device(np.cos(my * y))[:, None, None]) \
-            * self._on_device(np.cos(mz * z))[None, :, None]
+              * self._on_device(np.cos(my * y), "y")[:, None, None]) \
+            * self._on_device(np.cos(mz * z), "z")[None, :, None]
         return (u0.to(self.torch_dtype),)
 
     def spectral_kernel(self, plan, dtype, device):

@@ -43,11 +43,13 @@ class NavierStokesSolver(SpectralSolver):
         the forward transform's roundoff times |k| gives max|k·v̂| ≈ 1.7e-8
         at N=256 — above ``validate``'s absolute 1e-8 bound at t=0.
         """
-        x = self._axes_1d()[0]
+        x, y, z = self._axes_1d()
         sx, cx = self._on_device(np.sin(x)), self._on_device(np.cos(x))
-        # (y, z, x) layout on the cubic grid: X varies last, Y first
-        u = (cx[None, None, :] * sx[:, None, None]) * sx[None, :, None]
-        v = (-sx[None, None, :] * cx[:, None, None]) * sx[None, :, None]
+        sy, cy = self._on_device(np.sin(y), "y"), self._on_device(np.cos(y), "y")
+        sz = self._on_device(np.sin(z), "z")
+        # (y, z, x) layout: X varies last, Y first
+        u = (cx[None, None, :] * sy[:, None, None]) * sz[None, :, None]
+        v = (-sx[None, None, :] * cy[:, None, None]) * sz[None, :, None]
         u0 = torch.stack([u, v, torch.zeros_like(u)]).to(self.torch_dtype)
         vr, vi = fft3d_vector_local(self.plan, u0, None,
                                     vector_mode=self.vector_mode)

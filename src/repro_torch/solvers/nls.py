@@ -34,11 +34,11 @@ class NLSSolver(SpectralSolver):
         # smooth condensate with a phase ramp and a density perturbation:
         # ψ = (1 + 0.2·cos X·cos Y·cos Z)·e^{i sin Z} on the (y, z, x) pencil
         amp = 1.0 + (self._on_device(0.2 * np.cos(x))[None, None, :]
-                     * self._on_device(np.cos(y))[:, None, None]) \
-            * self._on_device(np.cos(z))[None, :, None]
+                     * self._on_device(np.cos(y), "y")[:, None, None]) \
+            * self._on_device(np.cos(z), "z")[None, :, None]
         phase = np.sin(z)
-        re = amp * self._on_device(np.cos(phase))[None, :, None]
-        im = amp * self._on_device(np.sin(phase))[None, :, None]
+        re = amp * self._on_device(np.cos(phase), "z")[None, :, None]
+        im = amp * self._on_device(np.sin(phase), "z")[None, :, None]
         return (re.to(self.torch_dtype), im.to(self.torch_dtype))
 
     def _half_kick(self, pr, pi):

@@ -33,8 +33,8 @@ class PoissonSolver(SpectralSolver):
     def _exact(self):
         x, y, z = self._axes_1d()
         return (self._on_device(np.sin(x))[None, None, :]
-                * self._on_device(np.cos(2 * y))[:, None, None]) \
-            * self._on_device(np.sin(3 * z))[None, :, None]
+                * self._on_device(np.cos(2 * y), "y")[:, None, None]) \
+            * self._on_device(np.sin(3 * z), "z")[None, :, None]
 
     def initial_fields(self):
         phi = self._exact().to(self.torch_dtype)

@@ -107,5 +107,6 @@ def test_fused_roundtrip_matches_composed_and_reference(mesh11, real, chunks):
 
 
 def test_single_rank_only(mesh11):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    # a grid of more ranks runs only in its rank processes (run_ranks)
+    with pytest.raises(RuntimeError, match="run_ranks"):
         make_fft3d(dec.PencilGrid.from_mesh(2, 1), 8, device="cpu")

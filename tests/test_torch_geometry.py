@@ -204,11 +204,16 @@ def test_diagonal_kernel_slices_rows():
 
 def test_single_rank_transpose():
     x = torch.arange(24.0).reshape(2, 3, 4)
-    assert tr.all_to_all_blocks(x, 1, split_axis=2, concat_axis=0) is x
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tr.all_to_all_blocks(x, 2, split_axis=2, concat_axis=0)
+    # one rank: no wire, the exchange is the identity
+    assert tr.all_to_all_blocks(x, None, split_axis=2, concat_axis=0) is x
     with pytest.raises(ValueError):
-        tr.all_to_all_blocks(x, 1, split_axis=2, concat_axis=0, mode="mesh")
+        tr.all_to_all_blocks(x, None, split_axis=2, concat_axis=0, mode="mesh")
+    # the block layout of the exchanges: stack and merge are inverse views
+    xs = tr.stack_blocks(x, 2, 2)
+    assert xs.shape == (2, 2, 3, 2)
+    assert torch.equal(xs[1], x[..., 2:])
+    assert torch.equal(tr.merge_blocks(xs, 2, 2), x)
+    assert torch.equal(tr.merge_blocks(xs, 2, 0), torch.cat([x[..., :2], x[..., 2:]]))
     for perm in ((2, 1, 0), (0, 2, 1)):
         got = tr.permute_last3(x[None], perm)
         np.testing.assert_array_equal(

@@ -5,8 +5,10 @@ machine without one).  Run them on the card with
 import pytest
 import torch
 
+from repro_torch import dist
 from repro_torch.core import decomposition as dec
-from repro_torch.kernels import fft_mxu, fft_radix2, ref
+from repro_torch.core import transpose as tr
+from repro_torch.kernels import fft_mxu, fft_radix2, ref, ring_rdma
 from repro_torch.solvers import make_solver
 from repro_torch.solvers.base import observables_rel_err
 
@@ -102,3 +104,77 @@ def test_mxu_solver_on_card_matches_cpu(cuda):
     _, cpu_hist = make_solver("heat", grid, 16, device="cpu", plan_cfg=cfg).run(2)
     for a, b in zip(gpu_hist, cpu_hist):
         assert observables_rel_err(a, b) <= 1e-10
+
+
+@pytest.mark.parametrize("n,rows", [(16, 37), (512, 300), (8192, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["forward", "inverse", "roundtrip"])
+def test_ring_payload_matches_plain_version(cuda, n, rows, dtype, mode):
+    g = torch.Generator(device=cuda).manual_seed(n + rows)
+    xr, xi, dr, di = (torch.randn(rows, n, dtype=dtype, device=cuda, generator=g)
+                      for _ in range(4))
+    diag = (dr, di) if mode == "roundtrip" else None
+    before = ring_rdma.payload_launches
+    kr, ki = ring_rdma.ring_payload(xr, xi, diag=diag, inverse=mode == "inverse")
+    assert ring_rdma.payload_launches == before + 1
+    twr, twi = fft_radix2.twiddles(n, dtype, cuda)
+    pr, pi = ring_rdma.payload_plain(xr, xi, twr, twi, diag, mode == "inverse")
+    torch.cuda.synchronize()
+    scale = max(pr.abs().max().item(), pi.abs().max().item())
+    err = max((kr - pr).abs().max().item(), (ki - pi).abs().max().item())
+    assert err <= TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ring_send_and_land_are_bit_exact(cuda, dtype):
+    """Take and place against plain indexing; the "peer" slot is a second
+    buffer of this process."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    p = 4
+    xs = [torch.randn(6, 5, 16, dtype=dtype, device=cuda, generator=g)
+          for _ in range(2)]
+    slots = [torch.empty(6, 5, 4, dtype=dtype, device=cuda) for _ in range(2)]
+    before = ring_rdma.send_launches
+    ring_rdma.ring_send(xs, 2, p, 2, slots)
+    assert ring_rdma.send_launches == before + 1
+    for x, s in zip(xs, slots):
+        assert torch.equal(s, x[..., 8:12])
+    outs = [torch.zeros(24, 5, 4, dtype=dtype, device=cuda) for _ in range(2)]
+    before = ring_rdma.land_launches
+    ring_rdma.ring_land(slots, outs, 1, p, 0)
+    ring_rdma.ring_land([x[..., 0:4] for x in xs], outs, 3, p, 0)  # strided
+    assert ring_rdma.land_launches == before + 2
+    for o, s, x in zip(outs, slots, xs):
+        assert torch.equal(o[6:12], s) and torch.equal(o[18:24], x[..., 0:4])
+
+
+def _ipc_vs_gloo(ctx):
+    """Every schedule on the peer-mapped wire and on the gloo wire, twice
+    with different data (the second exchange reuses the landing slots)."""
+    dev = ctx.device
+    ipc, gloo = ctx.wire("u", dev), ctx.wire("u", "cpu")
+    same = []
+    for seed in (1, 2):
+        g = torch.Generator().manual_seed(100 * seed + ctx.rank)
+        arrs = [torch.randn(4, 3, 8, dtype=torch.float64, generator=g)
+                for _ in range(2)]
+        for fn in (tr.ring_exchange, tr.ring_exchange_bidi):
+            got, _ = fn([a.to(dev) for a in arrs], ipc, split_axis=2,
+                        concat_axis=0)
+            want, _ = fn(arrs, gloo, split_axis=2, concat_axis=0)
+            same += [torch.equal(a.cpu(), b) for a, b in zip(got, want)]
+        got = ipc.all_to_all([a.to(dev) for a in arrs], split_axis=0,
+                             concat_axis=2)
+        want = gloo.all_to_all(arrs, split_axis=0, concat_axis=2)
+        same += [torch.equal(a.cpu(), b) for a, b in zip(got, want)]
+    torch.cuda.synchronize(dev)
+    return all(same), ipc.exchanges, ipc.rounds
+
+
+def test_ipc_exchange_on_one_card_matches_gloo(cuda):
+    before = ring_rdma.send_launches
+    results = dist.run_ranks(_ipc_vs_gloo, 2, 1, device="cuda")
+    assert ring_rdma.send_launches == before  # the ranks launched, not us
+    for ok, exchanges, rounds in results:
+        # per seed: ring (1 round), bidi (1 round), switched (1 round)
+        assert ok and exchanges == 6 and rounds == 6

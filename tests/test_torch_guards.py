@@ -1,6 +1,7 @@
 """Guards of the PyTorch/CUDA port: it stands apart from JAX and from the
 JAX package, it never falls back to the CPU or to the plain version, and
-it refuses what this slice does not run (a grid of more than one rank)."""
+it refuses what it does not run (a grid of more than one rank outside its
+rank processes, a grid dimension over several mesh axes)."""
 
 import os
 import re
@@ -57,21 +58,29 @@ def test_default_device_is_cuda_and_raises_without_a_card():
 
 @pytest.mark.parametrize("pu,pv", [(2, 1), (1, 2), (4, 2)])
 def test_multi_rank_grid_raises(pu, pv):
+    # outside the rank processes of repro_torch.dist.run_ranks
     grid = dec.PencilGrid.from_mesh(pu, pv)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(RuntimeError, match="run_ranks"):
         make_solver("poisson", grid, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(RuntimeError, match="run_ranks"):
         make_fft3d(grid, 8, device="cpu")
     plan = FFT3DPlan(n=(8, 8, 8), grid=grid)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(RuntimeError, match="run_ranks"):
         sp.grid_sum(plan, torch.zeros(()))
+    # a grid dimension over two mesh axes (a 3-axis mesh) is not ported
+    staged = dec.PencilGrid(pu=4, pv=pv, u_axes=("pod", "data"),
+                            u_sizes=(2, 2))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        make_fft3d(staged, 8, device="cpu")
 
 
 def test_cli_refuses_what_is_not_ported(capsys):
-    assert cli.main(["--case", "heat", "--mesh", "2x2", "--device", "cpu"]) == 1
-    assert "Queue 1 item 5" in capsys.readouterr().err
+    # a mesh the grid does not divide is refused before any rank starts
+    assert cli.main(["--case", "heat", "--n", "8", "--mesh", "3x2",
+                     "--device", "cpu"]) == 1
+    assert "invalid problem for mesh 3x2" in capsys.readouterr().err
     assert cli.main(["--case", "heat", "--autotune", "--device", "cpu"]) == 1
-    capsys.readouterr()
+    assert "Queue 1 item 8" in capsys.readouterr().err
     # backend "mxu" is ported: the CLI runs it
     assert cli.main(["--case", "heat", "--n", "16", "--steps", "2",
                      "--backend", "mxu", "--device", "cpu", "--quiet"]) == 0
@@ -114,3 +123,24 @@ def test_chip_smoke_fails_alone(tmp_path):
     shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
     r = _smoke(tmp_path)
     assert r.returncode != 0 and '"ok"' not in r.stdout
+
+
+def test_build_keys_each_source_by_its_headers_and_flags(monkeypatch, tmp_path):
+    # only the ring source links the driver API; the others keep their flags
+    assert _build._flags("ring_rdma")[-1] == "-lcuda"
+    assert _build._flags("fft_mxu") == _build.NVCC_FLAGS
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\n')
+    (tmp_path / "k.cuh").write_text("// v1\n")
+    first = _build._target("k")
+    (tmp_path / "k.cuh").write_text("// v2\n")
+    assert _build._target("k") != first
+
+
+def test_what_this_slice_leaves_out_names_its_roadmap_item():
+    solver = make_solver("heat", dec.PencilGrid.from_mesh(1, 1), 8, device="cpu")
+    for call, item in ((lambda: solver.batched_step(()), "item 9"),
+                       (lambda: solver.state_tree(None), "item 7"),
+                       (lambda: solver.restore_state(None), "item 7")):
+        with pytest.raises(NotImplementedError, match=item):
+            call()
