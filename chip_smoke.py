@@ -4,15 +4,17 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout (it imports ``src/repro_torch``; nothing of
-JAX or of the JAX package ``repro``).  It covers the five kernels of the
-main path: ``fft_radix2`` (backend ``"pallas"``), ``fft_mxu`` (backend
-``"mxu"``, the four-step FFT on the FP64 tensor cores), and the NIC
-engine's ``ring_payload``, ``ring_send`` and ``ring_land``
-(``csrc/ring_rdma.cu``, engines ``pallas_ring``/``bidi_ring`` on a grid of
-more than one rank).  Phases, each fatal on failure:
+JAX or of the JAX package ``repro``).  It covers the six kernels of the
+port's two main paths.  The solver step: ``fft_radix2`` (backend
+``"pallas"``), ``fft_mxu`` (backend ``"mxu"``, the four-step FFT on the
+FP64 tensor cores), and the NIC engine's ``ring_payload``, ``ring_send``
+and ``ring_land`` (``csrc/ring_rdma.cu``, engines
+``pallas_ring``/``bidi_ring`` on a grid of more than one rank).  LM
+serving: ``flash_attention`` (``csrc/flash_attention.cu``), the attention
+of every layer of the prefill.  Phases, each fatal on failure:
 
 1. card — ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
-2. build — the three CUDA sources, ``nvcc`` processes started together,
+2. build — the four CUDA sources, ``nvcc`` processes started together,
    with each one's register, shared-memory and spill report;
 3. kernel vs plain — each FFT kernel against its plain PyTorch version on
    the same CUDA tensors, f64 and f32, forward and inverse, at the main
@@ -27,7 +29,15 @@ more than one rank).  Phases, each fatal on failure:
    modes (forward, inverse, roundtrip) against ``payload_plain``, f64 and
    f32, N=16, 512 and 8192, the same tolerances; ``ring_send`` and
    ``ring_land`` against plain indexing, bit for bit (the "peer" slot a
-   second buffer of this process);
+   second buffer of this process); ``flash_attention`` against
+   ``flash_attention_plain`` at the LM prefill's shapes (B=8, S=T=2048,
+   15 heads, 5 kv heads, D=64, bf16; S=512 in f32) and at edges (D 20 to
+   256, groups 1 to 8, S 1 to 2048, causal and full): in f32 allclose
+   with rtol = atol = 2e-5; in bf16 each element within 2 units in the
+   last place of the plain value plus 1e-3·rms(plain), and at most 2% of
+   the elements (or 8) different (``attention.bf16_gap``), a check that must
+   accept an unblocked f32 attention at the prefill shape and refuse it
+   with p rounded to bf16 before P·V and with one key tile dropped;
 4. timing — each kernel, its plain version and PyTorch's own call where
    one computes the same function (``torch.fft.fft``; a yardstick the port
    never calls) at the main path's shapes, CUDA events, and the bound:
@@ -61,7 +71,19 @@ more than one rank).  Phases, each fatal on failure:
    1×1 blocks; per rank, counts set to 0 just before the steps and read
    just after: ``ring_payload``, ``ring_send``, ``ring_land`` and
    ``fft_radix2`` launched, no plain version, and ``exchange_rounds``
-   equal to the round model summed over the wires.
+   equal to the round model summed over the wires;
+8. LM serving — ``smollm-360m`` at full width and depth (random weights
+   from seed 0, bf16 as configured) through ``repro_torch.launch.serve``:
+   batch 8, prompt 2048, 32 greedy tokens; the ``flash_attention`` counts
+   set to 0 just before and read just after (one launch a layer, no
+   plain call); prefill ms, decode ms a step, tok/s, peak memory.  Then
+   the same prompts with the plain attention (``RunCfg(plain_attention=
+   True)``), teacher-forced with the kernel run's tokens: every step's
+   logits within 3e-2·max|logit| (the drift of 32 bf16 layers, about
+   3× the gap measured on the H100); and both
+   attentions in f32 at prompt 512, free-running: identical greedy tokens,
+   logits within 1e-4·max|logit|.  One ``torch.profiler`` trace of a
+   prefill and of a decode step (informational).
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Full results go to
@@ -88,8 +110,9 @@ FP32_FLOPS = 67e12            # H100 SXM data sheet, FP32 without tensor cores
 TOL = {"float64": 1e-12, "float32": 1e-5}
 KERNELS = ("fft_radix2", "fft_mxu")
 BACKEND = {"fft_radix2": "pallas", "fft_mxu": "mxu"}
-SOURCES = KERNELS + ("ring_rdma",)
+SOURCES = KERNELS + ("ring_rdma", "flash_attention")
 RING_KERNELS = ("ring_payload", "ring_send", "ring_land")
+BF16_TC_FLOPS = 989e12        # H100 SXM data sheet, dense bf16 tensor cores
 REF_DIR = os.path.join(HERE, "build", "chip_smoke_ref")
 
 # (case, N, steps, extra plan knobs): the main path at the paper's
@@ -124,6 +147,40 @@ WIRE_MESHES = ((4, 1), (2, 2), (1, 4))
 PAYLOAD_N = (16, 512, 8192)
 PAYLOAD_ROWS = {16: 4096, 512: 5462, 8192: 64}
 SLAB = (128, 128, 512)
+
+# flash attention: (B, S, T, H, Hkv, D, causal) held against the plain
+# version, the LM prefill's shapes first (smollm-360m: 15 heads, 5 kv
+# heads, head_dim 64; bf16 at prompt 2048, f32 at prompt 512), then the
+# edges of tests/test_torch_gpu.py (D 20..256, groups 1, 3, 8, S 1..2048)
+FLASH_MAIN = (8, 2048, 2048, 15, 5, 64, True)
+FLASH_CHECKS = {
+    "bfloat16": (FLASH_MAIN, (1, 1, 1, 8, 1, 256, True), (1, 17, 17, 6, 2, 20, True),
+                 (2, 64, 77, 24, 3, 128, False), (1, 2048, 2048, 6, 2, 256, True),
+                 (1, 17, 30, 3, 3, 64, False)),
+    "float32": ((8, 512, 512, 15, 5, 64, True), (1, 1, 1, 8, 1, 256, True),
+                (1, 17, 17, 6, 2, 20, True), (2, 64, 77, 24, 3, 128, False),
+                (1, 2048, 2048, 6, 2, 256, True)),
+}
+# f32: |kernel - plain| <= tol + tol·|plain| (the JAX kernel test's f32
+# tolerance, tests/test_flash_kernel.py); bf16: attention.bf16_gap, each
+# element within 2 units in the last place and at most 2% of the elements
+# (or 8) different at all, a check that must also refuse two broken
+# controls at the prefill shape (p rounded to bf16 before P·V; a key tile
+# dropped)
+FLASH_TOL_F32 = 2e-5
+
+# phase 8, the LM serving main path: smollm-360m at full width and depth
+LM_ARCH = "smollm-360m"
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
+LM_PROMPT_F32 = 512
+# kernel vs plain attention through the whole bf16 model, each step's
+# logits: max|d| <= LM_TOL_BF16 · max|logit|.  This bounds the model's
+# drift, not the kernel's error (phase 3 holds that to a few bf16 units in
+# the last place): one-unit differences of the attention output grow
+# through 32 bf16 layers, to 9.4e-3 of max|logit| on the H100.  f32:
+# identical greedy tokens and max|d| <= 1e-4 · max|logit|
+LM_TOL_BF16 = 3e-2
+LM_TOL_F32 = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -163,6 +220,220 @@ def build():
             if "registers" in line or "spill" in line or "smem" in line \
                     or "Compiling entry" in line:
                 say(f"  ptxas {name}: {line.strip()[:150]}")
+
+
+def flash_vs_plain(gen):
+    """Phase 3, flash attention: the kernel against
+    ``flash_attention_plain`` on the same CUDA tensors at ``FLASH_CHECKS``,
+    bf16 by ``attention.bf16_gap`` and f32 by allclose; at the prefill shape
+    the bf16 check must accept an unblocked f32 attention and refuse it
+    with p rounded to bf16 and with a key tile dropped.  Returns the max
+    abs error at the prefill shape (bf16), the largest error relative to
+    max|plain| over the bf16 shapes, and the bf16 gaps."""
+    import torch
+
+    from repro_torch.kernels import attention
+
+    main_abs, rel_bf16, gaps = 0.0, 0.0, []
+    for name, shapes in FLASH_CHECKS.items():
+        dtype = getattr(torch, name)
+        for shape in shapes:
+            b, s, t, h, hkv, d, causal = shape
+            q = _rand((b, s, h, d), torch.float32, gen).to(dtype)
+            k = _rand((b, t, hkv, d), torch.float32, gen).to(dtype)
+            v = _rand((b, t, hkv, d), torch.float32, gen).to(dtype)
+            got = attention.flash_attention(q, k, v, causal=causal)
+            want = attention.flash_attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            where = (f"flash_attention {name} B={b} S={s} T={t} H={h} Hkv={hkv} "
+                     f"D={d} {'causal' if causal else 'full'}")
+            if name == "bfloat16":
+                gap = attention.bf16_gap(got, want)
+                ok = gap["ok"]
+                gaps.append({"shape": list(shape), **gap})
+                how = (f"{gap['worst']:.3f} of the element bound, "
+                       f"{gap['mismatch']:.3%} of elements differ")
+            else:
+                ok = bool((((got - want).abs()) <= FLASH_TOL_F32
+                           + FLASH_TOL_F32 * want.abs()).all()) \
+                    and bool(torch.isfinite(got).all())
+                how = f"allclose tol {FLASH_TOL_F32:g}"
+            say(f"kernel vs plain: {where}: max|d| {err:.3e} = {err / scale:.3e} "
+                f"max|o| ({how}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"flash_attention disagrees with its plain version at "
+                     f"{shape} {name}")
+            if shape == FLASH_MAIN and name == "bfloat16":
+                main_abs = err
+                for control, kw, want_ok in (
+                        ("unblocked f32", {}, True),
+                        ("p rounded to bf16", {"round_p": True}, False),
+                        ("key tile dropped", {"drop_tile": True}, False)):
+                    c = attention.bf16_gap(attention.bf16_control(q, k, v, **kw), want)
+                    gaps.append({"control": control, **c})
+                    say(f"  bf16 check, control {control}: {c['worst']:.3f} of the "
+                        f"element bound, {c['mismatch']:.3%} of elements differ: "
+                        f"{'accepted' if c['ok'] else 'refused'}")
+                    if c["ok"] != want_ok:
+                        fail(f"the bf16 check {'refused' if want_ok else 'accepted'} "
+                             f"the control '{control}'")
+            if name == "bfloat16":
+                rel_bf16 = max(rel_bf16, err / scale)
+            del q, k, v, got, want
+        torch.cuda.empty_cache()
+    return main_abs, rel_bf16, gaps
+
+
+def flash_timing(gen):
+    """Phase 4, flash attention at the prefill shape (bf16, causal): the
+    kernel, its plain version and ``scaled_dot_product_attention`` on
+    (B, H, S, D) views with ``enable_gqa`` (a yardstick the port never
+    calls), CUDA events; the bound is the larger of q, k, v and o's bytes
+    over 3.35 TB/s and the kept pairs' flops over the bf16 tensor-core
+    peak."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention
+
+    b, s, t, h, hkv, d, causal = FLASH_MAIN
+    q = _rand((b, s, h, d), torch.float32, gen).bfloat16()
+    k = _rand((b, t, hkv, d), torch.float32, gen).bfloat16()
+    v = _rand((b, t, hkv, d), torch.float32, gen).bfloat16()
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ms = _time_ms(lambda: attention.flash_attention(q, k, v, causal=causal), 20, 3)
+    plain_ms = _time_ms(lambda: attention.flash_attention_plain(q, k, v, causal=causal),
+                        3, 1)
+    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True), 20, 3)
+    moved = 2 * (2 * b * s * h * d + 2 * b * t * hkv * d)
+    flops = attention.attention_flops(b, s, t, h, d, causal)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_TC_FLOPS * 1e3
+    out = {"kernel": "flash_attention", "shape": list(FLASH_MAIN), "dtype": "bfloat16",
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bytes": moved,
+           "flops": flops, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    say(f"timing flash_attention B={b} S={s} H={h} Hkv={hkv} D={d} bf16 causal: "
+        f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} "
+        f"ms, sdpa {library_ms:.4f} ms, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}: {moved} B {bytes_ms:.4f} ms, {flops:.4g} flop "
+        f"{ops_ms:.4f} ms), {out['bound_ms'] / ms:.1%} of the bound")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _logit_gaps(a, b):
+    """Per step: max|a - b| over max|a|."""
+    return [(x.float() - y.float()).abs().max().item() / x.float().abs().max().item()
+            for x, y in zip(a, b)]
+
+
+def lm_serving(flash_rel_bf16):
+    """Phase 8: the LM serving main path.  ``smollm-360m`` at full width
+    and depth, bf16 as configured, random weights from seed 0, batch 8,
+    prompt 2048, 32 greedy tokens through ``repro_torch.launch.serve``;
+    the flash-attention counts set to 0 just before and read just after
+    (one launch a layer, no plain call).  Then the same prompts with the
+    plain attention (``RunCfg(plain_attention=True)``), teacher-forced
+    with the kernel run's tokens, every step's logits within
+    ``LM_TOL_BF16``; and both at f32 (prompt 512), free-running: identical
+    tokens, logits within ``LM_TOL_F32``.  One ``torch.profiler`` trace of
+    a prefill and of a decode step (informational)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(LM_ARCH)
+    run, plain_run = T.RunCfg(), T.RunCfg(plain_attention=True)
+    model = T.init_model(cfg, seed=0, device="cuda")
+    tokens = serve.prompt_tokens(cfg, LM_BATCH, LM_PROMPT, "cuda")
+    serve.generate(cfg, run, model, tokens[:, :64], 2)  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention.launches = attention.plain_calls = 0
+    r = serve.generate(cfg, run, model, tokens, LM_GEN, keep_logits=True)
+    counts = {"flash_attention": attention.launches,
+              "flash_attention_plain": attention.plain_calls}
+    peak = torch.cuda.max_memory_allocated()
+    steps = LM_GEN - 1
+    out = {"arch": LM_ARCH, "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+           "dtype": cfg.compute_dtype, "counts": counts,
+           "prefill_ms": r["prefill_ms"], "decode_ms": r["decode_ms"],
+           "decode_ms_per_step": r["decode_ms"] / steps,
+           "tok_per_s": steps * LM_BATCH / (r["decode_ms"] / 1e3),
+           "peak_bytes": peak, "sample": r["tokens"][0, :16].tolist()}
+    say(f"LM serving {LM_ARCH} bf16 B={LM_BATCH} prompt={LM_PROMPT} gen={LM_GEN}: "
+        f"prefill {out['prefill_ms']:.3f} ms, decode {r['decode_ms']:.3f} ms "
+        f"({out['decode_ms_per_step']:.3f} ms/step, {out['tok_per_s']:.1f} tok/s), "
+        f"peak {peak / 2**30:.2f} GiB, counts {counts}, sample {out['sample']}")
+    if counts["flash_attention"] != cfg.n_layers or counts["flash_attention_plain"]:
+        fail(f"the LM prefill launched flash_attention {counts['flash_attention']} "
+             f"times (want {cfg.n_layers}, one a layer) with "
+             f"{counts['flash_attention_plain']} plain calls")
+    if tuple(r["tokens"].shape) != (LM_BATCH, LM_GEN) or not all(
+            bool(torch.isfinite(x).all()) for x in r["logits"]):
+        fail(f"LM serving: tokens {tuple(r['tokens'].shape)}, non-finite logits")
+    if tuple(r["logits"][0].shape) != (LM_BATCH, 1, cfg.vocab):
+        fail(f"LM serving: prefill logits {tuple(r['logits'][0].shape)}")
+
+    p = serve.generate(cfg, plain_run, model, tokens, LM_GEN, forced=r["tokens"],
+                       keep_logits=True)
+    gaps = _logit_gaps(r["logits"], p["logits"])
+    out.update(plain_prefill_ms=p["prefill_ms"], plain_decode_ms=p["decode_ms"],
+               gap_prefill=gaps[0], gap_decode_max=max(gaps[1:]),
+               plain_agrees=float((p["tokens"] == r["tokens"]).float().mean()),
+               tol=LM_TOL_BF16, flash_rel_bf16=flash_rel_bf16)
+    say(f"LM kernel vs plain attention (bf16, teacher-forced): logits gap "
+        f"prefill {gaps[0]:.3e}, decode steps max {max(gaps[1:]):.3e} of max|logit| "
+        f"(tol {LM_TOL_BF16:g}; phase 3's bf16 kernel error {flash_rel_bf16:.3e} "
+        f"of max|o|); plain's own greedy choice agrees on "
+        f"{out['plain_agrees']:.1%} of the tokens; plain prefill "
+        f"{p['prefill_ms']:.3f} ms")
+    if max(gaps) > LM_TOL_BF16:
+        fail(f"LM bf16: kernel and plain attention logits differ by "
+             f"{max(gaps):.3e} > {LM_TOL_BF16} of max|logit|")
+    prof_prefill = _profile(lambda: T.prefill(cfg, run, model, {"tokens": tokens},
+                                              t_max=LM_PROMPT + LM_GEN),
+                            f"LM prefill {LM_ARCH} B={LM_BATCH} S={LM_PROMPT}")
+    cache, tok = r["cache"], r["tokens"][:, -1:]
+    prof_decode = _profile(lambda: T.decode_step(cfg, run, model, cache, tok),
+                           f"LM decode step {LM_ARCH} B={LM_BATCH} at T={cache['len']}")
+    for line in prof_prefill["lines"] + prof_decode["lines"]:
+        say(line)
+    out["breakdown"] = [prof_prefill, prof_decode]
+    del r, p, cache
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    t32 = tokens[:, :LM_PROMPT_F32]
+    attention.launches = attention.plain_calls = 0
+    k32 = serve.generate(cfg32, run, model, t32, LM_GEN, keep_logits=True)
+    n32 = attention.launches
+    p32 = serve.generate(cfg32, plain_run, model, t32, LM_GEN, keep_logits=True)
+    gaps32 = _logit_gaps(k32["logits"], p32["logits"])
+    same = bool(torch.equal(k32["tokens"], p32["tokens"]))
+    out["f32"] = {"prompt": LM_PROMPT_F32, "prefill_ms": k32["prefill_ms"],
+                  "decode_ms": k32["decode_ms"], "plain_prefill_ms": p32["prefill_ms"],
+                  "same_tokens": same, "gap_max": max(gaps32), "launches": n32,
+                  "tol": LM_TOL_F32}
+    say(f"LM f32 (prompt {LM_PROMPT_F32}): kernel prefill {k32['prefill_ms']:.3f} ms "
+        f"({n32} launches), plain {p32['prefill_ms']:.3f} ms; greedy tokens "
+        f"{'identical' if same else 'DIFFER'}, logits gap max {max(gaps32):.3e} of "
+        f"max|logit| (tol {LM_TOL_F32:g})")
+    if n32 != cfg.n_layers or not same or max(gaps32) > LM_TOL_F32:
+        fail(f"LM f32: launches {n32}, same tokens {same}, gap {max(gaps32):.3e}")
+    del model, k32, p32
+    torch.cuda.empty_cache()
+    return out
 
 
 def _rand(shape, dtype, gen):
@@ -809,7 +1080,8 @@ def multi_rank(runs):
     return ranks, launches
 
 
-REPLACES = {"fft_radix2": "src/repro/kernels/fft_radix2.py:90",
+REPLACES = {"flash_attention": "src/repro/kernels/attention.py:68",
+            "fft_radix2": "src/repro/kernels/fft_radix2.py:90",
             "fft_mxu": "src/repro/kernels/fft_mxu.py:80",
             "ring_payload": "src/repro/kernels/ring_rdma.py:153",
             "ring_send": "src/repro/kernels/ring_rdma.py:88",
@@ -827,13 +1099,17 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_abs = kernel_vs_plain(gen)
     max_abs.update(ring_vs_plain(gen))
+    max_abs["flash_attention"], flash_rel, flash_gaps = flash_vs_plain(gen)
     times = timing(gen)
     ring_times = ring_timing(gen)
+    flash_time = flash_timing(gen)
     os.makedirs(REF_DIR, exist_ok=True)
     runs, launches = main_path()
     prof = [breakdown(BACKEND[k]) for k in KERNELS]
     ranks, ring_launches = multi_rank(runs)
     launches.update(ring_launches)
+    lm = lm_serving(flash_rel)
+    launches["flash_attention"] = lm["counts"]["flash_attention"]
 
     kernels = []
     for k in KERNELS:
@@ -852,11 +1128,21 @@ def main() -> int:
             "max_abs_err": max_abs[k], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    t = flash_time
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": REPLACES["flash_attention"], "launches": launches["flash_attention"],
+        "max_abs_err": max_abs["flash_attention"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"]})
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
-        json.dump({"card": smi, "device": name, "timing": times + ring_times,
+        json.dump({"card": smi, "device": name,
+                   "timing": times + ring_times + [flash_time],
                    "kernels": kernels, "runs": runs, "breakdown": prof,
-                   "multi_rank": ranks}, f, indent=1)
+                   "multi_rank": ranks, "flash_bf16_gaps": flash_gaps, "lm": lm},
+                  f, indent=1)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,0 +1,121 @@
+"""LM serving entry point of the port: batched prefill, then greedy decode
+over a KV cache.
+
+Port of the LM mode of ``repro.launch.serve``, with the same flags plus
+``--device`` (default ``cuda``; raises without a card) and ``--dtype``
+(overrides the config's ``compute_dtype``)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
+        --batch 8 --prompt-len 2048 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
+        --smoke --device cpu
+
+The weights are random, from seed 0; the prompt tokens are those of
+``repro.launch.serve`` (``numpy.random.RandomState(0)``).  Prints the
+prefill time, the decode time and rate, and a sample; returns the
+(B, gen) tokens.  The prefill's attention is the flash-attention kernel.  ``--sim`` (simulation
+serving) and a mesh other than ``1x1`` are not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import (LM_ITEM, RunCfg, check_supported,
+                                            decode_step, init_model, prefill)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def prompt_tokens(cfg, b: int, s: int, device, seed: int = 0) -> torch.Tensor:
+    """``repro.launch.serve``'s prompt: ``RandomState(seed).randint(0, vocab, (b, s))``."""
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.randint(0, cfg.vocab, (b, s))).to(device)
+
+
+def generate(cfg, run: RunCfg, model, tokens: torch.Tensor, gen: int, *,
+             forced: torch.Tensor | None = None, keep_logits: bool = False):
+    """Prefill ``tokens`` (B, S), then ``gen - 1`` greedy decode steps: gen
+    tokens in all.  ``forced`` (B, gen) feeds those tokens instead of the
+    greedy ones (teacher forcing).  Returns a dict: ``tokens`` (B, gen),
+    the greedy choices; ``logits``, the prefill's last-position logits and
+    each step's, when ``keep_logits``; ``prefill_ms`` and ``decode_ms`` on
+    the host clock, synchronised with the device."""
+    dev = tokens.device
+    s = tokens.shape[1]
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(cfg, run, model, {"tokens": tokens}, t_max=s + gen)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    _sync(dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    out, kept = [tok], [logits] if keep_logits else []
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        feed = tok if forced is None else forced[:, i:i + 1]
+        logits, cache = decode_step(cfg, run, model, cache, feed)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        out.append(tok)
+        if keep_logits:
+            kept.append(logits)
+    _sync(dev)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    return {"tokens": torch.cat(out, dim=1), "logits": kept, "cache": cache,
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms}
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if "--sim" in argv:
+        raise NotImplementedError("--sim (serving spectral simulations) is not "
+                                  "ported yet (ROADMAP Queue 1 item 9)")
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.launch.serve",
+        description="LM serving of the PyTorch/CUDA port (batched "
+                    "prefill + greedy decode).")
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--mesh", default="1x1")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--dtype", default=None,
+                    help="compute dtype overriding the config's (e.g. float32)")
+    args = ap.parse_args(argv)
+    if args.mesh != "1x1":
+        raise NotImplementedError(f"--mesh {args.mesh}: the port serves on one "
+                                  f"device; a mesh is not ported yet ({LM_ITEM})")
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, compute_dtype=args.dtype)
+    check_supported(cfg)
+    device = resolve_device(args.device)
+    run = RunCfg()
+    model = init_model(cfg, seed=0, device=device)
+    b, s = args.batch, args.prompt_len
+    tokens = prompt_tokens(cfg, b, s, device)
+    r = generate(cfg, run, model, tokens, args.gen)
+    dt = r["decode_ms"] / 1e3
+    print(f"prefill {s} tokens x{b}: {r['prefill_ms']:.1f} ms")
+    print(f"decode  {args.gen - 1} steps: {r['decode_ms']:.1f} ms "
+          f"({(args.gen - 1) * b / max(dt, 1e-9):.1f} tok/s)")
+    print("sample:", r["tokens"][0, :16].cpu().numpy())
+    return r["tokens"]
+
+
+if __name__ == "__main__":
+    main()

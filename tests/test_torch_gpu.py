@@ -8,7 +8,9 @@ import torch
 from repro_torch import dist
 from repro_torch.core import decomposition as dec
 from repro_torch.core import transpose as tr
-from repro_torch.kernels import fft_mxu, fft_radix2, ref, ring_rdma
+from repro_torch.configs import get_config
+from repro_torch.kernels import attention, fft_mxu, fft_radix2, ref, ring_rdma
+from repro_torch.models import transformer as T
 from repro_torch.solvers import make_solver
 from repro_torch.solvers.base import observables_rel_err
 
@@ -22,6 +24,16 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def no_tf32():
+    """The plain versions' products go through cuBLAS: keep TF32 out of
+    them for the test, and restore the setting after it."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = before
 
 
 @pytest.mark.parametrize("n,rows", [(2, 64), (8, 37), (512, 300), (8192, 5)])
@@ -53,9 +65,7 @@ def test_kernel_refuses_what_it_cannot_run(cuda):
 @pytest.mark.parametrize("n,rows", [(4, 64), (16, 37), (512, 300), (8192, 5)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("inverse", [False, True])
-def test_mxu_kernel_matches_plain_version(cuda, n, rows, dtype, inverse):
-    # the plain version's products go through cuBLAS: keep TF32 out of them
-    torch.backends.cuda.matmul.allow_tf32 = False
+def test_mxu_kernel_matches_plain_version(cuda, no_tf32, n, rows, dtype, inverse):
     g = torch.Generator(device=cuda).manual_seed(n + rows)
     xr = torch.randn(rows, n, dtype=dtype, device=cuda, generator=g)
     xi = torch.randn(rows, n, dtype=dtype, device=cuda, generator=g)
@@ -178,3 +188,65 @@ def test_ipc_exchange_on_one_card_matches_gloo(cuda):
     for ok, exchanges, rounds in results:
         # per seed: ring (1 round), bidi (1 round), switched (1 round)
         assert ok and exchanges == 6 and rounds == 6
+
+
+FLASH_TOL_F32 = 2e-5  # bf16: attention.bf16_gap
+
+
+@pytest.mark.parametrize("s", [1, 17, 64, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 3, 8])
+@pytest.mark.parametrize("d", [20, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_matches_plain_version(cuda, no_tf32, dtype, d, group, causal, s):
+    # causal runs S == T (the mask is aligned at the top left); full runs
+    # a ragged T beside S
+    t = s if causal else s + 13
+    hkv = 2
+    g = torch.Generator(device=cuda).manual_seed(d + group + s)
+    q = torch.randn(1, s, hkv * group, d, device=cuda, generator=g).to(dtype)
+    k = torch.randn(1, t, hkv, d, device=cuda, generator=g).to(dtype)
+    v = torch.randn(1, t, hkv, d, device=cuda, generator=g).to(dtype)
+    before = attention.launches
+    got = attention.flash_attention(q, k, v, causal=causal)
+    assert attention.launches == before + 1
+    want = attention.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.bfloat16:
+        gap = attention.bf16_gap(got, want)
+        assert gap["ok"], gap
+    else:
+        torch.testing.assert_close(got, want, rtol=FLASH_TOL_F32, atol=FLASH_TOL_F32)
+
+
+def test_flash_kernel_reads_strided_inputs(cuda):
+    # q, k, v as views of one fused (B, S, H + 2·Hkv, D) projection
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qkv = torch.randn(2, 40, 6 + 2 * 2, 64, device=cuda, generator=g).bfloat16()
+    q, k, v = qkv[:, :, :6], qkv[:, :, 6:8], qkv[:, :, 8:]
+    got = attention.flash_attention(q, k, v, causal=True)
+    want = attention.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                           v.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    gap = attention.bf16_gap(got, want)
+    assert gap["ok"], gap
+    with pytest.raises(ValueError, match="contiguous head dimension"):
+        attention.flash_attention(q.transpose(1, 3), k.transpose(1, 3),
+                                  v.transpose(1, 3))
+
+
+def test_lm_prefill_on_card_launches_the_kernel_and_matches_cpu(cuda):
+    cfg = get_config("smollm-360m", smoke=True)  # f32
+    run = T.RunCfg()
+    tokens = torch.randint(0, cfg.vocab, (2, 24), generator=torch.Generator().manual_seed(0))
+    model = T.init_model(cfg, seed=0, device="cpu")
+    want, cpu_cache = T.prefill(cfg, run, model, {"tokens": tokens}, t_max=28)
+    model.to(cuda)
+    launches, plain = attention.launches, attention.plain_calls
+    got, cache = T.prefill(cfg, run, model, {"tokens": tokens.to(cuda)}, t_max=28)
+    assert attention.launches == launches + cfg.n_layers
+    assert attention.plain_calls == plain
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    logits, cache = T.decode_step(cfg, run, model, cache, got[:, -1].argmax(-1)[:, None])
+    assert cache["len"] == 25 and torch.isfinite(logits).all()

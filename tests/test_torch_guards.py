@@ -3,6 +3,7 @@ JAX package, it never falls back to the CPU or to the plain version, and
 it refuses what it does not run (a grid of more than one rank outside its
 rank processes, a grid dimension over several mesh axes)."""
 
+import dataclasses
 import os
 import re
 import shutil
@@ -16,7 +17,10 @@ import torch
 from repro_torch.core import decomposition as dec
 from repro_torch.core import spectral as sp
 from repro_torch.core.fft3d import FFT3DPlan, make_fft3d
+from repro_torch.configs import get_config
 from repro_torch.kernels import _build
+from repro_torch.launch import serve
+from repro_torch.models import transformer as T
 from repro_torch.solvers import cli, make_solver
 
 REPO = Path(__file__).resolve().parent.parent
@@ -54,6 +58,10 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         make_solver("heat", dec.PencilGrid.from_mesh(1, 1), 8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_fft3d(dec.PencilGrid.from_mesh(1, 1), 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        T.init_model(get_config("smollm-360m", smoke=True))
 
 
 @pytest.mark.parametrize("pu,pv", [(2, 1), (1, 2), (4, 2)])
@@ -144,3 +152,30 @@ def test_what_this_slice_leaves_out_names_its_roadmap_item():
                        (lambda: solver.restore_state(None), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--sim", "--case", "heat"], "Queue 1 item 9"),
+    (["--smoke", "--mesh", "2x1"], "Queue 1 item 11"),
+    (["--arch", "qwen3-moe-30b-a3b"], "Queue 1 item 11"),        # MoE
+    (["--arch", "deepseek-v2-lite-16b"], "Queue 1 item 11"),     # MLA + MoE
+    (["--arch", "rwkv6-3b"], "Queue 1 item 11"),                 # RWKV
+    (["--arch", "jamba-1.5-large-398b"], "Queue 1 item 11"),     # hybrid
+    (["--arch", "whisper-small"], "Queue 1 item 11"),            # encdec
+    (["--arch", "llava-next-34b"], "Queue 1 item 11"),           # embeds
+])
+def test_serve_refuses_what_is_not_ported(argv, item):
+    with pytest.raises(NotImplementedError, match=item):
+        serve.main(argv + ["--smoke", "--device", "cpu"])
+
+
+def test_lm_path_refuses_kv_quant_and_seq_sharded_decode():
+    cfg = get_config("smollm-360m", smoke=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        T.init_model(dataclasses.replace(cfg, kv_quant=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        T.init_cache(dataclasses.replace(cfg, kv_quant=True), 1, 4, device="cpu")
+    # one device: the run context has no mesh and no sequence-sharded decode
+    for field in ("mesh", "seq_shard_kv"):
+        with pytest.raises(TypeError, match=field):
+            T.RunCfg(**{field: True})
