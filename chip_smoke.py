@@ -15,7 +15,11 @@ of every layer of the prefill.  Phases, each fatal on failure:
 
 1. card — ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build — the four CUDA sources, ``nvcc`` processes started together,
-   with each one's register, shared-memory and spill report;
+   with each one's register, shared-memory and spill report; then the
+   flash-attention library's SASS (``cuobjdump --dump-sass``): each bf16
+   instantiation's ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) counts and
+   its registers and spill bytes from ptxas — fatal if one has no
+   ``HGMMA``, no ``UTMALDG`` or any spill;
 3. kernel vs plain — each FFT kernel against its plain PyTorch version on
    the same CUDA tensors, f64 and f32, forward and inverse, at the main
    path's shapes (N=512 with 512·512 and 257·512 rows; for ``fft_mxu``
@@ -37,14 +41,20 @@ of every layer of the prefill.  Phases, each fatal on failure:
    last place of the plain value plus 1e-3·rms(plain), and at most 2% of
    the elements (or 8) different (``attention.bf16_gap``), a check that must
    accept an unblocked f32 attention at the prefill shape and refuse it
-   with p rounded to bf16 before P·V and with one key tile dropped;
+   with p rounded to bf16 before P·V and with one key tile dropped; the
+   bf16 wrapper copies operands into padded buffers (``pad_copies``) only
+   where TMA cannot read them (D=20), nowhere else;
 4. timing — each kernel, its plain version and PyTorch's own call where
    one computes the same function (``torch.fft.fft``; a yardstick the port
    never calls) at the main path's shapes, CUDA events, and the bound:
    the larger of the bytes moved over 3.35 TB/s (for the wire kernels
    2·bytes: on one card a copy reads and writes the same memory) and the
    flops over the peak of the units the kernel runs on (FP64 CUDA cores,
-   34 TFLOP/s; FP64 tensor cores, 67 TFLOP/s, for ``fft_mxu``);
+   34 TFLOP/s; FP64 tensor cores, 67 TFLOP/s, for ``fft_mxu``); for
+   ``flash_attention`` also the served head dimensions 128 (qwen1.5-4b's
+   heads) and 256 (gemma-2b's) at B=8, S=T=2048, bf16, causal, against
+   SDPA, and the f32 kernel at the f32 prefill shape against f32 SDPA
+   (TF32 off);
 5. main path — ``heat`` (fused roundtrip off and on), ``poisson`` and
    ``nls`` at N=512 f64 and ``navier_stokes`` at N=256 f64 through
    ``make_solver(..., device="cuda", plan_cfg={"backend": ...})`` on a 1×1
@@ -76,7 +86,8 @@ of every layer of the prefill.  Phases, each fatal on failure:
    from seed 0, bf16 as configured) through ``repro_torch.launch.serve``:
    batch 8, prompt 2048, 32 greedy tokens; the ``flash_attention`` counts
    set to 0 just before and read just after (one launch a layer, no
-   plain call); prefill ms, decode ms a step, tok/s, peak memory.  Then
+   plain call, no pad copy); prefill ms, decode ms a step, tok/s, peak
+   memory.  Then
    the same prompts with the plain attention (``RunCfg(plain_attention=
    True)``), teacher-forced with the kernel run's tokens: every step's
    logits within 3e-2·max|logit| (the drift of 32 bf16 layers, about
@@ -156,7 +167,7 @@ FLASH_MAIN = (8, 2048, 2048, 15, 5, 64, True)
 FLASH_CHECKS = {
     "bfloat16": (FLASH_MAIN, (1, 1, 1, 8, 1, 256, True), (1, 17, 17, 6, 2, 20, True),
                  (2, 64, 77, 24, 3, 128, False), (1, 2048, 2048, 6, 2, 256, True),
-                 (1, 17, 30, 3, 3, 64, False)),
+                 (1, 17, 30, 3, 3, 64, False), (2, 129, 142, 8, 1, 256, False)),
     "float32": ((8, 512, 512, 15, 5, 64, True), (1, 1, 1, 8, 1, 256, True),
                 (1, 17, 17, 6, 2, 20, True), (2, 64, 77, 24, 3, 128, False),
                 (1, 2048, 2048, 6, 2, 256, True)),
@@ -168,6 +179,8 @@ FLASH_CHECKS = {
 # controls at the prefill shape (p rounded to bf16 before P·V; a key tile
 # dropped)
 FLASH_TOL_F32 = 2e-5
+# phase 4: the heads of two more served models, head dimensions 128 and 256
+FLASH_ARCHS = ("qwen1.5-4b", "gemma-2b")
 
 # phase 8, the LM serving main path: smollm-360m at full width and depth
 LM_ARCH = "smollm-360m"
@@ -213,13 +226,66 @@ def build():
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build_all(SOURCES)
+    libs = _build.build_all(SOURCES)
     say(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.2f} s")
     for name in SOURCES:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "smem" in line \
                     or "Compiling entry" in line:
                 say(f"  ptxas {name}: {line.strip()[:150]}")
+    return flash_sass(libs["flash_attention"], _build.build_log("flash_attention"),
+                      _build.nvcc())
+
+
+def _short(mangled: str) -> str:
+    """``flash_fwd_bf16<64>`` from the mangled name of an instantiation."""
+    import re
+    m = re.search(r"(flash_fwd_\w+?)(?:ILi(\d+)E|E)", mangled)
+    return (f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)) if m else mangled
+
+
+def flash_sass(lib, log: str, nvcc: str) -> list:
+    """Phase 2, the redesign's proof: per flash-attention instantiation, the
+    ``HGMMA`` and ``UTMALDG`` instructions in its SASS and ptxas's register
+    and spill report; fatal if a bf16 one lacks either instruction or
+    spills."""
+    import re
+
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    kernels, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = _short(m.group(1))
+            kernels[fn] = {"name": fn, "HGMMA": 0, "UTMALDG": 0}
+        elif fn:
+            for op in ("HGMMA", "UTMALDG"):
+                kernels[fn][op] += bool(re.search(rf"\b{op}\b", line))
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = _short(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn in kernels:
+            kernels[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn in kernels:
+            kernels[fn]["registers"] = int(m.group(1))
+    out = sorted(kernels.values(), key=lambda k: k["name"])
+    for k in out:
+        say(f"  sass {k['name']}: {k['HGMMA']} HGMMA, {k['UTMALDG']} UTMALDG, "
+            f"{k.get('registers')} registers, {k.get('spill_bytes')} spill bytes")
+    bf16 = [k for k in out if "bf16" in k["name"]]
+    if len(bf16) != 4:
+        fail(f"expected 4 bf16 flash-attention instantiations, found {bf16}")
+    for k in bf16:
+        if not k["HGMMA"] or not k["UTMALDG"] or k.get("spill_bytes", 1):
+            fail(f"{k['name']}: {k['HGMMA']} HGMMA, {k['UTMALDG']} UTMALDG, "
+                 f"{k.get('spill_bytes')} spill bytes (want wgmma, TMA, no spill)")
+    return out
 
 
 def flash_vs_plain(gen):
@@ -242,7 +308,10 @@ def flash_vs_plain(gen):
             q = _rand((b, s, h, d), torch.float32, gen).to(dtype)
             k = _rand((b, t, hkv, d), torch.float32, gen).to(dtype)
             v = _rand((b, t, hkv, d), torch.float32, gen).to(dtype)
+            pads = attention.pad_copies
             got = attention.flash_attention(q, k, v, causal=causal)
+            pads = attention.pad_copies - pads
+            want_pads = int(name == "bfloat16" and d % 8 != 0)
             want = attention.flash_attention_plain(q, k, v, causal=causal)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
@@ -261,7 +330,10 @@ def flash_vs_plain(gen):
                     and bool(torch.isfinite(got).all())
                 how = f"allclose tol {FLASH_TOL_F32:g}"
             say(f"kernel vs plain: {where}: max|d| {err:.3e} = {err / scale:.3e} "
-                f"max|o| ({how}) {'ok' if ok else 'FAIL'}")
+                f"max|o| ({how}), {pads} pad copies {'ok' if ok else 'FAIL'}")
+            if pads != want_pads:
+                fail(f"flash_attention made {pads} pad copies at {shape} {name} "
+                     f"(want {want_pads})")
             if not ok:
                 fail(f"flash_attention disagrees with its plain version at "
                      f"{shape} {name}")
@@ -287,42 +359,60 @@ def flash_vs_plain(gen):
 
 
 def flash_timing(gen):
-    """Phase 4, flash attention at the prefill shape (bf16, causal): the
-    kernel, its plain version and ``scaled_dot_product_attention`` on
-    (B, H, S, D) views with ``enable_gqa`` (a yardstick the port never
-    calls), CUDA events; the bound is the larger of q, k, v and o's bytes
-    over 3.35 TB/s and the kept pairs' flops over the bf16 tensor-core
-    peak."""
+    """Phase 4, flash attention, bf16 and causal at B=8, S=T=2048: at the
+    prefill shape (smollm-360m's heads) and with the heads of
+    ``FLASH_ARCHS`` (head dimensions 128 and 256); then the f32 kernel at
+    phase 3's f32 prefill shape.  Each against ``scaled_dot_product_attention``
+    on (B, H, S, D) views with ``enable_gqa`` (a yardstick the port never
+    calls; f32 with TF32 off, as ``main`` sets), CUDA events; the plain
+    version at the prefill shape only.  The bound is the larger of q, k, v
+    and o's bytes over 3.35 TB/s and the kept pairs' flops over the peak of
+    the units the kernel runs on (bf16 tensor cores; f32 CUDA cores).
+    Returns one record a shape, the prefill shape's first."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels import attention
 
-    b, s, t, h, hkv, d, causal = FLASH_MAIN
-    q = _rand((b, s, h, d), torch.float32, gen).bfloat16()
-    k = _rand((b, t, hkv, d), torch.float32, gen).bfloat16()
-    v = _rand((b, t, hkv, d), torch.float32, gen).bfloat16()
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    ms = _time_ms(lambda: attention.flash_attention(q, k, v, causal=causal), 20, 3)
-    plain_ms = _time_ms(lambda: attention.flash_attention_plain(q, k, v, causal=causal),
-                        3, 1)
-    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=True), 20, 3)
-    moved = 2 * (2 * b * s * h * d + 2 * b * t * hkv * d)
-    flops = attention.attention_flops(b, s, t, h, d, causal)
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_TC_FLOPS * 1e3
-    out = {"kernel": "flash_attention", "shape": list(FLASH_MAIN), "dtype": "bfloat16",
-           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bytes": moved,
-           "flops": flops, "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    say(f"timing flash_attention B={b} S={s} H={h} Hkv={hkv} D={d} bf16 causal: "
-        f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} "
-        f"ms, sdpa {library_ms:.4f} ms, bound {out['bound_ms']:.4f} ms "
-        f"({out['bound_by']}: {moved} B {bytes_ms:.4f} ms, {flops:.4g} flop "
-        f"{ops_ms:.4f} ms), {out['bound_ms'] / ms:.1%} of the bound")
-    del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
+    shapes = [("smollm-360m", FLASH_MAIN, torch.bfloat16, BF16_TC_FLOPS)]
+    for arch in FLASH_ARCHS:
+        cfg = get_config(arch)
+        shapes.append((arch, (8, 2048, 2048, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
+                              True), torch.bfloat16, BF16_TC_FLOPS))
+    shapes.append(("smollm-360m f32", FLASH_CHECKS["float32"][0], torch.float32,
+                   FP32_FLOPS))
+    out = []
+    for label, shape, dtype, peak in shapes:
+        b, s, t, h, hkv, d, causal = shape
+        q = _rand((b, s, h, d), torch.float32, gen).to(dtype)
+        k = _rand((b, t, hkv, d), torch.float32, gen).to(dtype)
+        v = _rand((b, t, hkv, d), torch.float32, gen).to(dtype)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms = _time_ms(lambda: attention.flash_attention(q, k, v, causal=causal), 20, 3)
+        plain_ms = (_time_ms(lambda: attention.flash_attention_plain(
+            q, k, v, causal=causal), 3, 1) if shape == FLASH_MAIN else None)
+        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), 20, 3)
+        moved = q.element_size() * (2 * b * s * h * d + 2 * b * t * hkv * d)
+        flops = attention.attention_flops(b, s, t, h, d, causal)
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / peak * 1e3
+        r = {"kernel": "flash_attention", "label": label, "shape": list(shape),
+             "dtype": str(dtype).removeprefix("torch."), "ms": ms,
+             "plain_ms": plain_ms, "library_ms": library_ms, "bytes": moved,
+             "flops": flops, "bound_ms": max(bytes_ms, ops_ms),
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        plain = f"plain {plain_ms:.3f} ms, " if plain_ms is not None else ""
+        say(f"timing flash_attention ({label}) B={b} S={s} H={h} Hkv={hkv} D={d} "
+            f"{r['dtype']} {'causal' if causal else 'full'}: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), {plain}sdpa {library_ms:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {moved} B "
+            f"{bytes_ms:.4f} ms, {flops:.4g} flop {ops_ms:.4f} ms), "
+            f"{r['bound_ms'] / ms:.1%} of the bound")
+        out.append(r)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
     return out
 
 
@@ -359,10 +449,11 @@ def lm_serving(flash_rel_bf16):
     serve.generate(cfg, run, model, tokens[:, :64], 2)  # warm-up, not counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    attention.launches = attention.plain_calls = 0
+    attention.launches = attention.plain_calls = attention.pad_copies = 0
     r = serve.generate(cfg, run, model, tokens, LM_GEN, keep_logits=True)
     counts = {"flash_attention": attention.launches,
-              "flash_attention_plain": attention.plain_calls}
+              "flash_attention_plain": attention.plain_calls,
+              "pad_copies": attention.pad_copies}
     peak = torch.cuda.max_memory_allocated()
     steps = LM_GEN - 1
     out = {"arch": LM_ARCH, "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
@@ -375,10 +466,12 @@ def lm_serving(flash_rel_bf16):
         f"prefill {out['prefill_ms']:.3f} ms, decode {r['decode_ms']:.3f} ms "
         f"({out['decode_ms_per_step']:.3f} ms/step, {out['tok_per_s']:.1f} tok/s), "
         f"peak {peak / 2**30:.2f} GiB, counts {counts}, sample {out['sample']}")
-    if counts["flash_attention"] != cfg.n_layers or counts["flash_attention_plain"]:
+    if counts["flash_attention"] != cfg.n_layers or counts["flash_attention_plain"] \
+            or counts["pad_copies"]:
         fail(f"the LM prefill launched flash_attention {counts['flash_attention']} "
              f"times (want {cfg.n_layers}, one a layer) with "
-             f"{counts['flash_attention_plain']} plain calls")
+             f"{counts['flash_attention_plain']} plain calls and "
+             f"{counts['pad_copies']} pad copies")
     if tuple(r["tokens"].shape) != (LM_BATCH, LM_GEN) or not all(
             bool(torch.isfinite(x).all()) for x in r["logits"]):
         fail(f"LM serving: tokens {tuple(r['tokens'].shape)}, non-finite logits")
@@ -1095,14 +1188,15 @@ def main() -> int:
 
     # the plain versions' products go through cuBLAS: full f32, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
-    build()
+    flash_sass_counts = build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_abs = kernel_vs_plain(gen)
     max_abs.update(ring_vs_plain(gen))
     max_abs["flash_attention"], flash_rel, flash_gaps = flash_vs_plain(gen)
     times = timing(gen)
     ring_times = ring_timing(gen)
-    flash_time = flash_timing(gen)
+    flash_times = flash_timing(gen)
+    flash_time = flash_times[0]
     os.makedirs(REF_DIR, exist_ok=True)
     runs, launches = main_path()
     prof = [breakdown(BACKEND[k]) for k in KERNELS]
@@ -1139,7 +1233,8 @@ def main() -> int:
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump({"card": smi, "device": name,
-                   "timing": times + ring_times + [flash_time],
+                   "timing": times + ring_times + flash_times,
+                   "flash_sass": flash_sass_counts,
                    "kernels": kernels, "runs": runs, "breakdown": prof,
                    "multi_rank": ranks, "flash_bf16_gaps": flash_gaps, "lm": lm},
                   f, indent=1)

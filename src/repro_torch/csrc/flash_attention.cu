@@ -16,39 +16,76 @@
 // What bounds it: at the LM prefill's shapes (S = T = 2048, D = 64) the two
 // products do 2·S·T·D flops per head (half of it under the causal mask)
 // against 2·(S + 2T)·D bytes a head, far above the card's ~295 flop/byte
-// ridge: tensor-core throughput bounds it.  The design:
+// ridge: tensor-core throughput bounds it.
 //
-//   * bf16 (flash_fwd_bf16): one 128-thread block per (b·h, 64-query tile),
-//     each warp owning 16 query rows; K and V tiles of 64 keys go through
-//     shared memory; S = Q K^T and O += P V run on mma.sync m16n8k16 (bf16
-//     in, f32 accumulate).  The TPU kernel keeps p in f32 for P V; a bf16
-//     product would round p to 8 bits, so p is split as p = hi + lo, both
-//     bf16, and P V is two products (16 significant bits of p).  The head
-//     dimension is zero-padded inside the tiles to 32, 64, 128 or 256.
-//   * f32 (flash_fwd_f32): full-precision CUDA-core FMAs (TF32 would not
-//     compute the same function), 32-query tiles, scores and the
-//     accumulator in shared memory.
-//   * Key tiles strictly above the causal diagonal are skipped: under the
-//     TPU kernel's mask they add exp(-1e30 - m) = 0 and multiply by
-//     exp(0) = 1, so skipping them changes no bit.  Heavy (late) causal
-//     query tiles are scheduled first.
+// bf16 (flash_fwd_bf16<DP>), the shape of a Hopper GEMM kernel:
 //
-// Not yet done (a later PR): wgmma, TMA loads, double-buffered tiles,
-// ldmatrix fragment loads.
+//   * Tiles.  One block of 384 threads per (b·h, query tile): two consumer
+//     warpgroups and a producer warpgroup.  Each consumer owns 64 query rows
+//     and all DP columns of O (a 128-row query tile), except at DP = 256:
+//     there both take the same 64 rows and each owns half of O's columns,
+//     both computing S.  The reason is registers: ptxas fits the consumers'
+//     code in about 168 a thread however many setmaxnreg grants at run
+//     time, and O (DP/2 or DP/4 a thread), S and P (BN/2 each) must fit
+//     there without spilling.  Key tiles are BN = 128 wide for DP <= 64 and
+//     64 for DP >= 128.  The head dimension is padded to DP = 32, 64, 128 or
+//     256 inside the tiles.
+//   * Loads.  One producer thread issues TMA copies: Q once a block, then K
+//     and V tiles into a ring of STAGES (3 for DP <= 64, else 2) in shared
+//     memory, each stage with a full and an empty mbarrier.  A 4-D tensor
+//     map (D, heads, rows, B) per operand reads q, k and v in place through
+//     their strides; rows past S or T and columns past D arrive as zeros.
+//     Tiles are stored in 128-byte swizzled atoms of 64 columns (64-byte
+//     atoms of 32 columns for DP = 32), the layout wgmma reads.  The
+//     producer warpgroup gives up its registers (setmaxnreg 24), the
+//     consumers take them (240).
+//   * Products.  S = Q K^T is wgmma m64nBNk16 with Q and K both read from
+//     shared memory, K-major as they lie.  The TPU kernel keeps p in f32
+//     for P V; one bf16 product would round p to 8 bits (the bf16 check
+//     refuses that), so p = hi + lo, both bf16, and O += P V is two wgmma
+//     calls with A in registers (hi, then lo) against one V descriptor,
+//     V MN-major with the transpose bit.  S's accumulator registers become
+//     P's A fragments in place.
+//   * Softmax in registers, in base 2: p = ex2(s·c - m) with c =
+//     log2(e)/sqrt(D) folded into one FMA, m the running max of s·c, ex2
+//     the SFU's ex2.approx.ftz (exp2f without its denormal handling);
+//     masks only on tiles that cross the diagonal or T.  Key tiles above
+//     the causal diagonal are skipped, for the block and for a warpgroup
+//     whose rows end before the tile: under the TPU kernel's mask they add
+//     exp(-1e30 - m) = 0 and multiply by exp(0) = 1, so skipping them
+//     changes no bit.  Heavy (late) causal query tiles are scheduled first.
+//   * Epilogue: o = acc / max(l, 1e-30) in bf16, staged in the warpgroup's
+//     own part of the Q tile and stored with 16-byte stores (element stores
+//     when D % 8 != 0); rows past S are never written.
 //
-// Plain C interface (no PyTorch headers), loaded with ctypes.  The entry
-// point returns a CUDA error code; it launches on the given stream and does
+//   What TMA cannot take: a head dimension that is not a multiple of 8, a
+//   stride that is not a multiple of 16 bytes, a base that is not 16-byte
+//   aligned.  The wrapper (kernels/attention.py) copies such an operand
+//   into a zero-padded contiguous (B, T, Hkv, round8(D)) buffer first;
+//   `dg` is the operands' head extent, D the true one (scale and output).
+//
+// f32 (flash_fwd_f32): full-precision CUDA-core FMAs (TF32 would not
+// compute the same function), 32-query tiles, scores and the accumulator
+// in shared memory.
+//
+// Plain C interface (no PyTorch headers), loaded with ctypes; links
+// libcuda for cuTensorMapEncodeTiled.  The entry point returns a CUDA
+// runtime error code, or 10000 + the CUDA driver API's CUresult when a
+// tensor map cannot be encoded; it launches on the given stream and does
 // not synchronise.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "wgmma_tma.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;   // attention.py:29
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;        // f32 kernel
 
 struct Args {
   const void* q;
@@ -60,24 +97,49 @@ struct Args {
   long long sv_b, sv_t, sv_h;
   int B, S, T, H, Hkv, D;
   int causal;
-  int vec;        // 16-byte loads allowed (D % 8 == 0, strides % 8 == 0, aligned)
-  float scale;
+  float scale;        // 1/sqrt(D)
+  float scale_log2;   // log2(e)/sqrt(D)
 };
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: wgmma, TMA, warp-specialised
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 64;   // query rows per block (4 warps x 16)
-constexpr int BK = 64;   // keys per tile
-static_assert(BQ == BK, "load_tile_bf16 moves tiles of BQ rows");
+constexpr int WG = 128;                  // threads a warpgroup
+constexpr int BF16_THREADS = 3 * WG;     // two consumer warpgroups, one producer
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;       // 128·24 + 256·240 <= 65536
 
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// The consumers' registers: ptxas allocates their code within about 168 a
+// thread whatever setmaxnreg grants at run time (spills otherwise), so the
+// accumulators are sized to fit: O (DP/2 a thread), S (BN/2) and P (BN/2).
+template <int DP>
+struct Tile {
+  static constexpr int BN = DP <= 64 ? 128 : 64;      // keys a tile
+  static constexpr int STAGES = DP <= 64 ? 3 : 2;
+  // DP = 256 splits the head dimension: both consumer warpgroups take the
+  // same 64 query rows and each accumulates half of O's columns (S is
+  // computed by both); otherwise each takes its own 64 rows, all columns
+  static constexpr int SPLIT = DP == 256 ? 2 : 1;
+  static constexpr int ROWS = 128 / SPLIT;            // query rows a block
+  static constexpr int DO = DP / SPLIT;               // O columns a warpgroup
+  static constexpr int SW = DP >= 64 ? 128 : 64;      // swizzle span: an atom's row, bytes
+  static constexpr int AW = SW / 2;                   // an atom's columns
+  static constexpr int NA = DP / AW;                  // atoms across the head dimension
+  static constexpr uint32_t MODE = SW == 128 ? 1 : 2; // descriptor swizzle mode
+  static constexpr int CH = SW / 16;                  // 16-byte chunks an atom row
+  static constexpr int Q_BYTES = ROWS * DP * 2;
+  static constexpr int KV_BYTES = BN * DP * 2;        // one of K, V in one stage
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES
+                              + 8 * (1 + 2 * STAGES);
+};
 
-__device__ __forceinline__ uint32_t pack(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+// 2^x on the SFU (exp2f without its handling of denormal results, which
+// are below any p that counts beside the row's largest, 1)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // p = hi + lo with hi = bf16(p), lo = bf16(p - hi); two values a register
@@ -88,181 +150,275 @@ __device__ __forceinline__ void split2(float x, float y, uint32_t& hi, uint32_t&
   lo = *reinterpret_cast<uint32_t*>(&l);
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// rows [r0, r0 + 64) of a (nrows, D) bf16 matrix with row stride rs into a
-// (64, LD) shared tile; rows past nrows and columns in [D, DP) are zeros
+// Consumer warpgroup `wg`: 64 query rows from q0w against the block's key
+// tiles, then the epilogue.
 template <int DP>
-__device__ __forceinline__ void load_tile_bf16(uint16_t* dst, const uint16_t* src,
-                                               long long rs, int r0, int nrows,
-                                               int D, int vec) {
-  constexpr int LD = DP + 8;
-  if (vec) {
-    constexpr int CH = DP / 8;   // 16-byte chunks a row
-    for (int c = threadIdx.x; c < BQ * CH; c += THREADS) {
-      const int r = c / CH, d = (c % CH) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (r0 + r < nrows && d < D)
-        val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * rs + d);
-      *reinterpret_cast<uint4*>(dst + r * LD + d) = val;
-    }
-  } else {
-    for (int c = threadIdx.x; c < BQ * DP; c += THREADS) {
-      const int r = c / DP, d = c % DP;
-      uint16_t val = 0;
-      if (r0 + r < nrows && d < D) val = src[(long long)(r0 + r) * rs + d];
-      dst[r * LD + d] = val;
-    }
-  }
-}
+__device__ __forceinline__ void consume(const Args& a, unsigned char* Qs,
+                                        unsigned char* Ks, unsigned char* Vs,
+                                        uint64_t* qbar, uint64_t* full,
+                                        uint64_t* empty, int b, int h, int q0,
+                                        int ntiles) {
+  using C = Tile<DP>;
+  constexpr int BN = C::BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4, w = warp % 4, gid = lane / 4, tig = lane % 4;
+  const int row0 = C::SPLIT == 1 ? 64 * wg : 0;   // its rows in the block's tile
+  const int col0 = C::SPLIT == 1 ? 0 : wg * C::DO; // its first O column
+  const int q0w = q0 + row0;
+  const bool active = q0w < a.S;     // a warpgroup wholly past S only keeps pace
+  const float c = a.scale_log2;
 
-template <int DP>
-__global__ void __launch_bounds__(THREADS) flash_fwd_bf16(Args a) {
-  constexpr int LD = DP + 8;   // pitch in elements: 16 bytes of padding a row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* Qs = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* Ks = Qs + BQ * LD;
-  uint16_t* Vs = Ks + BK * LD;
-
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / a.H, h = bh % a.H;
-  const int hk = h / (a.H / a.Hkv);
-  const int q0 = qt * BQ;
-  const uint16_t* qp = static_cast<const uint16_t*>(a.q) + b * a.sq_b + h * a.sq_h;
-  const uint16_t* kp = static_cast<const uint16_t*>(a.k) + b * a.sk_b + hk * a.sk_h;
-  const uint16_t* vp = static_cast<const uint16_t*>(a.v) + b * a.sv_b + hk * a.sv_h;
-
-  load_tile_bf16<DP>(Qs, qp, a.sq_s, q0, a.S, a.D, a.vec);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int r0 = warp * 16 + gid;        // this thread's rows: r0 and r0 + 8
-
-  float acc[DP / 8][4];
+  float o[C::DO / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  for (int i = 0; i < C::DO / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-  const int kend = a.causal ? min(a.T, q0 + BQ) : a.T;
-  const int ntiles = (kend + BK - 1) / BK;
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();                     // the last tile's reads are done
-    load_tile_bf16<DP>(Ks, kp, a.sk_t, k0, a.T, a.D, a.vec);
-    load_tile_bf16<DP>(Vs, vp, a.sv_t, k0, a.T, a.D, a.vec);
-    __syncthreads();
+  const uint32_t q_addr = sm90::smem_addr(Qs) + row0 * C::SW;
+  sm90::mbar_wait(qbar, 0);
 
-    // S = Q K^T: 8 tiles of 16 x 8 (keys j*8 .. j*8+7)
-    float s[8][4];
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = i % C::STAGES;
+    const int k0 = i * BN;
+    sm90::mbar_wait(&full[st], (i / C::STAGES) & 1);
+    if (active && (!a.causal || k0 <= q0w + 63)) {
+      const uint32_t k_addr = sm90::smem_addr(Ks + st * C::KV_BYTES);
+      const uint32_t v_addr = sm90::smem_addr(Vs + st * C::KV_BYTES);
+
+      // S = Q K^T over DP / 16 steps of 16 columns
+      float s[BN / 2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int j = 0; j < BN / 2; ++j) s[j] = 0.f;
+      sm90::fence_regs(s);
+      sm90::wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < DP / 16; ++kc) {
-      const uint16_t* qa = Qs + r0 * LD + kc * 16 + tig * 2;
-      const uint32_t af[4] = {ld32(qa), ld32(qa + 8 * LD), ld32(qa + 8),
-                              ld32(qa + 8 * LD + 8)};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const uint16_t* kb = Ks + (j * 8 + gid) * LD + kc * 16 + tig * 2;
-        const uint32_t bf[2] = {ld32(kb), ld32(kb + 8)};
-        mma_bf16(s[j], af, bf);
+      for (int kc = 0; kc < DP / 16; ++kc) {
+        const int atom = kc * 16 / C::AW, col = kc * 16 % C::AW;
+        const uint64_t dq = sm90::smem_desc(q_addr + atom * C::ROWS * C::SW + col * 2,
+                                            16, 8 * C::SW, C::MODE);
+        const uint64_t dk = sm90::smem_desc(k_addr + atom * BN * C::SW + col * 2,
+                                            16, 8 * C::SW, C::MODE);
+        sm90::wgmma_ss<BN>(s, dq, dk);
       }
-    }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(s);
 
-    // scale, mask, online softmax (row r0: e = 0, 1; row r0 + 8: e = 2, 3)
+      // s[4j + 2hr + e]: row 16w + gid + 8hr, key k0 + 8j + 2tig + e
+      if (k0 + BN > a.T || (a.causal && k0 + BN - 1 > q0w)) {
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int qpos = q0 + r0 + 8 * hr;
-      float mx = m[hr];
+        for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+          for (int hr = 0; hr < 2; ++hr) {
+            const int qpos = q0w + 16 * w + gid + 8 * hr;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kpos = k0 + j * 8 + tig * 2 + e;
-          float x = s[j][2 * hr + e] * a.scale;
-          if (kpos >= a.T || (a.causal && kpos > qpos)) x = NEG_INF;
-          s[j][2 * hr + e] = x;
-          mx = fmaxf(mx, x);
+            for (int e = 0; e < 2; ++e) {
+              const int kpos = k0 + 8 * j + 2 * tig + e;
+              if (kpos >= a.T || (a.causal && kpos > qpos)) s[4 * j + 2 * hr + e] = NEG_INF;
+            }
+          }
         }
       }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float alpha = expf(m[hr] - mx);
-      float sum = 0.f;
+
+      // online softmax, base 2; l stays a per-thread partial sum until the end
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int hr = 0; hr < 2; ++hr) {
+        float mx = -INFINITY;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = expf(s[j][2 * hr + e] - mx);
-          s[j][2 * hr + e] = p;
-          sum += p;
+        for (int j = 0; j < BN / 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hr], s[4 * j + 2 * hr + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hr], mx * c);
+        const float alpha = ex2(m[hr] - m_new);
+        m[hr] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = ex2(fmaf(s[4 * j + 2 * hr + e], c, -m_new));
+            s[4 * j + 2 * hr + e] = p;
+            sum += p;
+          }
+        }
+        l[hr] = l[hr] * alpha + sum;
+#pragma unroll
+        for (int j = 0; j < C::DO / 8; ++j) {
+          o[4 * j + 2 * hr] *= alpha;
+          o[4 * j + 2 * hr + 1] *= alpha;
         }
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l[hr] = l[hr] * alpha + sum;
-      m[hr] = mx;
-#pragma unroll
-      for (int i = 0; i < DP / 8; ++i) {
-        acc[i][2 * hr] *= alpha;
-        acc[i][2 * hr + 1] *= alpha;
-      }
-    }
 
-    // O += P V over 4 chunks of 16 keys; P's A fragments are S's C fragments
+      // P's A fragments from S's accumulator registers: keys 16kc..16kc+15
+      uint32_t ph[BN / 16][4], pl[BN / 16][4];
 #pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t ahi[4], alo[4];
-      split2(s[2 * kc][0], s[2 * kc][1], ahi[0], alo[0]);
-      split2(s[2 * kc][2], s[2 * kc][3], ahi[1], alo[1]);
-      split2(s[2 * kc + 1][0], s[2 * kc + 1][1], ahi[2], alo[2]);
-      split2(s[2 * kc + 1][2], s[2 * kc + 1][3], ahi[3], alo[3]);
-      const uint16_t* vb = Vs + (kc * 16 + tig * 2) * LD + gid;
+      for (int kc = 0; kc < BN / 16; ++kc) {
 #pragma unroll
-      for (int i = 0; i < DP / 8; ++i) {
-        const uint16_t* c = vb + i * 8;
-        const uint32_t bf[2] = {pack(c[0], c[LD]), pack(c[8 * LD], c[9 * LD])};
-        mma_bf16(acc[i], ahi, bf);
-        mma_bf16(acc[i], alo, bf);
+        for (int r = 0; r < 4; ++r)
+          split2(s[8 * kc + 2 * r], s[8 * kc + 2 * r + 1], ph[kc][r], pl[kc][r]);
       }
+
+      // O += P_hi V + P_lo V over BN / 16 steps of 16 keys, V's columns
+      // col0 .. col0 + DO
+      sm90::fence_regs(o);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BN / 16; ++kc) {
+        const uint64_t dv = sm90::smem_desc(
+            v_addr + (col0 / C::AW) * BN * C::SW + kc * 16 * C::SW, BN * C::SW,
+            8 * C::SW, C::MODE);
+        sm90::wgmma_rs<C::DO>(o, ph[kc], dv);
+        sm90::wgmma_rs<C::DO>(o, pl[kc], dv);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o);
     }
+    if (lane == 0) sm90::mbar_arrive(&empty[st]);
   }
+  if (!active) return;
 
-  __nv_bfloat16* op = static_cast<__nv_bfloat16*>(a.o);
+  // epilogue: o / max(l, 1e-30) as bf16 into this warpgroup's part of the
+  // Q tile, same atoms, chunks swizzled; its own reads of Q are done, and
+  // split warpgroups share their rows, so they wait for each other first
+  if (C::SPLIT > 1) asm volatile("bar.sync 1, %0;\n" :: "n"(2 * WG) : "memory");
+  float den[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int qpos = q0 + r0 + 8 * hr;
-    if (qpos >= a.S) continue;
-    const float den = fmaxf(l[hr], 1e-30f);
+    float t = l[hr];
+    t += __shfl_xor_sync(0xffffffffu, t, 1);
+    t += __shfl_xor_sync(0xffffffffu, t, 2);
+    den[hr] = fmaxf(t, 1e-30f);
+  }
+#pragma unroll
+  for (int j = 0; j < C::DO / 8; ++j) {
+    const int d = col0 + 8 * j + 2 * tig;
+    const int atom = d / C::AW, ch = (d % C::AW) / 8;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = 16 * w + gid + 8 * hr;
+      unsigned char* dst = Qs + atom * C::ROWS * C::SW + (row0 + r) * C::SW
+                           + ((ch ^ (r % C::CH)) * 16) + (d % 8) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(
+          o[4 * j + 2 * hr] / den[hr], o[4 * j + 2 * hr + 1] / den[hr]);
+    }
+  }
+  asm volatile("bar.sync %0, %1;\n" :: "r"(2 + wg), "n"(WG) : "memory");
+
+  constexpr int CPR = C::DO / 8;   // 16-byte chunks a row of this warpgroup's
+  const int t = threadIdx.x % WG;
+  __nv_bfloat16* op = static_cast<__nv_bfloat16*>(a.o);
+  for (int id = t; id < 64 * CPR; id += WG) {
+    const int r = id / CPR, d0 = col0 + (id % CPR) * 8;
+    const int qpos = q0w + r;
+    if (qpos >= a.S || d0 >= a.D) continue;
+    const int atom = d0 / C::AW, ch = (d0 % C::AW) / 8;
+    const uint4 val = *reinterpret_cast<const uint4*>(
+        Qs + atom * C::ROWS * C::SW + (row0 + r) * C::SW + ((ch ^ (r % C::CH)) * 16));
     __nv_bfloat16* row = op + (((long long)b * a.S + qpos) * a.H + h) * a.D;
-#pragma unroll
-    for (int i = 0; i < DP / 8; ++i) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = i * 8 + tig * 2 + e;
-        if (d < a.D) row[d] = __float2bfloat16_rn(acc[i][2 * hr + e] / den);
-      }
+    if (a.D % 8 == 0) {
+      *reinterpret_cast<uint4*>(row + d0) = val;
+    } else {
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+      for (int x = 0; x < 8 && d0 + x < a.D; ++x) row[d0 + x] = e[x];
     }
   }
 }
 
 template <int DP>
-cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
-  const int smem = (BQ + 2 * BK) * (DP + 8) * 2;
+__global__ void __launch_bounds__(BF16_THREADS, 1)
+flash_fwd_bf16(const Args a, const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv) {
+  using C = Tile<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle atoms of TMA and wgmma repeat every 1024 bytes
+  unsigned char* Qs = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* Ks = Qs + C::Q_BYTES;                  // stage st at Ks + st·KV_BYTES
+  unsigned char* Vs = Ks + C::STAGES * C::KV_BYTES;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + C::STAGES * C::KV_BYTES);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + C::STAGES;
+
+  const int bh = blockIdx.x;
+  const int b = bh / a.H, h = bh % a.H;
+  const int hk = h / (a.H / a.Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::ROWS;   // heavy causal tiles first
+  const int kend = a.causal ? min(a.T, q0 + C::ROWS) : a.T;
+  const int ntiles = (kend + C::BN - 1) / C::BN;
+  const int warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(qbar, 1);
+    for (int st = 0; st < C::STAGES; ++st) {
+      sm90::mbar_init(&full[st], 1);
+      sm90::mbar_init(&empty[st], 8);   // lane 0 of each consumer warp
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == 8 * 32) {
+      sm90::mbar_expect_tx(qbar, C::Q_BYTES);
+      for (int at = 0; at < C::NA; ++at)
+        sm90::tma_load_4d(Qs + at * C::ROWS * C::SW, &tq, qbar, at * C::AW, h, q0, b);
+      for (int i = 0; i < ntiles; ++i) {
+        const int st = i % C::STAGES;
+        sm90::mbar_wait(&empty[st], ((i / C::STAGES) & 1) ^ 1);
+        sm90::mbar_expect_tx(&full[st], 2 * C::KV_BYTES);
+        for (int at = 0; at < C::NA; ++at) {
+          const int off = st * C::KV_BYTES + at * C::BN * C::SW;
+          sm90::tma_load_4d(Ks + off, &tk, &full[st], at * C::AW, hk, i * C::BN, b);
+          sm90::tma_load_4d(Vs + off, &tv, &full[st], at * C::AW, hk, i * C::BN, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+    consume<DP>(a, Qs, Ks, Vs, qbar, full, empty, b, h, q0, ntiles);
+  }
+}
+
+// 4-D tensor map (dg, heads, rows, B) over a bf16 operand, one box =
+// `box_rows` rows of one head, one atom of columns
+CUresult encode(CUtensorMap* map, const void* ptr, int dg, int heads, int rows,
+                int batch, long long s_head, long long s_row, long long s_batch,
+                int atom_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[4] = {(cuuint64_t)dg, (cuuint64_t)heads, (cuuint64_t)rows,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_head * 2, (cuuint64_t)s_row * 2,
+                                 (cuuint64_t)s_batch * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)atom_cols, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                                const_cast<void*>(ptr), dims, strides, box, elem,
+                                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int DP>
+int launch_bf16(const Args& a, int dg, cudaStream_t stream) {
+  using C = Tile<DP>;
+  const CUtensorMapSwizzle sw = C::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                             : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap tq, tk, tv;
+  CUresult r = encode(&tq, a.q, dg, a.H, a.S, a.B, a.sq_h, a.sq_s, a.sq_b, C::AW,
+                      C::ROWS, sw);
+  if (r == CUDA_SUCCESS)
+    r = encode(&tk, a.k, dg, a.Hkv, a.T, a.B, a.sk_h, a.sk_t, a.sk_b, C::AW, C::BN, sw);
+  if (r == CUDA_SUCCESS)
+    r = encode(&tv, a.v, dg, a.Hkv, a.T, a.B, a.sv_h, a.sv_t, a.sv_b, C::AW, C::BN, sw);
+  if (r != CUDA_SUCCESS) return 10000 + static_cast<int>(r);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + BQ - 1) / BQ, a.B * a.H);
-  flash_fwd_bf16<DP><<<grid, THREADS, smem, stream>>>(a);
-  return cudaGetLastError();
+      flash_fwd_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(a.B * a.H, (a.S + C::ROWS - 1) / C::ROWS);
+  flash_fwd_bf16<DP><<<grid, BF16_THREADS, C::SMEM, stream>>>(a, tq, tk, tv);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -375,30 +531,28 @@ cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides in elements.
+// dtype: 0 = float32, 1 = bfloat16.  Strides in elements.  D is the head
+// dimension (scale and output width); dg is the operands' head extent
+// (bf16: a multiple of 8, D <= dg; the columns past D are zeros).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
     long long sq_b, long long sq_s, long long sq_h,
     long long sk_b, long long sk_t, long long sk_h,
     long long sv_b, long long sv_t, long long sv_h,
     int B, int S, int T, int H, int Hkv, int D, int causal, int dtype,
-    int vec, cudaStream_t stream) {
+    int dg, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || T <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 ||
       D > 256 || (long long)B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  const double scale = 1.0 / sqrt(static_cast<double>(D));
   Args a{q, k, v, o, sq_b, sq_s, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t, sv_h,
-         B, S, T, H, Hkv, D, causal, vec,
-         static_cast<float>(1.0 / sqrt(static_cast<double>(D)))};
-  cudaError_t err;
-  if (dtype == 0) {
-    err = launch_f32(a, stream);
-  } else if (dtype == 1) {
-    if (D <= 32) err = launch_bf16<32>(a, stream);
-    else if (D <= 64) err = launch_bf16<64>(a, stream);
-    else if (D <= 128) err = launch_bf16<128>(a, stream);
-    else err = launch_bf16<256>(a, stream);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+         B, S, T, H, Hkv, D, causal, static_cast<float>(scale),
+         static_cast<float>(scale * 1.4426950408889634)};
+  if (dtype == 0) return static_cast<int>(launch_f32(a, stream));
+  if (dtype != 1 || dg < D || dg > 256 || dg % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dg <= 32) return launch_bf16<32>(a, dg, stream);
+  if (dg <= 64) return launch_bf16<64>(a, dg, stream);
+  if (dg <= 128) return launch_bf16<128>(a, dg, stream);
+  return launch_bf16<256>(a, dg, stream);
 }

@@ -28,7 +28,7 @@ NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: extra link flags of the sources that need them
-LINK = {"ring_rdma": ("-lcuda",)}
+LINK = {"ring_rdma": ("-lcuda",), "flash_attention": ("-lcuda",)}
 _INCLUDE = re.compile(rb'^\s*#include\s+"([\w.]+\.cuh)"', re.MULTILINE)
 
 

@@ -9,17 +9,24 @@ the running max, the sum and the accumulator in f32; the output is
 ``acc / max(l, 1e-30)`` in q's dtype.
 
 The kernel, ``csrc/flash_attention.cu``, reads q, k and v in this layout
-through their strides and runs the two products on the tensor cores
-(``mma.sync`` m16n8k16, bf16 in, f32 accumulate; p split into two bf16
-halves so that P·V keeps 16 bits of it) for bf16, and on full-precision
-CUDA-core FMAs for f32.  It is built with ``nvcc`` at first use
+through their strides.  In bf16 it is built like a Hopper GEMM: a producer
+warp keeps TMA loads of K and V tiles in flight through a ring of
+shared-memory stages under mbarriers, and two consumer warpgroups run both
+products on ``wgmma`` (bf16 in, f32 accumulate; p split into two bf16
+halves so that P·V keeps 16 bits of it).  In f32 it runs full-precision
+CUDA-core FMAs.  It is built with ``nvcc`` at first use
 (:mod:`repro_torch.kernels._build`) and called through ``ctypes`` on
 PyTorch's current stream, without synchronising.
 
+TMA describes a bf16 operand only when its head dimension is a multiple
+of 8 and its base and strides are 16-byte aligned; :func:`tma_operands`
+copies any other operand into a zero-padded contiguous buffer first.
+
 :func:`flash_attention` launches the kernel for CUDA tensors, or raises.
 For tensors that lie on the CPU it runs the plain version,
-:func:`flash_attention_plain`.  ``launches`` counts kernel launches and
-``plain_calls`` counts plain-version calls; nothing else adds to either.
+:func:`flash_attention_plain`.  ``launches`` counts kernel launches,
+``plain_calls`` plain-version calls and ``pad_copies`` the launches whose
+operands had to be copied into padded buffers; nothing else adds to any.
 """
 
 from __future__ import annotations
@@ -32,11 +39,16 @@ from repro_torch.kernels import _launch
 
 launches = 0
 plain_calls = 0
+pad_copies = 0
 
 #: masked scores (attention.py:29): finite, so a row's max stays finite
 NEG_INF = -1e30
 #: the kernel's largest head dimension (its tiles pad D up to 32..256)
 MAX_HEAD_DIM = 256
+#: TMA's alignment of an operand's base and strides, bytes
+TMA_ALIGN = 16
+#: the bf16 kernel's operands have a head extent in steps of 8 (16 bytes)
+HEAD_STEP = 8
 #: the C entry point's dtype codes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -79,13 +91,16 @@ def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, blk_q: int = 256,
-                          blk_k: int = 256):
+                          blk_k: int = 256, scale: float | None = None):
     """The plain PyTorch version, the kernel's dataflow block by block:
     for each ``blk_q`` query block, an online softmax over the ``blk_k``
     key blocks with f32 m, l and acc (``attention.py:32–62``); every query
     head of a group against its kv head, with no copy of k or v.  Blocks
     strictly above the causal diagonal are skipped (they change no bit).
-    On the card its products go through cuBLAS: keep TF32 off for f32."""
+    On the card its products go through cuBLAS: keep TF32 off for f32.
+    ``scale`` is the scores' factor, 1/sqrt(D) by default; operands whose
+    head dimension was zero-padded (:func:`tma_operands`) pass the true
+    D's."""
     global plain_calls
     plain_calls += 1
     check_qkv(q, k, v)
@@ -93,7 +108,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, blk_q: int = 256,
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     bq, bk = _blocks(s, blk_q), _blocks(t, blk_k)
-    scale = 1.0 / (d ** 0.5)
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
     # (B, Hkv, g, S, D) and (B, Hkv, 1, T, D): head h = hk·g + j
     qf = q.float().reshape(b, s, hkv, g, d).permute(0, 2, 3, 1, 4)
     kf = k.float().permute(0, 2, 1, 3).unsqueeze(2)
@@ -124,14 +140,56 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, blk_q: int = 256,
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
 
 
+def tma_strides(x: torch.Tensor) -> tuple[int, int, int]:
+    """Strides of x's first three dimensions as the kernel's tensor map
+    takes them: a dimension of size 1 is never stepped, so its stride is
+    replaced by the contiguous one."""
+    st = list(x.stride()[:3])
+    inner = x.shape[3]
+    for i in (2, 1, 0):
+        if x.shape[i] == 1:
+            st[i] = inner
+        inner = st[i] * x.shape[i]
+    return tuple(st)
+
+
+def tma_ready(x: torch.Tensor, dg: int) -> bool:
+    """True when a tensor map can read x as it lies with head extent
+    ``dg``: 16-byte aligned base and strides, and a head dimension of
+    ``dg`` elements."""
+    size = x.element_size()
+    return (x.shape[3] == dg and x.data_ptr() % TMA_ALIGN == 0
+            and all(st > 0 and st * size % TMA_ALIGN == 0 for st in tma_strides(x)))
+
+
+def tma_operands(q, k, v):
+    """q, k and v as the bf16 kernel's tensor maps can describe them, and
+    their head extent ``dg``, D rounded up to a multiple of 8.  An operand
+    whose head dimension is not ``dg``, or whose base or strides are not
+    16-byte aligned, is copied into a zero-padded contiguous
+    ``(B, rows, heads, dg)`` buffer; the rest are returned as they are.
+    Returns ``(q, k, v, dg, copied)``; the zero columns add nothing to
+    q·kᵀ and give zero output columns, which the kernel does not store."""
+    dg = -(-q.shape[3] // HEAD_STEP) * HEAD_STEP
+    out, copied = [], False
+    for x in (q, k, v):
+        if not tma_ready(x, dg):
+            padded = x.new_zeros(x.shape[:3] + (dg,))
+            padded[..., :x.shape[3]] = x
+            x, copied = padded, True
+        out.append(x)
+    return (*out, dg, copied)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, blk_q: int = 256,
                     blk_k: int = 256):
     """Attention of q ``(B, S, H, D)`` over k, v ``(B, T, Hkv, D)``, out
     ``(B, S, H, D)`` in q's dtype.  ``causal`` masks ``kpos > qpos`` (the
     diagonal aligned at the top left, as the JAX kernel; meant for S == T).
     ``blk_q``/``blk_k`` block the plain version as the JAX kernel's grid;
-    the CUDA kernel tiles by its own sizes (64 for bf16, 32 for f32)."""
-    global launches
+    the CUDA kernel tiles by its own sizes (128 queries and 64 or 128 keys
+    for bf16, 32 for f32)."""
+    global launches, pad_copies
     check_qkv(q, k, v)
     if _launch.runs_plain("flash_attention", q):
         return flash_attention_plain(q, k, v, causal=causal, blk_q=blk_q,
@@ -143,16 +201,17 @@ def flash_attention(q, k, v, *, causal: bool = True, blk_q: int = 256,
     if b * h > 65535:
         raise ValueError(f"B·H = {b * h} exceeds the grid limit of 65535")
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    vec = int(q.dtype == torch.bfloat16 and d % 8 == 0 and all(
-        x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:3])
-        for x in (q, k, v)))
+    dg, copied = d, False
+    if q.dtype == torch.bfloat16:
+        q, k, v, dg, copied = tma_operands(q, k, v)
+    strides = [st for x in (q, k, v) for st in tma_strides(x)]
     fn = _LIB.fn("flash_attention_fwd")
     _launch.launch("flash_attention", fn, q.device, q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), o.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-                   *v.stride()[:3], b, s, t, h, hkv, d, int(causal),
-                   _DTYPES[q.dtype], vec,
+                   v.data_ptr(), o.data_ptr(), *strides, b, s, t, h, hkv, d,
+                   int(causal), _DTYPES[q.dtype], dg,
                    detail=f"q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype}")
     launches += 1
+    pad_copies += copied
     return o
 
 

@@ -106,6 +106,48 @@ def test_flash_refuses_what_the_kernel_does_not_take():
         A.flash_attention(meta, meta, meta)
 
 
+def _unaligned(x: torch.Tensor) -> torch.Tensor:
+    """x as a view one element into a wider buffer: its base is no longer
+    16-byte aligned, its strides are."""
+    d = x.shape[-1]
+    buf = torch.zeros(x.shape[:3] + (d + 8,), dtype=x.dtype)
+    buf[..., 1:d + 1] = x
+    return buf[..., 1:d + 1]
+
+
+# the bf16 kernel's operands as its tensor maps read them: D=20 is padded to
+# 24 (scores still scaled by 1/sqrt(20)), a misaligned base is copied, and
+# aligned contiguous operands pass as they are
+@pytest.mark.parametrize("case,d,dg,copied", [("d20", 20, 24, True), ("unaligned", 32, 32, True),
+                                              ("as_is", 32, 32, False)])
+def test_tma_operands_match_jax_kernel(case, d, dg, copied):
+    q, k, v = _qkv(2, 64, 64, 8, 2, d, seed=21 + d)
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+                     blk_q=32, blk_k=32, interpret=True)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    if case == "unaligned":
+        tq, tk, tv = (_unaligned(x) for x in (tq, tk, tv))
+        assert not A.tma_ready(tq, dg)
+    pq, pk, pv, got_dg, got_copied = A.tma_operands(tq, tk, tv)
+    assert (got_dg, got_copied) == (dg, copied)
+    for x, p in zip((tq, tk, tv), (pq, pk, pv)):
+        assert A.tma_ready(p, dg) and p.shape == x.shape[:3] + (dg,)
+        assert (p is x) == (not copied)
+        assert torch.equal(p[..., :d], x) and not p[..., d:].any()
+    got = A.flash_attention_plain(pq, pk, pv, causal=True, blk_q=32, blk_k=32,
+                                  scale=1.0 / d ** 0.5)[..., :d]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_tma_strides_step_no_size_one_dimension():
+    # a dimension of size 1 takes the contiguous stride, whatever view made it
+    assert A.tma_strides(torch.zeros(1, 5, 1, 16)) == (80, 16, 16)
+    odd = torch.zeros(2, 7, 8).as_strided((2, 7, 1, 8), (56, 8, 3, 1))
+    assert A.tma_strides(odd) == (56, 8, 8) and A.tma_ready(odd, 8)
+    head = torch.zeros(2, 7, 3, 8)[:, :, 1:2]     # one kv head of three
+    assert A.tma_strides(head) == (168, 24, 8)
+
+
 def test_attention_flops_counts_the_kept_pairs():
     # causal: S(S+1)/2 pairs a head; full: S·T
     assert A.attention_flops(8, 2048, 2048, 15, 64, True) == 4.0 * 8 * 15 * 64 * 2048 * 2049 / 2

@@ -2,6 +2,8 @@
 machine without one).  Run them on the card with
 ``python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -193,7 +195,7 @@ def test_ipc_exchange_on_one_card_matches_gloo(cuda):
 FLASH_TOL_F32 = 2e-5  # bf16: attention.bf16_gap
 
 
-@pytest.mark.parametrize("s", [1, 17, 64, 2048])
+@pytest.mark.parametrize("s", [1, 17, 64, 129, 2048])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("group", [1, 3, 8])
 @pytest.mark.parametrize("d", [20, 64, 128, 256])
@@ -207,9 +209,11 @@ def test_flash_kernel_matches_plain_version(cuda, no_tf32, dtype, d, group, caus
     q = torch.randn(1, s, hkv * group, d, device=cuda, generator=g).to(dtype)
     k = torch.randn(1, t, hkv, d, device=cuda, generator=g).to(dtype)
     v = torch.randn(1, t, hkv, d, device=cuda, generator=g).to(dtype)
-    before = attention.launches
+    before, pads = attention.launches, attention.pad_copies
     got = attention.flash_attention(q, k, v, causal=causal)
     assert attention.launches == before + 1
+    # only bf16 operands that TMA cannot describe (D=20) are copied
+    assert attention.pad_copies == pads + (dtype == torch.bfloat16 and d % 8 != 0)
     want = attention.flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
@@ -234,6 +238,46 @@ def test_flash_kernel_reads_strided_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous head dimension"):
         attention.flash_attention(q.transpose(1, 3), k.transpose(1, 3),
                                   v.transpose(1, 3))
+
+
+def _misaligned(x):
+    """x as a view one element into a wider buffer: a head base that is not
+    16-byte aligned, strides that are."""
+    d = x.shape[-1]
+    buf = torch.zeros(x.shape[:3] + (d + 8,), dtype=x.dtype, device=x.device)
+    buf[..., 1:d + 1] = x
+    return buf[..., 1:d + 1]
+
+
+@pytest.mark.parametrize("case", ["d20", "misaligned"])
+def test_flash_kernel_pads_what_tma_cannot_read(cuda, case):
+    d = 20 if case == "d20" else 64
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn(2, 150, hk, d, device=cuda, generator=g).bfloat16()
+               for hk in (6, 2, 2))
+    if case == "misaligned":
+        q, k, v = (_misaligned(x) for x in (q, k, v))
+        assert q.data_ptr() % 16
+    pads, launches = attention.pad_copies, attention.launches
+    got = attention.flash_attention(q, k, v, causal=True)
+    assert (attention.pad_copies, attention.launches) == (pads + 1, launches + 1)
+    want = attention.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                           v.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    gap = attention.bf16_gap(got, want)
+    assert gap["ok"], gap
+
+
+def test_lm_prefill_on_card_makes_no_pad_copy(cuda):
+    cfg = dataclasses.replace(get_config("smollm-360m", smoke=True), n_heads=4,
+                              n_kv_heads=2, d_model=256, compute_dtype="bfloat16")
+    tokens = torch.randint(0, cfg.vocab, (2, 140), generator=torch.Generator().manual_seed(1))
+    model = T.init_model(cfg, seed=0, device=cuda)
+    launches, pads = attention.launches, attention.pad_copies
+    logits, _ = T.prefill(cfg, T.RunCfg(), model, {"tokens": tokens.to(cuda)}, t_max=144)
+    assert attention.launches == launches + cfg.n_layers
+    assert attention.pad_copies == pads  # D = 64: every operand read in place
+    assert torch.isfinite(logits).all()
 
 
 def test_lm_prefill_on_card_launches_the_kernel_and_matches_cpu(cuda):
