@@ -15,7 +15,11 @@ of every layer of the prefill.  Phases, each fatal on failure:
 
 1. card — ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build — the four CUDA sources, ``nvcc`` processes started together,
-   with each one's register, shared-memory and spill report; then the
+   with each one's register, shared-memory and spill report (for the
+   radix-2 row engine, one line of registers / spill bytes / static shared
+   memory for each instantiation of ``fft_radix2_kernel<T, L>`` and
+   ``ring_payload_kernel<T, L, diag>``, fatal on any spill or a missing
+   log2 N); then the
    flash-attention library's SASS (``cuobjdump --dump-sass``): each bf16
    instantiation's ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) counts and
    its registers and spill bytes from ptxas — fatal if one has no
@@ -23,15 +27,19 @@ of every layer of the prefill.  Phases, each fatal on failure:
 3. kernel vs plain — each FFT kernel against its plain PyTorch version on
    the same CUDA tensors, f64 and f32, forward and inverse, at the main
    path's shapes (N=512 with 512·512 and 257·512 rows; for ``fft_mxu``
-   also N=256 with 512·256 rows) and the edges (N=2 and 8192 for
-   ``fft_radix2``, N=4, 16 and 8192 for ``fft_mxu``).  Tolerance: max|Δ| ≤
+   also N=256 with 512·256 rows) and the edges (for ``fft_radix2`` every
+   N its instantiations cover, 2..8192 in f64 and 2..16384 in f32, each
+   with one row and with an odd number of rows, not a multiple of the
+   rows a block; N=2, 4, 16 and 8192 for ``fft_mxu``).  Tolerance: max|Δ| ≤
    1e-12·max|y| in f64 and ≤ 1e-5·max|y| in f32.  ``fft_radix2`` has the
-   same twiddles and operation order as its plain version, only the
-   compiler's FMA contraction differs; ``fft_mxu`` sums in another order
+   same twiddles and butterflies as its plain version, grouped into
+   passes, only the compiler's FMA contraction differs; ``fft_mxu`` sums
+   in another order
    inside its tensor-core tiles than cuBLAS does in the plain version's
    products (which run with TF32 off).  Then ``ring_payload`` in its three
    modes (forward, inverse, roundtrip) against ``payload_plain``, f64 and
-   f32, N=16, 512 and 8192, the same tolerances; ``ring_send`` and
+   f32, N=16, 512 and 8192 and every N of ``fft_radix2``'s edges, the
+   same tolerances; ``ring_send`` and
    ``ring_land`` against plain indexing, bit for bit (the "peer" slot a
    second buffer of this process); ``flash_attention`` against
    ``flash_attention_plain`` at the LM prefill's shapes (B=8, S=T=2048,
@@ -46,7 +54,9 @@ of every layer of the prefill.  Phases, each fatal on failure:
    where TMA cannot read them (D=20), nowhere else;
 4. timing — each kernel, its plain version and PyTorch's own call where
    one computes the same function (``torch.fft.fft``; a yardstick the port
-   never calls) at the main path's shapes, CUDA events, and the bound:
+   never calls) at the main path's shapes, CUDA events (the FFT and ring
+   kernels' and library calls' times the median of 7 timings, the
+   kernels' spread beside them), and the bound:
    the larger of the bytes moved over 3.35 TB/s (for the wire kernels
    2·bytes: on one card a copy reads and writes the same memory) and the
    flops over the peak of the units the kernel runs on (FP64 CUDA cores,
@@ -122,6 +132,7 @@ TOL = {"float64": 1e-12, "float32": 1e-5}
 KERNELS = ("fft_radix2", "fft_mxu")
 BACKEND = {"fft_radix2": "pallas", "fft_mxu": "mxu"}
 SOURCES = KERNELS + ("ring_rdma", "flash_attention")
+RADIX2_SOURCES = ("fft_radix2", "ring_rdma")  # the radix-2 row engine's users
 RING_KERNELS = ("ring_payload", "ring_send", "ring_land")
 BF16_TC_FLOPS = 989e12        # H100 SXM data sheet, dense bf16 tensor cores
 REF_DIR = os.path.join(HERE, "build", "chip_smoke_ref")
@@ -229,12 +240,78 @@ def build():
     libs = _build.build_all(SOURCES)
     say(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.2f} s")
     for name in SOURCES:
+        engine = False  # the radix-2 row engine's entries: one line each, below
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "smem" in line \
-                    or "Compiling entry" in line:
+            if "Compiling entry" in line:
+                engine = "fft_radix2_kernel" in line or "ring_payload_kernel" in line
+            if not engine and ("registers" in line or "spill" in line
+                               or "smem" in line or "Compiling entry" in line):
                 say(f"  ptxas {name}: {line.strip()[:150]}")
+    radix2 = radix2_ptxas({name: _build.build_log(name) for name in RADIX2_SOURCES})
     return flash_sass(libs["flash_attention"], _build.build_log("flash_attention"),
-                      _build.nvcc())
+                      _build.nvcc()), radix2
+
+
+def _radix2_log2ns(dtype: str) -> list:
+    """Every log2 N the radix-2 wrappers admit in ``dtype`` (shared memory
+    bounds the top): the instantiations the row engine must have."""
+    import torch
+
+    from repro_torch.kernels import fft_radix2
+
+    return list(range(1, fft_radix2.max_n(getattr(torch, dtype)).bit_length()))
+
+
+def radix2_ptxas(logs: dict) -> list:
+    """Phase 2, the radix-2 row engine: per instantiation of
+    ``fft_radix2_kernel<T, L>`` and ``ring_payload_kernel<T, L, diag>``,
+    ptxas's registers, spill bytes and static shared memory a block (the
+    rows and twiddles are dynamic shared memory); fatal on any spill or on
+    a log N the wrapper admits without an instantiation."""
+    import re
+
+    out = []
+    for source, log in logs.items():
+        cur = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '\S*?(fft_radix2_kernel|"
+                          r"ring_payload_kernel)I([df])Li(\d+)E(?:Lb([01])E)?", line)
+            if m:
+                cur = {"source": source, "kernel": m.group(1),
+                       "dtype": {"d": "float64", "f": "float32"}[m.group(2)],
+                       "log2n": int(m.group(3)), "diag": m.group(4) == "1",
+                       "registers": None, "spill_bytes": None, "smem": 0}
+                out.append(cur)
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                cur["smem"] = int(m.group(1)) if m else 0
+                cur = None
+    for (kernel, diag), label in (
+            (("fft_radix2_kernel", False), "fft_radix2_kernel"),
+            (("ring_payload_kernel", False), "ring_payload_kernel (forward, inverse)"),
+            (("ring_payload_kernel", True), "ring_payload_kernel (roundtrip)")):
+        for dtype in ("float64", "float32"):
+            ks = sorted((k for k in out if (k["kernel"], k["diag"], k["dtype"])
+                         == (kernel, diag, dtype)), key=lambda k: k["log2n"])
+            say(f"  ptxas {label} {dtype}, log2 N: registers / spill bytes / static "
+                "smem: " + ", ".join(f"{k['log2n']}: {k['registers']}/{k['spill_bytes']}/"
+                                     f"{k['smem']}" for k in ks))
+            want = _radix2_log2ns(dtype)
+            if [k["log2n"] for k in ks] != want:
+                fail(f"{label} {dtype}: instantiations {[k['log2n'] for k in ks]}, "
+                     f"want log2 N {want}")
+            spilled = [k for k in ks if k["spill_bytes"] != 0]
+            if spilled:
+                fail(f"{label} {dtype} spills: {spilled}")
+    return out
 
 
 def _short(mangled: str) -> str:
@@ -546,18 +623,39 @@ def _pair(name):
     return fft_radix2.fft1d_radix2, plain
 
 
-# (rows, N) held against the plain version: the main path's shapes first
+# (rows, N) held against the plain version: the main path's shapes first;
+# fft_radix2 then takes every N its instantiations cover (radix2_shapes)
 CHECK_SHAPES = {
-    "fft_radix2": ((512 * 512, 512), (257 * 512, 512), (4096, 2), (1024, 8192)),
+    "fft_radix2": ((512 * 512, 512), (257 * 512, 512)),
     "fft_mxu": ((512 * 512, 512), (257 * 512, 512), (512 * 256, 256),
-                (4096, 4), (4096, 16), (1024, 8192)),
+                (4096, 2), (4096, 4), (4096, 16), (1024, 8192)),
 }
 MAIN_N = (512, 256)
+#: values a row count of radix2_shapes aims at (re or im, one dtype)
+RADIX2_ELEMENTS = 2 ** 21
+
+
+def radix2_shapes(dtype: str):
+    """(rows, N) for every log2 N the radix-2 row engine instantiates in
+    ``dtype``: about ``RADIX2_ELEMENTS`` values in an odd number of rows
+    (not a multiple of the rows a block, which are a power of two), and
+    one row."""
+    return [(rows, 1 << l) for l in _radix2_log2ns(dtype)
+            for rows in (RADIX2_ELEMENTS // (1 << l) + 1, 1)]
+
+
+def _rel_err(got, want):
+    """(max abs error, its ratio to max|want|) over a planar pair."""
+    scale = max(want[0].abs().max().item(), want[1].abs().max().item())
+    err = max((got[0] - want[0]).abs().max().item(),
+              (got[1] - want[1]).abs().max().item())
+    return err, err / scale
 
 
 def kernel_vs_plain(gen):
     """Phase 3: returns, per kernel, the max abs error at the main path's
-    f64 shapes."""
+    f64 shapes.  One line a kernel, dtype and direction (the worst shape);
+    a failing shape is named."""
     import torch
 
     main_abs = {}
@@ -565,29 +663,35 @@ def kernel_vs_plain(gen):
         kernel, plain = _pair(name)
         main_abs[name] = 0.0
         for dtype in (torch.float64, torch.float32):
-            for rows, n in CHECK_SHAPES[name]:
+            dname = str(dtype).removeprefix("torch.")
+            tol = TOL[dname]
+            shapes = list(CHECK_SHAPES[name])
+            if name == "fft_radix2":
+                shapes += radix2_shapes(dname)
+            worst = {False: (0.0, None), True: (0.0, None)}
+            for rows, n in shapes:
                 xr, xi = _rand((rows, n), dtype, gen), _rand((rows, n), dtype, gen)
                 for inverse in (False, True):
-                    kr, ki = kernel(xr, xi, inverse=inverse)
-                    pr, pi = plain(xr, xi, inverse=inverse)
+                    got = kernel(xr, xi, inverse=inverse)
+                    want = plain(xr, xi, inverse=inverse)
                     torch.cuda.synchronize()
-                    scale = max(pr.abs().max().item(), pi.abs().max().item())
-                    err = max((kr - pr).abs().max().item(),
-                              (ki - pi).abs().max().item())
-                    tol = TOL[str(dtype).removeprefix("torch.")]
-                    ok = err <= tol * scale
-                    say(f"kernel vs plain: {name} {str(dtype)[6:]} rows={rows} "
-                        f"N={n} {'inverse' if inverse else 'forward'}: max|d| "
-                        f"{err:.3e} = {err / scale:.3e} max|y| (tol {tol:g}) "
-                        f"{'ok' if ok else 'FAIL'}")
-                    if not ok:
-                        fail(f"{name} disagrees with its plain version at "
-                             f"rows={rows} N={n} {dtype} inverse={inverse}")
-                    if dtype == torch.float64 and n in MAIN_N:
+                    err, rel = _rel_err(got, want)
+                    if rel > tol:
+                        fail(f"{name} disagrees with its plain version at rows={rows} "
+                             f"N={n} {dname} inverse={inverse}: max|d| {err:.3e} = "
+                             f"{rel:.3e} max|y| > {tol:g}")
+                    if rel >= worst[inverse][0]:
+                        worst[inverse] = (rel, (rows, n))
+                    if dtype == torch.float64 and n in MAIN_N and rows > 1:
                         main_abs[name] = max(main_abs[name], err)
-                    del kr, ki, pr, pi
+                    del got, want
                 del xr, xi
                 torch.cuda.empty_cache()
+            for inverse, (rel, where) in worst.items():
+                say(f"kernel vs plain: {name} {dname} {'inverse' if inverse else 'forward'}"
+                    f", {len(shapes)} shapes (N {min(n for _, n in shapes)}.."
+                    f"{max(n for _, n in shapes)}): worst {rel:.3e} max|y| at rows, N = "
+                    f"{where} (tol {tol:g}) ok")
     return main_abs
 
 
@@ -603,6 +707,13 @@ def _time_ms(fn, iters: int, warmup: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _median_ms(fn, iters: int, warmup: int, reps: int = 7) -> tuple:
+    """(median, min, max) of ``reps`` timings of ``_time_ms(fn, iters)``."""
+    import statistics
+    times = [_time_ms(fn, iters, warmup if i == 0 else 0) for i in range(reps)]
+    return statistics.median(times), min(times), max(times)
 
 
 def _work(name, rows, n, item):
@@ -633,20 +744,22 @@ def timing(gen):
         xr = _rand((rows, n), torch.float64, gen)
         xi = _rand((rows, n), torch.float64, gen)
         z = torch.complex(xr, xi)
-        library_ms = _time_ms(lambda: torch.fft.fft(z), iters=20, warmup=3)
+        library_ms = _median_ms(lambda: torch.fft.fft(z), iters=20, warmup=3)[0]
         for name in KERNELS:
             kernel, plain = _pair(name)
-            ms = _time_ms(lambda: kernel(xr, xi), iters=20, warmup=3)
+            ms, lo, hi = _median_ms(lambda: kernel(xr, xi), iters=20, warmup=3)
             plain_ms = _time_ms(lambda: plain(xr, xi), iters=3, warmup=1)
             moved, flops, peak = _work(name, rows, n, item)
             bytes_ms = moved / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / peak * 1e3
             t = {"kernel": name, "rows": rows, "n": n, "dtype": "float64",
-                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                 "ms": ms, "ms_spread": [lo, hi], "plain_ms": plain_ms,
+                 "library_ms": library_ms,
                  "bytes": moved, "flops": flops,
                  "bound_ms": max(bytes_ms, ops_ms),
                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-            say(f"timing {name} rows={rows} N={n} f64: kernel {ms:.4f} ms, "
+            say(f"timing {name} rows={rows} N={n} f64: kernel {ms:.4f} ms "
+                f"(median of 7; {lo:.4f}..{hi:.4f}), "
                 f"plain {plain_ms:.3f} ms, torch.fft {library_ms:.4f} ms, "
                 f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {moved} B "
                 f"{bytes_ms:.4f} ms, {flops:.0f} flop {ops_ms:.4f} ms), "
@@ -840,30 +953,31 @@ def ring_vs_plain(gen):
     err512 = 0.0
     for mode in ("forward", "inverse", "roundtrip"):
         for dtype in (torch.float64, torch.float32):
-            for n in PAYLOAD_N:
-                rows = PAYLOAD_ROWS[n]
+            dname = str(dtype).removeprefix("torch.")
+            tol = TOL[dname]
+            shapes = [(PAYLOAD_ROWS[n], n) for n in PAYLOAD_N] + radix2_shapes(dname)
+            worst = (0.0, None)
+            for rows, n in shapes:
                 xr, xi, dr, di = (_rand((rows, n), dtype, gen) for _ in range(4))
                 diag = (dr, di) if mode == "roundtrip" else None
-                kr, ki = ring_rdma.ring_payload(xr, xi, diag=diag,
-                                                inverse=mode == "inverse")
+                got = ring_rdma.ring_payload(xr, xi, diag=diag, inverse=mode == "inverse")
                 twr, twi = fft_radix2.twiddles(n, dtype, xr.device)
-                pr, pi = ring_rdma.payload_plain(xr, xi, twr, twi, diag,
-                                                 mode == "inverse")
+                want = ring_rdma.payload_plain(xr, xi, twr, twi, diag, mode == "inverse")
                 torch.cuda.synchronize()
-                scale = max(pr.abs().max().item(), pi.abs().max().item())
-                err = max((kr - pr).abs().max().item(),
-                          (ki - pi).abs().max().item())
-                tol = TOL[str(dtype).removeprefix("torch.")]
-                ok = err <= tol * scale
-                say(f"kernel vs plain: ring_payload {mode} {str(dtype)[6:]} "
-                    f"rows={rows} N={n}: max|d| {err:.3e} = "
-                    f"{err / scale:.3e} max|y| (tol {tol:g}) "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    fail(f"ring_payload {mode} disagrees with its plain "
-                         f"version at rows={rows} N={n} {dtype}")
-                if dtype == torch.float64 and n == 512:
+                err, rel = _rel_err(got, want)
+                if rel > tol:
+                    fail(f"ring_payload {mode} disagrees with its plain version at "
+                         f"rows={rows} N={n} {dname}: max|d| {err:.3e} = {rel:.3e} "
+                         f"max|y| > {tol:g}")
+                if rel >= worst[0]:
+                    worst = (rel, (rows, n))
+                if dtype == torch.float64 and (rows, n) == (PAYLOAD_ROWS[512], 512):
                     err512 = max(err512, err)
+                del xr, xi, dr, di, got, want
+            torch.cuda.empty_cache()
+            say(f"kernel vs plain: ring_payload {mode} {dname}, {len(shapes)} shapes "
+                f"(N {min(n for _, n in shapes)}..{max(n for _, n in shapes)}): worst "
+                f"{worst[0]:.3e} max|y| at rows, N = {worst[1]} (tol {tol:g}) ok")
     p, blk = 4, SLAB[2] // 4
     for dtype in (torch.float64, torch.float32):
         xs = [_rand(SLAB, dtype, gen) for _ in range(2)]
@@ -906,15 +1020,15 @@ def ring_timing(gen):
     twr, twi = fft_radix2.twiddles(n, torch.float64, torch.device("cuda"))
     xr, xi, dr, di = (_rand((rows, n), torch.float64, gen) for _ in range(4))
     z, d = torch.complex(xr, xi), torch.complex(dr, di)
-    lib = {"fft": _time_ms(lambda: torch.fft.fft(z), 20, 3),
-           "ifft": _time_ms(lambda: torch.fft.ifft(z), 20, 3),
-           "mul": _time_ms(lambda: z * d, 20, 3)}
+    lib = {"fft": _median_ms(lambda: torch.fft.fft(z), 20, 3)[0],
+           "ifft": _median_ms(lambda: torch.fft.ifft(z), 20, 3)[0],
+           "mul": _median_ms(lambda: z * d, 20, 3)[0]}
     out = []
     for mode in ("forward", "inverse", "roundtrip"):
         diag = (dr, di) if mode == "roundtrip" else None
         inv = mode == "inverse"
-        ms = _time_ms(lambda: ring_rdma.ring_payload(xr, xi, diag=diag,
-                                                     inverse=inv), 20, 3)
+        ms, lo, hi = _median_ms(lambda: ring_rdma.ring_payload(
+            xr, xi, diag=diag, inverse=inv), 20, 3)
         plain_ms = _time_ms(lambda: ring_rdma.payload_plain(
             xr, xi, twr, twi, diag, inv), 3, 1)
         arrays = 6 if diag else 4
@@ -922,7 +1036,8 @@ def ring_timing(gen):
         flops = rows * (5 * n * stages * (2 if diag else 1)
                         + (6 * n if diag else 0))
         t = {"kernel": "ring_payload", "mode": mode, "rows": rows, "n": n,
-             "ms": ms, "plain_ms": plain_ms, "bytes": moved, "flops": flops,
+             "ms": ms, "ms_spread": [lo, hi], "plain_ms": plain_ms,
+             "bytes": moved, "flops": flops,
              "library_ms": {"forward": lib["fft"], "inverse": lib["ifft"]}.get(mode),
              "library_sum_ms": (lib["fft"] + lib["mul"] + lib["ifft"]
                                 if diag else None)}
@@ -950,11 +1065,14 @@ def ring_timing(gen):
              send_plain, lambda: torch._foreach_copy_(slots, blocks)),
             ("ring_land", lambda: ring_rdma.ring_land(slots, outs, 1, 4, 1),
              land_plain, lambda: torch._foreach_copy_(places, slots))):
-        # on one card a copy reads and writes HBM: 2 * bytes
+        # on one card a copy reads and writes HBM: 2 * bytes; medians of 7
+        # timings, their spread beside them (these copies spread from call
+        # to call)
+        ms, lo, hi = _median_ms(kernel, 50, 5)
         out.append({"kernel": name, "mode": "2 arrays",
-                    "shape": SLAB[:2] + (blk,), "ms": _time_ms(kernel, 50, 5),
-                    "plain_ms": _time_ms(plain, 50, 5), "bytes": 2 * moved,
-                    "flops": 0, "library_ms": _time_ms(library, 50, 5),
+                    "shape": SLAB[:2] + (blk,), "ms": ms, "ms_spread": [lo, hi],
+                    "plain_ms": _median_ms(plain, 50, 5)[0], "bytes": 2 * moved,
+                    "flops": 0, "library_ms": _median_ms(library, 50, 5)[0],
                     "library_sum_ms": None})
     for t in out:
         bytes_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -964,7 +1082,9 @@ def ring_timing(gen):
         lib = (f"torch {t['library_ms']:.4f} ms" if t["library_ms"] is not None
                else (f"fft+mul+ifft (a sum of 3 calls) {t['library_sum_ms']:.4f} ms"
                      if t["library_sum_ms"] is not None else "no one torch call"))
-        say(f"timing {t['kernel']} {t['mode']} f64: kernel {t['ms']:.4f} ms, "
+        lo, hi = t["ms_spread"]
+        say(f"timing {t['kernel']} {t['mode']} f64: kernel {t['ms']:.4f} ms (median "
+            f"of 7; {lo:.4f}..{hi:.4f}), "
             f"plain {t['plain_ms']:.4f} ms, {lib}, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}: {t['bytes']} B), {t['bound_ms'] / t['ms']:.1%} "
             "of the bound")
@@ -1188,7 +1308,7 @@ def main() -> int:
 
     # the plain versions' products go through cuBLAS: full f32, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
-    flash_sass_counts = build()
+    flash_sass_counts, radix2_build = build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_abs = kernel_vs_plain(gen)
     max_abs.update(ring_vs_plain(gen))
@@ -1234,7 +1354,7 @@ def main() -> int:
     with open(OUT, "w") as f:
         json.dump({"card": smi, "device": name,
                    "timing": times + ring_times + flash_times,
-                   "flash_sass": flash_sass_counts,
+                   "flash_sass": flash_sass_counts, "radix2_ptxas": radix2_build,
                    "kernels": kernels, "runs": runs, "breakdown": prof,
                    "multi_rank": ranks, "flash_bf16_gaps": flash_gaps, "lm": lm},
                   f, indent=1)

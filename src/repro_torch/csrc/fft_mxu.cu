@@ -5,7 +5,7 @@
 // (fft1d_mxu, body _kernel, tables _plan), which ran the FFT as dense
 // complex matrix products on the TPU's matrix unit.
 //
-// What it computes, per row of length N = n1*n2 (a power of two >= 4,
+// What it computes, per row of length N = n1*n2 (a power of two >= 2,
 // n1 = 2^floor(log2(N)/2), planar re/im), with the row viewed as
 // A[j1][j2] (n = j1*n2 + j2):
 //   step 1  B = d1 @ A          length-n1 DFTs over j1   (d1: n1 x n1)
@@ -39,7 +39,8 @@
 // bank conflicts.
 //
 // CUDA-core path (f32 at every N, f64 below N = 64, where n1 < 8 leaves no
-// 8x8x4 tile): a full-precision FMA loop, one output element a thread, with
+// 8x8x4 tile; N = 2 is n1 = 1, n2 = 2): a full-precision FMA loop, one
+// output element a thread, with
 // A and C in separate shared buffers.  f32 deliberately avoids TF32, which
 // keeps ~3 digits.
 //

@@ -33,12 +33,18 @@
 // another process would stall for whole time slices, because kernels of
 // different processes are time-sliced on one card.
 //
-// The payload.  One thread block per payload row, the row in shared memory
-// (radix2_stages.cuh, the stage code of fft_radix2.cu): mode 0 forward;
-// mode 1 the conjugate-trick inverse with 1/N; mode 2 roundtrip -- forward,
-// complex multiply by the diag row in natural order, inverse -- reading x
-// and diag once and writing once.  Bound by bytes: 6 * rows * N * sizeof(T)
-// in roundtrip mode, 4 * rows * N * sizeof(T) otherwise.
+// The payload.  The radix-2 row engine of fft_radix2.cu
+// (radix2_stages.cuh: three DIF stages a pass in registers, one XOR
+// swizzle that keeps every shared-memory access free of bank conflicts,
+// the twiddles staged once a block, several rows a block on a persistent
+// grid): mode 0 forward; mode 1 the conjugate-trick inverse with 1/N;
+// mode 2 roundtrip -- forward, complex multiply by the diag row in natural
+// order, inverse -- reading x and diag once and writing once.  In the
+// roundtrip the inverse passes run on the bit-reversed layout of the
+// forward output, so the diag multiply rides on their first pass's reads
+// (natural order, diag read coalesced from device memory) and no reorder
+// runs between the two transforms.  Bound by bytes: 6 * rows * N *
+// sizeof(T) in roundtrip mode, 4 * rows * N * sizeof(T) otherwise.
 //
 // C interface (no PyTorch headers, bound with ctypes).  Runtime errors come
 // back as their cudaError_t, driver errors as minus their CUresult; entry
@@ -99,80 +105,51 @@ __global__ void ring_land_kernel(BlockCopy c) {
   copy_block<E>(c);
 }
 
-template <typename T>
-__global__ void ring_payload_kernel(const T* __restrict__ xr,
-                                    const T* __restrict__ xi,
-                                    const T* __restrict__ twr,
-                                    const T* __restrict__ twi,
-                                    const T* __restrict__ dr,
-                                    const T* __restrict__ di,
-                                    T* __restrict__ yr, T* __restrict__ yi,
-                                    int n, int log2n, int mode, T scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sr = reinterpret_cast<T*>(smem_raw);
-  T* si = sr + n;
-  const size_t base = static_cast<size_t>(blockIdx.x) * static_cast<size_t>(n);
+template <typename T, int L, bool kDiag>
+__global__ void __launch_bounds__(radix2::Shape<L>::THREADS, 1)
+    ring_payload_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                        const T* __restrict__ twr, const T* __restrict__ twi,
+                        const T* __restrict__ dr, const T* __restrict__ di,
+                        T* __restrict__ yr, T* __restrict__ yi, long long rows,
+                        int inverse, T scale) {
+  radix2::rows<T, L, kDiag>(xr, xi, twr, twi, dr, di, yr, yi, rows, inverse,
+                            scale);
+}
 
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    sr[k] = xr[base + k];
-    si[k] = mode == kInverse ? -xi[base + k] : xi[base + k];
-  }
-  __syncthreads();
-  radix2::dif_stages(sr, si, twr, twi, n, log2n);
-
-  if (mode == kRoundtrip) {
-    // natural bin k sits at j = bitrev(k) and bin j at k: the thread with
-    // the smaller index of each pair multiplies both by their diag entries
-    // and stores them conjugated, in natural order, for the inverse
-    for (int k = threadIdx.x; k < n; k += blockDim.x) {
-      const int j = radix2::bitrev(k, log2n);
-      if (k > j) continue;
-      const T ar = sr[j], ai = si[j];
-      const T br = sr[k], bi = si[k];
-      const T dkr = dr[base + k], dki = di[base + k];
-      sr[k] = ar * dkr - ai * dki;
-      si[k] = -(ar * dki + ai * dkr);
-      if (j != k) {
-        const T djr = dr[base + j], dji = di[base + j];
-        sr[j] = br * djr - bi * dji;
-        si[j] = -(br * dji + bi * djr);
-      }
-    }
-    __syncthreads();
-    radix2::dif_stages(sr, si, twr, twi, n, log2n);
-  }
-
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const int src = radix2::bitrev(k, log2n);
-    if (mode == kForward) {
-      yr[base + k] = sr[src];
-      yi[base + k] = si[src];
-    } else {
-      yr[base + k] = sr[src] * scale;
-      yi[base + k] = -(si[src] * scale);
-    }
-  }
+template <typename T, bool kDiag, int L>
+int payload_launch(const void* xr, const void* xi, const void* twr,
+                   const void* twi, const void* dr, const void* di, void* yr,
+                   void* yi, long long rows, int n, int mode, void* stream) {
+  const long long blocks =
+      radix2::grid_for<T, L, 1 + kDiag>(ring_payload_kernel<T, L, kDiag>, rows);
+  if (blocks < 0) return static_cast<int>(-blocks);
+  ring_payload_kernel<T, L, kDiag>
+      <<<static_cast<unsigned>(blocks), radix2::Shape<L>::THREADS,
+         radix2::Table<T, L>::smem_bytes(), static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(xr), static_cast<const T*>(xi),
+          static_cast<const T*>(twr), static_cast<const T*>(twi),
+          static_cast<const T*>(dr), static_cast<const T*>(di),
+          static_cast<T*>(yr), static_cast<T*>(yi), rows, mode == kInverse,
+          static_cast<T>(1.0 / n));
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int payload(const void* xr, const void* xi, const void* twr, const void* twi,
             const void* dr, const void* di, void* yr, void* yi,
             long long rows, int n, int mode, void* stream) {
+  if (mode != kForward && mode != kInverse && mode != kRoundtrip)
+    return static_cast<int>(cudaErrorInvalidValue);
   int log2n = 0;
   while ((1 << log2n) < n) ++log2n;
-  const size_t smem = 2u * static_cast<size_t>(n) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      ring_payload_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ring_payload_kernel<T><<<static_cast<unsigned>(rows), radix2::threads_for(n),
-                           smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(xr), static_cast<const T*>(xi),
-      static_cast<const T*>(twr), static_cast<const T*>(twi),
-      static_cast<const T*>(dr), static_cast<const T*>(di),
-      static_cast<T*>(yr), static_cast<T*>(yi), n, log2n, mode,
-      static_cast<T>(1.0 / n));
-  return static_cast<int>(cudaGetLastError());
+  return radix2::with_log2n<radix2::max_log2n<T>()>(log2n, [&](auto l) {
+    constexpr int L = decltype(l)::value;
+    return mode == kRoundtrip
+               ? payload_launch<T, true, L>(xr, xi, twr, twi, dr, di, yr, yi,
+                                            rows, n, mode, stream)
+               : payload_launch<T, false, L>(xr, xi, twr, twi, dr, di, yr, yi,
+                                             rows, n, mode, stream);
+  });
 }
 
 template <typename Kernel>

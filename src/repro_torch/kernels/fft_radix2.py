@@ -1,10 +1,11 @@
 """The paper's radix-2 FFT engine as a hand-written CUDA kernel for Hopper.
 
 Port of ``repro.kernels.fft_radix2`` (the Pallas TPU kernel
-``fft1d_pallas``/``ifft1d_pallas``).  The kernel, ``csrc/fft_radix2.cu``,
-gives one thread block to each pencil row and runs all ``log2(N)``
-butterfly stages in shared memory, so device memory sees one read and one
-write of the data — the call is bound by memory bandwidth.  It is built
+``fft1d_pallas``/``ifft1d_pallas``).  The kernel, ``csrc/fft_radix2.cu``
+on the row engine ``csrc/radix2_stages.cuh``, runs the ``log2(N)``
+butterfly stages three at a time in registers with the row in shared
+memory between passes, so device memory sees one read and one write of
+the data — the call is bound by memory bandwidth.  It is built
 with ``nvcc`` at first use (:mod:`repro_torch.kernels._build`) and called
 through ``ctypes`` on PyTorch's current stream, without synchronising.
 
@@ -44,6 +45,12 @@ def twiddles(n: int, dtype: torch.dtype, device: torch.device):
         _twiddles[key] = (torch.as_tensor(twr, device=device),
                           torch.as_tensor(twi, device=device))
     return _twiddles[key]
+
+
+def max_n(dtype: torch.dtype) -> int:
+    """The largest power-of-two N whose row fits one block's shared memory
+    (8192 in float64, 16384 in float32): the kernels are built up to it."""
+    return 1 << ((MAX_SMEM_BYTES // (2 * dtype.itemsize)).bit_length() - 1)
 
 
 def check_row_smem(n: int, dtype: torch.dtype) -> None:

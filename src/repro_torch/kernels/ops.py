@@ -53,8 +53,8 @@ def rfft1d(x, *, axis: int = -1, backend: str = "pallas", packed: bool = False):
 
     ``packed=True`` runs the even/odd packing (one N/2-point complex FFT,
     on the selected backend); it needs an even length and raises
-    ``ValueError`` otherwise (under ``"mxu"`` also below N = 8, where the
-    four-step kernel would get fewer than 4 points).  The
+    ``ValueError`` otherwise (under ``"mxu"`` also at N = 2, where the
+    four-step kernel would get one point).  The
     reference packs on its plain version for every backend but
     ``"pallas"``; here only ``"ref"`` does, so that no kernel backend
     reaches the plain version on the card.

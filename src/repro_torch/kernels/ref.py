@@ -5,7 +5,8 @@ Port of ``repro.kernels.ref``: the same planar-complex algorithm —
 bit-reversal reorder — written with PyTorch tensor operations, so it runs
 on any device.  It is what the CUDA kernel of
 :mod:`repro_torch.kernels.fft_radix2` is held against (same twiddles, same
-operation order), and what that kernel's wrapper runs for a tensor that
+butterflies; the kernel groups the stages into passes), and what that
+kernel's wrapper runs for a tensor that
 lies on the CPU.
 
 ``calls`` counts :func:`fft_dif_planar` invocations (every plain transform

@@ -19,7 +19,9 @@ import tempfile
 
 import numpy as np
 import pytest
-import torch
+# without torch the port's tests skip, and the imports below wait for it
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro_torch import dist
 from repro_torch.core.decomposition import PencilGrid

@@ -7,7 +7,9 @@ to the spectrum's largest entry, the reference's own f64 bound.
 
 import numpy as np
 import pytest
-import torch
+# without torch the port's tests skip, and the imports below wait for it
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro import compat
 from repro.core.engine_spec import EngineSpec as JSpec

@@ -7,7 +7,9 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+# without torch the port's tests skip, and the imports below wait for it
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro.core import comm as jcomm
 from repro.core import decomposition as jdec

@@ -5,7 +5,9 @@ machine without one).  Run them on the card with
 import dataclasses
 
 import pytest
-import torch
+# without torch the port's tests skip, and the imports below wait for it
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro_torch import dist
 from repro_torch.core import decomposition as dec
@@ -38,8 +40,18 @@ def no_tf32():
     torch.backends.cuda.matmul.allow_tf32 = before
 
 
-@pytest.mark.parametrize("n,rows", [(2, 64), (8, 37), (512, 300), (8192, 5)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+# every N the radix-2 row engine instantiates (log2 N 1..13 in f64, 1..14
+# in f32: the wrappers' shared-memory limit), each with one row and with an
+# odd number of rows (not a multiple of the rows a block); plus N=512 at 300
+# rows, as before
+RADIX2_CASES = [(1 << log2n, rows, dtype)
+                for dtype in (torch.float64, torch.float32)
+                for log2n in range(1, fft_radix2.max_n(dtype).bit_length())
+                for rows in (1, (1 << 16 >> log2n) + 3)] + \
+    [(512, 300, torch.float64), (512, 300, torch.float32)]
+
+
+@pytest.mark.parametrize("n,rows,dtype", RADIX2_CASES)
 @pytest.mark.parametrize("inverse", [False, True])
 def test_kernel_matches_plain_version(cuda, n, rows, dtype, inverse):
     g = torch.Generator(device=cuda).manual_seed(n + rows)
@@ -64,7 +76,7 @@ def test_kernel_refuses_what_it_cannot_run(cuda):
         fft_radix2.fft1d_radix2(y, y)
 
 
-@pytest.mark.parametrize("n,rows", [(4, 64), (16, 37), (512, 300), (8192, 5)])
+@pytest.mark.parametrize("n,rows", [(2, 64), (4, 64), (16, 37), (512, 300), (8192, 5)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_mxu_kernel_matches_plain_version(cuda, no_tf32, n, rows, dtype, inverse):
@@ -88,8 +100,8 @@ def test_mxu_kernel_refuses_what_it_cannot_run(cuda):
     y = torch.zeros(4, 8, dtype=torch.float64, device=cuda).t()
     with pytest.raises(ValueError, match="contiguous"):
         fft_mxu.fft1d_mxu(y, y)
-    z = torch.zeros(4, 2, dtype=torch.float64, device=cuda)
-    with pytest.raises(ValueError, match="power of two >= 4"):
+    z = torch.zeros(4, 1, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="power of two >= 2"):
         fft_mxu.fft1d_mxu(z, z)
 
 
@@ -118,8 +130,7 @@ def test_mxu_solver_on_card_matches_cpu(cuda):
         assert observables_rel_err(a, b) <= 1e-10
 
 
-@pytest.mark.parametrize("n,rows", [(16, 37), (512, 300), (8192, 5)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,rows,dtype", RADIX2_CASES)
 @pytest.mark.parametrize("mode", ["forward", "inverse", "roundtrip"])
 def test_ring_payload_matches_plain_version(cuda, n, rows, dtype, mode):
     g = torch.Generator(device=cuda).manual_seed(n + rows)

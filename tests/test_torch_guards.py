@@ -12,7 +12,9 @@ import sys
 from pathlib import Path
 
 import pytest
-import torch
+# without torch the port's tests skip, and the imports below wait for it
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro_torch.core import decomposition as dec
 from repro_torch.core import spectral as sp
@@ -49,6 +51,25 @@ def test_sources_import_neither_jax_nor_repro():
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(REPO)} imports {hits}"
+
+
+def test_suite_collects_without_torch():
+    # a box without torch (CI's `pip install .[test]`) collects the
+    # reference's tests and skips the port's files, each with its reason
+    code = ("import sys\n"
+            "sys.modules['torch'] = None\n"
+            "import pytest\n"
+            "sys.exit(pytest.main(['--collect-only', '-q', '-rs', '-p', "
+            "'no:cacheprovider', '-p', 'no:randomly', 'tests']))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-2000:]
+    ports = sorted(p.name for p in (REPO / "tests").glob("test_torch_*.py"))
+    skipped = re.findall(r"SKIPPED \[1\] tests/(test_torch_\w+\.py):\d+: "
+                         r"could not import 'torch'", r.stdout)
+    assert sorted(skipped) == ports, r.stdout[-4000:]
+    assert "tests/test_fft3d.py::" in r.stdout  # the reference's tests
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():

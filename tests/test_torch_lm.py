@@ -14,7 +14,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+# without torch the port's tests skip, and the imports below wait for it
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro.configs import get_config as jax_config
 from repro.models import RunCfg as JaxRun
