@@ -18,8 +18,10 @@ of every layer of the prefill.  Phases, each fatal on failure:
    with each one's register, shared-memory and spill report (for the
    radix-2 row engine, one line of registers / spill bytes / static shared
    memory for each instantiation of ``fft_radix2_kernel<T, L>`` and
-   ``ring_payload_kernel<T, L, diag>``, fatal on any spill or a missing
-   log2 N); then the
+   ``ring_payload_kernel<T, L, diag>``; for ``fft_mxu``, registers and
+   spill bytes of ``fft_mxu_tc_kernel<L>`` at every log2 N 6..13 and of
+   the CUDA-core kernel in f32 and f64; for the wire copies, each
+   element width; fatal on any spill or a missing instantiation); then the
    flash-attention library's SASS (``cuobjdump --dump-sass``): each bf16
    instantiation's ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) counts and
    its registers and spill bytes from ptxas — fatal if one has no
@@ -27,10 +29,10 @@ of every layer of the prefill.  Phases, each fatal on failure:
 3. kernel vs plain — each FFT kernel against its plain PyTorch version on
    the same CUDA tensors, f64 and f32, forward and inverse, at the main
    path's shapes (N=512 with 512·512 and 257·512 rows; for ``fft_mxu``
-   also N=256 with 512·256 rows) and the edges (for ``fft_radix2`` every
-   N its instantiations cover, 2..8192 in f64 and 2..16384 in f32, each
-   with one row and with an odd number of rows, not a multiple of the
-   rows a block; N=2, 4, 16 and 8192 for ``fft_mxu``).  Tolerance: max|Δ| ≤
+   also N=256 with 512·256 rows) and the edges (every N the kernel's
+   instantiations cover -- ``fft_radix2`` 2..8192 in f64 and 2..16384 in
+   f32, ``fft_mxu`` 2..8192 in both -- each with one row and with an odd
+   number of rows, not a multiple of the rows a block).  Tolerance: max|Δ| ≤
    1e-12·max|y| in f64 and ≤ 1e-5·max|y| in f32.  ``fft_radix2`` has the
    same twiddles and butterflies as its plain version, grouped into
    passes, only the compiler's FMA contraction differs; ``fft_mxu`` sums
@@ -41,7 +43,10 @@ of every layer of the prefill.  Phases, each fatal on failure:
    f32, N=16, 512 and 8192 and every N of ``fft_radix2``'s edges, the
    same tolerances; ``ring_send`` and
    ``ring_land`` against plain indexing, bit for bit (the "peer" slot a
-   second buffer of this process); ``flash_attention`` against
+   second buffer of this process), at run (a)'s slab and over the layouts
+   of ``tests/test_torch_copy_plan.py`` (splits and concats along every
+   axis, p 2 and 4, f64 and f32, bases aligned and one element off: the
+   element case there, fatal otherwise); ``flash_attention`` against
    ``flash_attention_plain`` at the LM prefill's shapes (B=8, S=T=2048,
    15 heads, 5 kv heads, D=64, bf16; S=512 in f32) and at edges (D 20 to
    256, groups 1 to 8, S 1 to 2048, causal and full): in f32 allclose
@@ -52,11 +57,19 @@ of every layer of the prefill.  Phases, each fatal on failure:
    with p rounded to bf16 before P·V and with one key tile dropped; the
    bf16 wrapper copies operands into padded buffers (``pad_copies``) only
    where TMA cannot read them (D=20), nowhere else;
-4. timing — each kernel, its plain version and PyTorch's own call where
+4. timing — first the f64 ``mma.sync`` shapes' TFLOP/s on this card
+   (``fft_mxu.mma_rates``, the measurement behind ``fft_mxu``'s m16n8k16);
+   then each kernel, its plain version and PyTorch's own call where
    one computes the same function (``torch.fft.fft``; a yardstick the port
-   never calls) at the main path's shapes, CUDA events (the FFT and ring
-   kernels' and library calls' times the median of 7 timings, the
-   kernels' spread beside them), and the bound:
+   never calls) at the main path's shapes, ``fft_mxu`` also at N=256 f64
+   (navier_stokes) and in f32 at N=512, and one rank's copies of one
+   bidi exchange at run (b)'s shapes (PERF.md's row 4, against one
+   ``torch._foreach_copy_`` of the same copies), CUDA events after a ~10 ms
+   sleep of the card that lets the host enqueue the timed calls (device
+   time; the copies also as the host issues them, their launch path
+   slower than the kernel; the FFT and ring kernels' and library calls'
+   times the median of 7 timings, the kernels' spread beside them), and
+   the bound:
    the larger of the bytes moved over 3.35 TB/s (for the wire kernels
    2·bytes: on one card a copy reads and writes the same memory) and the
    flops over the peak of the units the kernel runs on (FP64 CUDA cores,
@@ -91,7 +104,8 @@ of every layer of the prefill.  Phases, each fatal on failure:
    1×1 blocks; per rank, counts set to 0 just before the steps and read
    just after: ``ring_payload``, ``ring_send``, ``ring_land`` and
    ``fft_radix2`` launched, no plain version, and ``exchange_rounds``
-   equal to the round model summed over the wires;
+   equal to the round model summed over the wires (the copies' launches
+   by element width shown beside them);
 8. LM serving — ``smollm-360m`` at full width and depth (random weights
    from seed 0, bf16 as configured) through ``repro_torch.launch.serve``:
    batch 8, prompt 2048, 32 greedy tokens; the ``flash_attention`` counts
@@ -240,16 +254,21 @@ def build():
     libs = _build.build_all(SOURCES)
     say(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.2f} s")
     for name in SOURCES:
-        engine = False  # the radix-2 row engine's entries: one line each, below
+        # the radix-2 row engine's and fft_mxu's entries: one line each,
+        # below; the mma probe's are not part of a path
+        own = False
         for line in _build.build_log(name).splitlines():
             if "Compiling entry" in line:
-                engine = "fft_radix2_kernel" in line or "ring_payload_kernel" in line
-            if not engine and ("registers" in line or "spill" in line
-                               or "smem" in line or "Compiling entry" in line):
+                own = name == "fft_mxu" or "fft_radix2_kernel" in line \
+                    or "ring_payload_kernel" in line
+            if not own and ("registers" in line or "spill" in line
+                            or "smem" in line or "Compiling entry" in line):
                 say(f"  ptxas {name}: {line.strip()[:150]}")
     radix2 = radix2_ptxas({name: _build.build_log(name) for name in RADIX2_SOURCES})
+    mxu = mxu_ptxas(_build.build_log("fft_mxu"))
+    copies = copy_ptxas(_build.build_log("ring_rdma"))
     return flash_sass(libs["flash_attention"], _build.build_log("flash_attention"),
-                      _build.nvcc()), radix2
+                      _build.nvcc()), radix2 + mxu + copies
 
 
 def _radix2_log2ns(dtype: str) -> list:
@@ -268,32 +287,16 @@ def radix2_ptxas(logs: dict) -> list:
     ptxas's registers, spill bytes and static shared memory a block (the
     rows and twiddles are dynamic shared memory); fatal on any spill or on
     a log N the wrapper admits without an instantiation."""
-    import re
-
     out = []
     for source, log in logs.items():
-        cur = None
-        for line in log.splitlines():
-            m = re.search(r"Compiling entry function '\S*?(fft_radix2_kernel|"
-                          r"ring_payload_kernel)I([df])Li(\d+)E(?:Lb([01])E)?", line)
-            if m:
-                cur = {"source": source, "kernel": m.group(1),
-                       "dtype": {"d": "float64", "f": "float32"}[m.group(2)],
-                       "log2n": int(m.group(3)), "diag": m.group(4) == "1",
-                       "registers": None, "spill_bytes": None, "smem": 0}
-                out.append(cur)
-                continue
-            if cur is None:
-                continue
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if m:
-                cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                cur["registers"] = int(m.group(1))
-                m = re.search(r"(\d+) bytes smem", line)
-                cur["smem"] = int(m.group(1)) if m else 0
-                cur = None
+        for k in _ptxas_entries(log, r"(fft_radix2_kernel|ring_payload_kernel)I([df])"
+                                     r"Li(\d+)E(?:Lb([01])E)?"):
+            kernel, t, log2n, diag = k["groups"]
+            out.append({"source": source, "kernel": kernel,
+                        "dtype": {"d": "float64", "f": "float32"}[t],
+                        "log2n": int(log2n), "diag": diag == "1",
+                        "registers": k["registers"], "spill_bytes": k["spill_bytes"],
+                        "smem": k["smem"]})
     for (kernel, diag), label in (
             (("fft_radix2_kernel", False), "fft_radix2_kernel"),
             (("ring_payload_kernel", False), "ring_payload_kernel (forward, inverse)"),
@@ -312,6 +315,79 @@ def radix2_ptxas(logs: dict) -> list:
             if spilled:
                 fail(f"{label} {dtype} spills: {spilled}")
     return out
+
+
+def _ptxas_entries(log: str, pattern: str) -> list:
+    """ptxas's registers, spill bytes and static shared memory of each entry
+    whose mangled name matches ``pattern`` (its groups kept as ``groups``)."""
+    import re
+
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(pattern, m.group(1))
+            cur = ({"entry": m.group(1), "groups": list(k.groups()), "registers": None,
+                    "spill_bytes": None, "smem": 0} if k else None)
+            if cur:
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m.group(1)) if m else 0
+            cur = None
+    return out
+
+
+def mxu_ptxas(log: str) -> list:
+    """Phase 2, ``fft_mxu``: registers and spill bytes of each
+    instantiation -- ``fft_mxu_tc_kernel<L>`` for every log2 N of the f64
+    tensor-core path (6..13) and the CUDA-core ``fft_mxu_fma_kernel`` in f32
+    and f64; fatal on a spill or a missing log2 N."""
+    tc = _ptxas_entries(log, r"fft_mxu_tc_kernelILi(\d+)EE")
+    fma = _ptxas_entries(log, r"fft_mxu_fma_kernelI([df])E")
+    tc.sort(key=lambda k: int(k["groups"][0]))
+    say("  ptxas fft_mxu_tc_kernel float64, log2 N: registers / spill bytes: "
+        + ", ".join(f"{k['groups'][0]}: {k['registers']}/{k['spill_bytes']}" for k in tc))
+    say("  ptxas fft_mxu_fma_kernel: " + ", ".join(
+        f"{ {'d': 'float64', 'f': 'float32'}[k['groups'][0]]}: {k['registers']} "
+        f"registers / {k['spill_bytes']} spill bytes" for k in fma))
+    if [int(k["groups"][0]) for k in tc] != list(MXU_TC_LOG2N) or len(fma) != 2:
+        fail(f"fft_mxu instantiations: tensor-core log2 N "
+             f"{[k['groups'][0] for k in tc]}, want {list(MXU_TC_LOG2N)}; "
+             f"{len(fma)} CUDA-core (want 2)")
+    spilled = [k for k in tc + fma if k["spill_bytes"] != 0]
+    if spilled:
+        fail(f"fft_mxu spills: {spilled}")
+    return [{"source": "fft_mxu", "kernel": "fft_mxu_tc_kernel", "dtype": "float64",
+             "log2n": int(k["groups"][0]), "registers": k["registers"],
+             "spill_bytes": k["spill_bytes"]} for k in tc] + \
+        [{"source": "fft_mxu", "kernel": "fft_mxu_fma_kernel",
+          "dtype": {"d": "float64", "f": "float32"}[k["groups"][0]],
+          "registers": k["registers"], "spill_bytes": k["spill_bytes"]} for k in fma]
+
+
+def copy_ptxas(log: str) -> list:
+    """Phase 2, the wire copies: ``ring_send_kernel``/``ring_land_kernel``
+    for each element width (16-byte vectors, 8 and 4 bytes); fatal on a
+    spill or a missing width."""
+    ks = _ptxas_entries(log, r"(ring_send_kernel|ring_land_kernel)I(5uint4|y|j)E")
+    width = {"5uint4": 16, "y": 8, "j": 4}
+    say("  ptxas wire copies, registers / spill bytes: " + ", ".join(
+        f"{k['groups'][0]}<{width[k['groups'][1]]} B>: {k['registers']}/"
+        f"{k['spill_bytes']}" for k in ks))
+    if len(ks) != 6 or any(k["spill_bytes"] != 0 for k in ks):
+        fail(f"wire copy instantiations: {ks}")
+    return [{"source": "ring_rdma", "kernel": k["groups"][0],
+             "width": width[k["groups"][1]], "registers": k["registers"],
+             "spill_bytes": k["spill_bytes"]} for k in ks]
 
 
 def _short(mangled: str) -> str:
@@ -624,12 +700,13 @@ def _pair(name):
 
 
 # (rows, N) held against the plain version: the main path's shapes first;
-# fft_radix2 then takes every N its instantiations cover (radix2_shapes)
+# then every N of each kernel's instantiations (radix2_shapes, mxu_shapes)
 CHECK_SHAPES = {
     "fft_radix2": ((512 * 512, 512), (257 * 512, 512)),
-    "fft_mxu": ((512 * 512, 512), (257 * 512, 512), (512 * 256, 256),
-                (4096, 2), (4096, 4), (4096, 16), (1024, 8192)),
+    "fft_mxu": ((512 * 512, 512), (257 * 512, 512), (512 * 256, 256)),
 }
+#: log2 N of fft_mxu's f64 tensor-core path (below: the CUDA-core path)
+MXU_TC_LOG2N = range(6, 14)
 MAIN_N = (512, 256)
 #: values a row count of radix2_shapes aims at (re or im, one dtype)
 RADIX2_ELEMENTS = 2 ** 21
@@ -641,6 +718,14 @@ def radix2_shapes(dtype: str):
     (not a multiple of the rows a block, which are a power of two), and
     one row."""
     return [(rows, 1 << l) for l in _radix2_log2ns(dtype)
+            for rows in (RADIX2_ELEMENTS // (1 << l) + 1, 1)]
+
+
+def mxu_shapes():
+    """(rows, N) for every log2 N of ``fft_mxu`` (1..13, both dtypes): about
+    ``RADIX2_ELEMENTS`` values in an odd number of rows (a ragged last set,
+    and at N = 64 and 128 a row without its pair), and one row."""
+    return [(rows, 1 << l) for l in range(1, 14)
             for rows in (RADIX2_ELEMENTS // (1 << l) + 1, 1)]
 
 
@@ -666,8 +751,7 @@ def kernel_vs_plain(gen):
             dname = str(dtype).removeprefix("torch.")
             tol = TOL[dname]
             shapes = list(CHECK_SHAPES[name])
-            if name == "fft_radix2":
-                shapes += radix2_shapes(dname)
+            shapes += radix2_shapes(dname) if name == "fft_radix2" else mxu_shapes()
             worst = {False: (0.0, None), True: (0.0, None)}
             for rows, n in shapes:
                 xr, xi = _rand((rows, n), dtype, gen), _rand((rows, n), dtype, gen)
@@ -695,12 +779,20 @@ def kernel_vs_plain(gen):
     return main_abs
 
 
-def _time_ms(fn, iters: int, warmup: int) -> float:
+#: cycles the card sleeps before a timing's start event, ~10 ms at the
+#: H100's clock: the host enqueues the timed calls meanwhile, so the events
+#: see device time, not a launch path slower than a short kernel
+FILL_CYCLES = 20_000_000
+
+
+def _time_ms(fn, iters: int, warmup: int, fill: bool = True) -> float:
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if fill:
+        torch.cuda._sleep(FILL_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -709,10 +801,10 @@ def _time_ms(fn, iters: int, warmup: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _median_ms(fn, iters: int, warmup: int, reps: int = 7) -> tuple:
+def _median_ms(fn, iters: int, warmup: int, reps: int = 7, fill: bool = True) -> tuple:
     """(median, min, max) of ``reps`` timings of ``_time_ms(fn, iters)``."""
     import statistics
-    times = [_time_ms(fn, iters, warmup if i == 0 else 0) for i in range(reps)]
+    times = [_time_ms(fn, iters, warmup if i == 0 else 0, fill) for i in range(reps)]
     return statistics.median(times), min(times), max(times)
 
 
@@ -733,32 +825,56 @@ def _work(name, rows, n, item):
             5 * n * stages * rows, FP64_FLOPS if item == 8 else FP32_FLOPS)
 
 
+def mma_probe():
+    """Phase 4, first: the f64 ``mma.sync`` shapes' throughput on this card
+    (``fft_mxu.mma_rates``: 16 warps an SM, independent products on
+    register operands), the measurement ``fft_mxu`` chose its shape by."""
+    from repro_torch.kernels import fft_mxu
+
+    rows = fft_mxu.mma_rates()
+    for r in rows:
+        say(f"mma f64 {r['shape']}, {r['chains']} independent products a warp: "
+            f"{r['tflops']:.2f} TFLOP/s ({r['ms']:.4f} ms)")
+    best = max(rows, key=lambda r: r["tflops"])
+    say(f"mma f64: fastest shape {best['shape']} at {best['tflops']:.2f} TFLOP/s "
+        f"(fft_mxu runs m16n8k16; data sheet peak {FP64_TC_FLOPS / 1e12:.0f})")
+    return rows
+
+
 def timing(gen):
     """Phase 4: each kernel at the main path's N=512 f64 shapes — 512·512
     rows (the kernels line), 256·512 rows (one X-phase slab of the heat
-    and poisson steps) and 257·512 rows (the Y and Z phases)."""
+    and poisson steps) and 257·512 rows (the Y and Z phases); then
+    ``fft_mxu`` at N=256 f64 (navier_stokes' transforms; 512·256 rows) and
+    in f32 at N=512 (512·512 rows, the CUDA-core path)."""
     import torch
 
-    n, item, out = 512, 8, []
-    for rows in (512 * 512, 256 * 512, 257 * 512):
-        xr = _rand((rows, n), torch.float64, gen)
-        xi = _rand((rows, n), torch.float64, gen)
+    item, out = 8, []
+    runs = [(rows, 512, torch.float64, KERNELS)
+            for rows in (512 * 512, 256 * 512, 257 * 512)]
+    runs += [(512 * 256, 256, torch.float64, ("fft_mxu",)),
+             (512 * 512, 512, torch.float32, ("fft_mxu",))]
+    for rows, n, dtype, names in runs:
+        item = torch.finfo(dtype).bits // 8
+        dname = str(dtype).removeprefix("torch.")
+        xr = _rand((rows, n), dtype, gen)
+        xi = _rand((rows, n), dtype, gen)
         z = torch.complex(xr, xi)
         library_ms = _median_ms(lambda: torch.fft.fft(z), iters=20, warmup=3)[0]
-        for name in KERNELS:
+        for name in names:
             kernel, plain = _pair(name)
             ms, lo, hi = _median_ms(lambda: kernel(xr, xi), iters=20, warmup=3)
             plain_ms = _time_ms(lambda: plain(xr, xi), iters=3, warmup=1)
             moved, flops, peak = _work(name, rows, n, item)
             bytes_ms = moved / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / peak * 1e3
-            t = {"kernel": name, "rows": rows, "n": n, "dtype": "float64",
+            t = {"kernel": name, "rows": rows, "n": n, "dtype": dname,
                  "ms": ms, "ms_spread": [lo, hi], "plain_ms": plain_ms,
                  "library_ms": library_ms,
                  "bytes": moved, "flops": flops,
                  "bound_ms": max(bytes_ms, ops_ms),
                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-            say(f"timing {name} rows={rows} N={n} f64: kernel {ms:.4f} ms "
+            say(f"timing {name} rows={rows} N={n} {dname}: kernel {ms:.4f} ms "
                 f"(median of 7; {lo:.4f}..{hi:.4f}), "
                 f"plain {plain_ms:.3f} ms, torch.fft {library_ms:.4f} ms, "
                 f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {moved} B "
@@ -999,7 +1115,74 @@ def ring_vs_plain(gen):
             f"{'bit for bit' if land_ok else 'FAIL'}")
         if not (send_ok and land_ok):
             fail("ring_send/ring_land disagree with plain indexing")
+    copy_layouts(gen)
     return {"ring_payload": err512, "ring_send": 0.0, "ring_land": 0.0}
+
+
+# the layouts of tests/test_torch_copy_plan.py: (shape, p), each cut along
+# every axis it divides, landed along every axis; bases 16-byte aligned and
+# one element off
+COPY_SHAPES = (((8, 12, 16), 2), ((8, 12, 16), 4), ((3, 8, 20), 2), ((3, 8, 20), 4),
+               ((4, 6, 64), 2), ((4, 6, 64), 4))
+
+
+def copy_layouts(gen):
+    """Phase 3, the wire copies over every layout of the CPU test: a send
+    along each split axis into slots, a landing of the slots and of the own
+    block (strided) along each concat axis, p = 2 and 4, f64 and f32, bases
+    aligned and one element off; bit for bit against plain indexing, and
+    the plan's widths counted: 16-byte vectors wherever every run and
+    stride allows, the element case at a misaligned base."""
+    import torch
+
+    from repro_torch.core import transpose as tr
+    from repro_torch.kernels import ring_rdma
+
+    cases = 0
+    widths = dict.fromkeys(ring_rdma.COPY_WIDTHS, 0)
+    for shape, p in COPY_SHAPES:
+        n = shape[0] * shape[1] * shape[2]
+        for dtype in (torch.float64, torch.float32):
+            for off in (0, 1):
+                xs = [_rand((n + 1,), dtype, gen)[off:n + off].view(shape)
+                      for _ in range(2)]
+                for axis in range(3):
+                    if shape[axis] % p:
+                        continue
+                    before = dict(ring_rdma.copy_widths)
+                    slots = [torch.empty(tr.block(xs[0], 0, p, axis).shape,
+                                         dtype=dtype, device="cuda") for _ in range(2)]
+                    ring_rdma.ring_send(xs, p - 1, p, axis, slots)
+                    ok = all(torch.equal(s_, tr.block(x, p - 1, p, axis))
+                             for s_, x in zip(slots, xs))
+                    send_width = [w for w in widths
+                                  if ring_rdma.copy_widths[w] > before[w]]
+                    for concat in range(3):
+                        outs = [torch.zeros(tr.merged_shape(shape, p, axis, concat),
+                                            dtype=dtype, device="cuda")
+                                for _ in range(2)]
+                        ring_rdma.ring_land(slots, outs, 1, p, concat)
+                        ring_rdma.ring_land([tr.block(x, 0, p, axis) for x in xs],
+                                            outs, 0, p, concat)
+                        ok = ok and all(
+                            torch.equal(tr.block(o, 1, p, concat), s_)
+                            and torch.equal(tr.block(o, 0, p, concat),
+                                            tr.block(x, 0, p, axis))
+                            for o, s_, x in zip(outs, slots, xs))
+                        cases += 2
+                    cases += 1
+                    if off and send_width != [8 if dtype == torch.float64 else 4]:
+                        fail(f"ring_send of a misaligned {shape} {dtype} block took "
+                             f"widths {send_width} (want the element case)")
+                    if not ok:
+                        fail(f"ring_send/ring_land disagree with plain indexing: "
+                             f"{shape} p={p} split={axis} {dtype} offset {off}")
+                    for w in widths:
+                        widths[w] += ring_rdma.copy_widths[w] - before[w]
+    torch.cuda.synchronize()
+    say(f"kernel vs plain: ring_send/ring_land over {cases} layouts (splits and "
+        f"concats along axes 0-2, p 2 and 4, f64 and f32, aligned and misaligned "
+        f"bases): bit for bit; launches by width (bytes) {widths}")
 
 
 def ring_timing(gen):
@@ -1071,9 +1254,15 @@ def ring_timing(gen):
         ms, lo, hi = _median_ms(kernel, 50, 5)
         out.append({"kernel": name, "mode": "2 arrays",
                     "shape": SLAB[:2] + (blk,), "ms": ms, "ms_spread": [lo, hi],
+                    # the same calls timed as the host issues them (what
+                    # PRs 13-16 recorded): the launch path, not the card
+                    "host_bound_ms": _median_ms(kernel, 50, 5, fill=False)[0],
                     "plain_ms": _median_ms(plain, 50, 5)[0], "bytes": 2 * moved,
                     "flops": 0, "library_ms": _median_ms(library, 50, 5)[0],
                     "library_sum_ms": None})
+    del xs, slots, outs, blocks, places
+    torch.cuda.empty_cache()
+    out.append(bidi_exchange_timing(gen))
     for t in out:
         bytes_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = t["flops"] / FP64_FLOPS * 1e3
@@ -1083,14 +1272,76 @@ def ring_timing(gen):
                else (f"fft+mul+ifft (a sum of 3 calls) {t['library_sum_ms']:.4f} ms"
                      if t["library_sum_ms"] is not None else "no one torch call"))
         lo, hi = t["ms_spread"]
+        host = (f", {t['host_bound_ms']:.4f} ms as the host issues them"
+                if "host_bound_ms" in t else "")
         say(f"timing {t['kernel']} {t['mode']} f64: kernel {t['ms']:.4f} ms (median "
-            f"of 7; {lo:.4f}..{hi:.4f}), "
+            f"of 7; {lo:.4f}..{hi:.4f}{host}), "
             f"plain {t['plain_ms']:.4f} ms, {lib}, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}: {t['bytes']} B), {t['bound_ms'] / t['ms']:.1%} "
             "of the bound")
-    del xr, xi, dr, di, z, d, xs, slots, outs, blocks, places
+    del xr, xi, dr, di, z, d
     torch.cuda.empty_cache()
     return out
+
+
+# run (b)'s exchange on one rank: nls 4x1 bidi_ring at N=512 cuts each of
+# its two (128, 256, 512) f64 arrays in 4 along the last axis and merges
+# along the first
+BIDI_SHAPE, BIDI_P, BIDI_SPLIT, BIDI_CONCAT = (128, 256, 512), 4, 2, 0
+
+
+def bidi_exchange_timing(gen):
+    """Phase 4, row 4 of PERF.md's kernel table (``_rdma_bidi_kernel``,
+    ported as the wire's kernels over ``bidi_schedule``): one rank's copies
+    of one exchange of run (b), in one process -- its own block landed,
+    P-1 blocks sent into slots and P-1 slots landed, both arrays -- against
+    plain ``copy_`` and one ``torch._foreach_copy_`` of the same 2·(2P-1)
+    copies.  Bound: 2·bytes over 3.35 TB/s (on one card a copy reads and
+    writes the same memory); the payload's transform is row 3's."""
+    import torch
+
+    from repro_torch.core import transpose as tr
+    from repro_torch.kernels import ring_rdma
+
+    p, ax, cat = BIDI_P, BIDI_SPLIT, BIDI_CONCAT
+    xs = [_rand(BIDI_SHAPE, torch.float64, gen) for _ in range(2)]
+    blk = tr.block(xs[0], 0, p, ax).shape
+    slots = {d: [torch.empty(blk, dtype=torch.float64, device="cuda") for _ in xs]
+             for d in range(1, p)}
+    outs = [torch.empty(tr.merged_shape(BIDI_SHAPE, p, ax, cat), dtype=torch.float64,
+                        device="cuda") for _ in xs]
+
+    def kernels():
+        ring_rdma.ring_land([tr.block(x, 0, p, ax) for x in xs], outs, 0, p, cat)
+        for d in range(1, p):
+            ring_rdma.ring_send(xs, d, p, ax, slots[d])
+        for d in range(1, p):
+            ring_rdma.ring_land(slots[d], outs, d, p, cat)
+
+    pairs = [(tr.block(o, 0, p, cat), tr.block(x, 0, p, ax)) for o, x in zip(outs, xs)]
+    pairs += [(s_, tr.block(x, d, p, ax)) for d in range(1, p) for s_, x in zip(slots[d], xs)]
+    pairs += [(tr.block(o, d, p, cat), s_) for d in range(1, p) for o, s_ in zip(outs, slots[d])]
+
+    def plain():
+        for a, b in pairs:
+            a.copy_(b)
+    dsts, srcs = [a for a, _ in pairs], [b for _, b in pairs]
+    kernels()
+    torch.cuda.synchronize()
+    want = [o.clone() for o in outs]
+    plain()
+    if not all(torch.equal(o, w) for o, w in zip(outs, want)):
+        fail("the bidi exchange's copies disagree with plain indexing")
+    ms, lo, hi = _median_ms(kernels, 20, 3)
+    moved = len(pairs) * dsts[0].numel() * 8  # every copy's bytes, once
+    t = {"kernel": "bidi_exchange", "mode": f"{p - 1} sends + {p} landings, 2 arrays",
+         "shape": list(BIDI_SHAPE), "ms": ms, "ms_spread": [lo, hi],
+         "plain_ms": _median_ms(plain, 20, 3)[0], "bytes": 2 * moved, "flops": 0,
+         "library_ms": _median_ms(lambda: torch._foreach_copy_(dsts, srcs), 20, 3)[0],
+         "library_sum_ms": None}
+    del xs, slots, outs, pairs, dsts, srcs, want
+    torch.cuda.empty_cache()
+    return t
 
 
 def _ring_counts():
@@ -1099,7 +1350,8 @@ def _ring_counts():
             "ring_send": ring_rdma.send_launches,
             "ring_land": ring_rdma.land_launches,
             "fft_radix2": fft_radix2.launches, "ref.calls": ref.calls,
-            "payload_plain": ring_rdma.plain_calls}
+            "payload_plain": ring_rdma.plain_calls,
+            **{f"copy_{w}B": n for w, n in ring_rdma.copy_widths.items()}}
 
 
 def _zero_ring_counts():
@@ -1107,6 +1359,7 @@ def _zero_ring_counts():
     ring_rdma.payload_launches = ring_rdma.send_launches = 0
     ring_rdma.land_launches = ring_rdma.plain_calls = 0
     fft_radix2.launches = ref.calls = 0
+    ring_rdma.copy_widths.update(dict.fromkeys(ring_rdma.copy_widths, 0))
 
 
 def _wire_vs_plain(ctx):
@@ -1308,11 +1561,12 @@ def main() -> int:
 
     # the plain versions' products go through cuBLAS: full f32, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
-    flash_sass_counts, radix2_build = build()
+    flash_sass_counts, ptxas_build = build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_abs = kernel_vs_plain(gen)
     max_abs.update(ring_vs_plain(gen))
     max_abs["flash_attention"], flash_rel, flash_gaps = flash_vs_plain(gen)
+    mma_rates = mma_probe()
     times = timing(gen)
     ring_times = ring_timing(gen)
     flash_times = flash_timing(gen)
@@ -1354,7 +1608,8 @@ def main() -> int:
     with open(OUT, "w") as f:
         json.dump({"card": smi, "device": name,
                    "timing": times + ring_times + flash_times,
-                   "flash_sass": flash_sass_counts, "radix2_ptxas": radix2_build,
+                   "flash_sass": flash_sass_counts, "ptxas": ptxas_build,
+                   "mma_rates": mma_rates,
                    "kernels": kernels, "runs": runs, "breakdown": prof,
                    "multi_rank": ranks, "flash_bf16_gaps": flash_gaps, "lm": lm},
                   f, indent=1)

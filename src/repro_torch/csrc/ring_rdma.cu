@@ -22,7 +22,12 @@
 // scatters a landed slot (or the own block, straight from the input) into
 // the merged output, merge_blocks' rank-major layout.  Both move each
 // element once: bound by bytes, 2 * bytes over the HBM rate on one card,
-// where a copy reads and writes the same memory.
+// where a copy reads and writes the same memory.  They copy row-wise: the
+// host's plan (kernels/ring_rdma.py::copy_plan) merges the dimensions, takes
+// the innermost contiguous run as a row (long runs cut into rows of at most
+// 4 KB) and moves it in 16-byte vectors wherever the run's bytes, both bases
+// and every outer stride allow, else in the element's own 8 or 4 bytes; the
+// kernel does its index arithmetic once a row, not once an element.
 //
 // The semaphores.  The TPU kernel's send_sem/recv_sem (:223-224,
 // :298-299) become stream memory operations on the flags (wire_signal:
@@ -59,11 +64,17 @@
 namespace {
 
 constexpr int kMaxDims = 6;
+constexpr int kCopyUnroll = 4;  // elements a lane of a wire copy keeps in flight
 constexpr int kForward = 0, kInverse = 1, kRoundtrip = 2;
 
-// One block of up to two arrays (blockIdx.y picks the array): `count`
-// elements in row-major order over size[0..ndim), at the element strides
-// src_stride/dst_stride from src[a]/dst[a].
+// A block copy of up to two arrays (blockIdx.y picks the array), row by
+// row: a row is the innermost of the merged dimensions, size[ndim-1]
+// elements at the element strides src_stride/dst_stride[ndim-1] (1 and 1
+// where the plan found the copy contiguous, kernels/ring_rdma.py::
+// copy_plan), the outer dimensions row-major over `rows` rows.  An element
+// is what the plan chose: a 16-byte vector, or the array's own 8 or 4
+// bytes.  The index arithmetic of the outer dimensions runs once a row;
+// `lanes` threads (a power of two, at most a warp) share a row.
 struct BlockCopy {
   const void* src[2];
   void* dst[2];
@@ -71,38 +82,58 @@ struct BlockCopy {
   long long dst_stride[kMaxDims];
   unsigned size[kMaxDims];
   int ndim;
-  unsigned count;
+  unsigned rows;
+  unsigned lanes;
 };
 
 template <typename E>
-__device__ __forceinline__ void copy_block(const BlockCopy& c) {
+__device__ __forceinline__ void copy_rows(const BlockCopy& c) {
   const E* __restrict__ src = static_cast<const E*>(c.src[blockIdx.y]);
   E* __restrict__ dst = static_cast<E*>(c.dst[blockIdx.y]);
-  const unsigned stride = gridDim.x * blockDim.x;
-  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < c.count;
-       i += stride) {
-    unsigned rest = i;
+  const int inner = c.ndim - 1;
+  const unsigned len = c.size[inner];
+  const long long si = c.src_stride[inner], di = c.dst_stride[inner];
+  const unsigned tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned lane = tid & (c.lanes - 1);
+  const unsigned groups = gridDim.x * blockDim.x / c.lanes;
+  for (unsigned r = tid / c.lanes; r < c.rows; r += groups) {
+    unsigned rest = r;
     long long so = 0, d_o = 0;
-    for (int d = c.ndim - 1; d > 0; --d) {
+    for (int d = inner - 1; d > 0; --d) {
       const unsigned idx = rest % c.size[d];
       rest /= c.size[d];
       so += idx * c.src_stride[d];
       d_o += idx * c.dst_stride[d];
     }
-    so += rest * c.src_stride[0];
-    d_o += rest * c.dst_stride[0];
-    dst[d_o] = src[so];
+    if (inner > 0) {
+      so += rest * c.src_stride[0];
+      d_o += rest * c.dst_stride[0];
+    }
+    // up to kCopyUnroll elements a lane in flight: loads first, then stores
+    for (unsigned k0 = lane; k0 < len; k0 += kCopyUnroll * c.lanes) {
+      E v[kCopyUnroll];
+#pragma unroll
+      for (int u = 0; u < kCopyUnroll; ++u) {
+        const unsigned k = k0 + u * c.lanes;
+        if (k < len) v[u] = src[so + k * si];
+      }
+#pragma unroll
+      for (int u = 0; u < kCopyUnroll; ++u) {
+        const unsigned k = k0 + u * c.lanes;
+        if (k < len) dst[d_o + k * di] = v[u];
+      }
+    }
   }
 }
 
 template <typename E>
 __global__ void ring_send_kernel(BlockCopy c) {
-  copy_block<E>(c);
+  copy_rows<E>(c);
 }
 
 template <typename E>
 __global__ void ring_land_kernel(BlockCopy c) {
-  copy_block<E>(c);
+  copy_rows<E>(c);
 }
 
 template <typename T, int L, bool kDiag>
@@ -152,11 +183,35 @@ int payload(const void* xr, const void* xi, const void* twr, const void* twi,
   });
 }
 
+// Blocks of `threads` the current card runs at once (looked up once a
+// device), or minus a CUDA error.
+long long resident_blocks(unsigned threads) {
+  static int cached_dev = -1;
+  static long long resident = 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -static_cast<long long>(err);
+  if (dev != cached_dev) {
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+            cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor,
+                                      dev)) != cudaSuccess)
+      return -static_cast<long long>(err);
+    resident = static_cast<long long>(sms) * (per_sm / threads);
+    cached_dev = dev;
+  }
+  return resident;
+}
+
+// One wave of blocks at most; the rows are walked grid-stride.
 template <typename Kernel>
 int copy(Kernel kernel, const BlockCopy& c, int n_arrays, void* stream) {
   const unsigned threads = 256;
-  unsigned blocks = (c.count + threads - 1) / threads;
-  if (blocks > 132u * 16u) blocks = 132u * 16u;
+  const long long resident = resident_blocks(threads);
+  if (resident < 0) return static_cast<int>(-resident);
+  const long long want =
+      (static_cast<long long>(c.rows) * c.lanes + threads - 1) / threads;
+  const unsigned blocks = static_cast<unsigned>(want < resident ? want : resident);
   if (blocks == 0) return 0;
   kernel<<<dim3(blocks, static_cast<unsigned>(n_arrays)), threads, 0,
            static_cast<cudaStream_t>(stream)>>>(c);
@@ -170,6 +225,7 @@ bool block_copy(const void* const* src, void* const* dst, int n_arrays,
   if (n_arrays < 1 || n_arrays > 2 || ndim < 1 || ndim > kMaxDims) return false;
   long long count = 1;
   for (int d = 0; d < ndim; ++d) {
+    if (size[d] < 1) return false;
     c->size[d] = static_cast<unsigned>(size[d]);
     c->src_stride[d] = src_stride[d];
     c->dst_stride[d] = dst_stride[d];
@@ -181,7 +237,10 @@ bool block_copy(const void* const* src, void* const* dst, int n_arrays,
     c->dst[a] = dst[a];
   }
   c->ndim = ndim;
-  c->count = static_cast<unsigned>(count);
+  c->rows = static_cast<unsigned>(count / size[ndim - 1]);
+  unsigned lanes = 1;
+  while (lanes < 32 && lanes < c->size[ndim - 1]) lanes *= 2;
+  c->lanes = lanes;
   return true;
 }
 
@@ -192,6 +251,9 @@ int send_or_land(bool send, int elem_bytes, const void* const* src,
   BlockCopy c;
   if (!block_copy(src, dst, n_arrays, size, src_stride, dst_stride, ndim, &c))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (elem_bytes == 16)
+    return send ? copy(ring_send_kernel<uint4>, c, n_arrays, stream)
+                : copy(ring_land_kernel<uint4>, c, n_arrays, stream);
   if (elem_bytes == 8)
     return send ? copy(ring_send_kernel<unsigned long long>, c, n_arrays, stream)
                 : copy(ring_land_kernel<unsigned long long>, c, n_arrays, stream);
@@ -218,7 +280,8 @@ extern "C" int ring_payload_f64(const void* xr, const void* xi, const void* twr,
 }
 
 // Block `dst` of each input (its strided view: size/src_stride) into the
-// contiguous slot at dst[a] -- on a peer, through its mapped pointer.
+// contiguous slot at dst[a] -- on a peer, through its mapped pointer.  Sizes
+// and strides count elements of elem_bytes (16, 8 or 4: the plan's width).
 extern "C" int ring_send(int elem_bytes, const void* const* src,
                          void* const* dst, int n_arrays, const long long* size,
                          const long long* src_stride,

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks written as inline PTX: mbarriers, TMA
-// tile loads, shared-memory matrix descriptors and warpgroup MMAs (wgmma).
-// Used by flash_attention.cu.  Operand lists of wgmma are written out in
-// full: an inline-asm statement cannot loop over its registers.
+// tile loads and bulk copies, shared-memory matrix descriptors and warpgroup
+// MMAs (wgmma).  Used by flash_attention.cu and fft_mxu.cu.  Operand lists
+// of wgmma are written out in full: an inline-asm statement cannot loop over
+// its registers.
 #pragma once
 
 #include <cuda.h>
@@ -53,6 +54,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ---- TMA ----------------------------------------------------------------------
+
+// `bytes` contiguous bytes from device memory into shared memory, one bulk
+// copy (no tensor map), completion on `bar`; both addresses and `bytes`
+// are multiples of 16
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
 
 // one box of a 4-D tensor map into shared memory, completion on `bar`
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,

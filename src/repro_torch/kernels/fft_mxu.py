@@ -9,12 +9,16 @@ backend ``"mxu"``).  A row x of length N = n1·n2 is viewed as A[j1, j2]
     D = C @ d2              length-n2 DFTs over j2
     X[k1 + n1·k2] = D[k1, k2]   (a transposed store)
 
-The kernel, ``csrc/fft_mxu.cu``, gives one thread block to each row, keeps
-A (and then C and D) in shared memory and runs the two products in f64 on
-the FP64 tensor cores (``mma.sync`` m8n8k4); f32, and f64 below N = 64,
-take a CUDA-core FMA loop in full precision.  It is built with ``nvcc`` at
-first use (:mod:`repro_torch.kernels._build`) and called through ``ctypes``
-on PyTorch's current stream, without synchronising.
+The kernel, ``csrc/fft_mxu.cu``, runs the two products in f64 on the FP64
+tensor cores as ``mma.sync`` m16n8k16 (the fastest f64 shape on the H100:
+:func:`mma_rates`), on a persistent grid of one 8-warp block an SM: sets of
+rows arrive in a ring of shared-memory stages by bulk asynchronous copies
+under mbarriers while each warp takes a 16-row tile of a row through all
+four steps in registers, the tables staged once a block in fragment order;
+f32, and f64 below N = 64, take a CUDA-core FMA loop in full precision.  The bulk copies need 16-byte aligned rows: the wrapper refuses
+an f64 input whose base is not.  It is built with ``nvcc`` at first use
+(:mod:`repro_torch.kernels._build`) and called through ``ctypes`` on
+PyTorch's current stream, without synchronising.
 
 :func:`fft1d_mxu` launches the kernel for a CUDA tensor, or raises.  For a
 tensor that lies on the CPU it runs the plain version,
@@ -39,11 +43,16 @@ plain_calls = 0
 #: the kernel's range of N (shared memory bounds the top in f64); N = 2
 #: is n1 = 1, n2 = 2 on the CUDA-core path
 MIN_N, MAX_N = 2, 8192
+#: the least N of the f64 tensor-core path (below it, and in f32, the
+#: CUDA-core path)
+TC_MIN_N = 64
 
 _SIGNATURE = [ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int,
                                        ctypes.c_int, ctypes.c_void_p]
-_LIB = _launch.Library("fft_mxu", {"fft_mxu_f32": _SIGNATURE,
-                                   "fft_mxu_f64": _SIGNATURE})
+_LIB = _launch.Library("fft_mxu", {
+    "fft_mxu_f32": _SIGNATURE, "fft_mxu_f64": _SIGNATURE,
+    "fft_mxu_mma_rate": [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p,
+                                              ctypes.c_void_p]})
 _plans: dict = {}
 
 
@@ -141,6 +150,12 @@ def fft1d_mxu(x_re: torch.Tensor, x_im: torch.Tensor, *, inverse: bool = False):
     if n > MAX_N:
         raise ValueError(f"fft1d_mxu runs N <= {MAX_N} (one row in a block's "
                          f"shared memory), got {n}")
+    if x_re.dtype == torch.float64 and n >= TC_MIN_N and (
+            x_re.data_ptr() % 16 or x_im.data_ptr() % 16):
+        raise ValueError("fft1d_mxu stages f64 rows with bulk copies, which "
+                         "need 16-byte aligned inputs; got bases at "
+                         f"{x_re.data_ptr() % 16} and {x_im.data_ptr() % 16} "
+                         "bytes past 16")
     rows = x_re.numel() // n
     _launch.check_rows(rows)
     y_re = torch.empty_like(x_re)
@@ -155,3 +170,43 @@ def fft1d_mxu(x_re: torch.Tensor, x_im: torch.Tensor, *, inverse: bool = False):
                    detail=f"rows={rows}, N={n}, {x_re.dtype}")
     launches += 1
     return y_re, y_im
+
+
+#: the f64 ``mma.sync`` shapes of sm_90, in the probe's numbering: (name,
+#: M, N, K)
+MMA_SHAPES = (("m8n8k4", 8, 8, 4), ("m16n8k4", 16, 8, 4),
+              ("m16n8k8", 16, 8, 8), ("m16n8k16", 16, 8, 16))
+
+
+def mma_rates(device="cuda", chains=(1, 4, 8), iters: int = 4096,
+              warps_per_sm: int = 16) -> list[dict]:
+    """TFLOP/s of each f64 ``mma.sync`` shape on the card: every SM runs
+    ``warps_per_sm`` warps, each ``iters`` rounds of ``chains``
+    independent products on register operands; CUDA events around the
+    launch (after a warm-up launch), best of 3."""
+    device = torch.device(device)
+    fn = _LIB.fn("fft_mxu_mma_rate")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    threads = 256
+    blocks = sms * warps_per_sm * 32 // threads
+    out = torch.empty(blocks * threads, dtype=torch.float64, device=device)
+    rows = []
+    for shape, (name, m, n, k) in enumerate(MMA_SHAPES):
+        for c in chains:
+            flops = 2.0 * m * n * k * c * iters * blocks * (threads // 32)
+            times = []
+            for rep in range(4):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                _launch.launch("fft_mxu_mma_rate", fn, device, shape, c, blocks,
+                               threads, iters, out.data_ptr(),
+                               detail=f"{name} chains={c}")
+                end.record()
+                torch.cuda.synchronize(device)
+                if rep:
+                    times.append(start.elapsed_time(end))
+            ms = min(times)
+            rows.append({"shape": name, "chains": c, "ms": ms,
+                         "tflops": flops / ms / 1e9})
+    return rows

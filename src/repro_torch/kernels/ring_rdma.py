@@ -30,6 +30,10 @@ bit for bit, and with ``payload=`` the payload's rows cut into one chunk a
 round (:func:`_chunk_bounds`), each launched after the next round's send
 is posted and before the current round is waited on (Fig. 4.3).
 
+The copies run row-wise on a plan made here (:func:`copy_plan`): rows of
+16-byte vectors where the layout allows, else 8- or 4-byte elements;
+``copy_widths`` counts their launches by width.
+
 Each wrapper runs its plain version for tensors that lie on the CPU
 (:func:`payload_plain`; plain indexing for take and place) and launches
 its kernel for CUDA tensors, or raises.  ``payload_launches``,
@@ -53,6 +57,8 @@ payload_launches = 0
 send_launches = 0
 land_launches = 0
 plain_calls = 0
+#: launches of ring_send and ring_land by the width the plan chose
+copy_widths = {16: 0, 8: 0, 4: 0}
 
 _P = ctypes.c_void_p
 _PAYLOAD = [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
@@ -75,6 +81,11 @@ _LIB = _launch.Library("ring_rdma", {
 MODES = {"forward": 0, "inverse": 1, "roundtrip": 2}
 #: dimensions a copy kernel takes after adjacent dimensions are merged
 MAX_DIMS = 6
+#: the widths, in bytes, a wire copy moves an element at: a 16-byte vector
+#: where the plan allows it, else 8, else the element's own size
+COPY_WIDTHS = (16, 8, 4)
+#: the longest row of a copy, in elements of its width (4 KB of vectors)
+MAX_ROW = 256
 _IPC_HANDLE_BYTES = 64
 _ALIGN = 256
 
@@ -195,6 +206,39 @@ def _merge_dims(shape, src_strides, dst_strides):
     return merged
 
 
+def copy_plan(shape, src_strides, dst_strides, elem: int, ptrs):
+    """The row-wise plan of a wire copy: ``(width, dims)``.
+
+    ``dims`` is the copy's index space (:func:`_merge_dims`) in elements of
+    ``width`` bytes, its innermost dimension the row.  ``width`` is 16 (a
+    vector) where the innermost dimension is contiguous on both sides and
+    its bytes, every base in ``ptrs`` and every outer stride are multiples
+    of 16; else 8 where those allow it (f32 rows); else the element's own
+    size.  A contiguous row longer than ``MAX_ROW`` vectors is cut into rows
+    of a power of two at most that long."""
+    dims = _merge_dims(shape, src_strides, dst_strides)
+    n, a, b = dims[-1]
+    width = elem
+    if a == 1 and b == 1:
+        for w in COPY_WIDTHS:
+            k = w // elem
+            if w <= elem or n % k or any(p % w for p in ptrs) or any(
+                    (s * elem) % w for _, sa, sb in dims[:-1] for s in (sa, sb)):
+                continue
+            width = w
+            break
+    k = width // elem
+    dims = [(m, sa // k, sb // k) for m, sa, sb in dims[:-1]] + [(n // k, a, b)]
+    n, a, b = dims[-1]
+    if a == 1 and b == 1 and n > MAX_ROW and len(dims) < MAX_DIMS:
+        row = MAX_ROW
+        while n % row:
+            row //= 2
+        if row > 1:
+            dims[-1:] = [(n // row, row, row), (row, 1, 1)]
+    return width, dims
+
+
 def _copy(entry: str, srcs, dsts, stream) -> int:
     """Launch ``entry`` (ring_send or ring_land) to copy each ``srcs[a]``
     into ``dsts[a]`` (same shapes, any strides); arrays of one layout share
@@ -215,15 +259,18 @@ def _copy(entry: str, srcs, dsts, stream) -> int:
         s0, d0 = part[0]
         if s0.numel() == 0:
             continue
-        dims = _merge_dims(s0.shape, s0.stride(), d0.stride())
+        width, dims = copy_plan(s0.shape, s0.stride(), d0.stride(),
+                                s0.element_size(),
+                                [t.data_ptr() for q in part for t in q])
         size, sst, dst = ((ctypes.c_longlong * len(dims))(*col)
                           for col in zip(*dims))
-        _launch.launch(entry, fn, s0.device, s0.element_size(),
+        _launch.launch(entry, fn, s0.device, width,
                        (_P * 2)(*(s.data_ptr() for s, _ in part)),
                        (_P * 2)(*(d.data_ptr() for _, d in part)),
                        len(part), size, sst, dst, len(dims), stream=stream,
                        detail=f"{len(part)} x {tuple(s0.shape)} {s0.dtype}")
         launched += 1
+        copy_widths[width] += 1
     return launched
 
 

@@ -76,7 +76,14 @@ def test_kernel_refuses_what_it_cannot_run(cuda):
         fft_radix2.fft1d_radix2(y, y)
 
 
-@pytest.mark.parametrize("n,rows", [(2, 64), (4, 64), (16, 37), (512, 300), (8192, 5)])
+# every N of the four-step kernel (log2 N 1..13), each with one row and
+# with an odd number of rows (a ragged last set; at N = 64 and 128 a row
+# without its pair); plus N = 512 at 300 rows, as before
+MXU_CASES = [(1 << log2n, rows) for log2n in range(1, 14)
+             for rows in (1, (1 << 16 >> log2n) + 3)] + [(512, 300)]
+
+
+@pytest.mark.parametrize("n,rows", MXU_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_mxu_kernel_matches_plain_version(cuda, no_tf32, n, rows, dtype, inverse):
@@ -103,6 +110,16 @@ def test_mxu_kernel_refuses_what_it_cannot_run(cuda):
     z = torch.zeros(4, 1, dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError, match="power of two >= 2"):
         fft_mxu.fft1d_mxu(z, z)
+    # the bulk copies of the f64 tensor-core path need 16-byte aligned rows
+    w = torch.zeros(4 * 512 + 1, dtype=torch.float64, device=cuda)[1:].view(4, 512)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fft_mxu.fft1d_mxu(w, w)
+
+
+def test_mma_probe_measures_every_shape(cuda):
+    rates = fft_mxu.mma_rates(cuda, chains=(4,), iters=256)
+    assert [r["shape"] for r in rates] == [s[0] for s in fft_mxu.MMA_SHAPES]
+    assert all(r["tflops"] > 0 for r in rates)
 
 
 @pytest.mark.parametrize("case", ["heat", "poisson", "nls", "navier_stokes"])
@@ -169,6 +186,42 @@ def test_ring_send_and_land_are_bit_exact(cuda, dtype):
     assert ring_rdma.land_launches == before + 2
     for o, s, x in zip(outs, slots, xs):
         assert torch.equal(o[6:12], s) and torch.equal(o[18:24], x[..., 0:4])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("split_axis", [0, 1, 2])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_ring_copies_are_bit_exact_on_every_layout(cuda, dtype, p, split_axis,
+                                                   misaligned):
+    """The layouts of tests/test_torch_copy_plan.py on the card: a send along
+    each split axis, a landed slot and the own block along each concat axis,
+    p = 2 and 4, bases 16-byte aligned or one element off; the width the
+    plan chose counted per launch."""
+    g = torch.Generator(device=cuda).manual_seed(split_axis + 10 * p)
+    shape = (8, 12, 16)
+    n = 8 * 12 * 16
+    xs = [torch.randn(n + 1, dtype=dtype, device=cuda, generator=g)
+          [int(misaligned):n + int(misaligned)].view(shape) for _ in range(2)]
+    blk = tr.block(xs[0], p - 1, p, split_axis).shape
+    slots = [torch.empty(blk, dtype=dtype, device=cuda) for _ in range(2)]
+    widths = dict(ring_rdma.copy_widths)
+    ring_rdma.ring_send(xs, p - 1, p, split_axis, slots)
+    torch.cuda.synchronize()
+    for x, s in zip(xs, slots):
+        assert torch.equal(s, tr.block(x, p - 1, p, split_axis))
+    want = 8 if misaligned and dtype == torch.float64 else (4 if misaligned else 16)
+    assert ring_rdma.copy_widths[want] == widths[want] + 1
+    for concat in range(3):
+        outs = [torch.zeros(tr.merged_shape(shape, p, split_axis, concat),
+                            dtype=dtype, device=cuda) for _ in range(2)]
+        ring_rdma.ring_land(slots, outs, 1, p, concat)
+        ring_rdma.ring_land([tr.block(x, 0, p, split_axis) for x in xs], outs, 0, p,
+                            concat)
+        torch.cuda.synchronize()
+        for o, s, x in zip(outs, slots, xs):
+            assert torch.equal(tr.block(o, 1, p, concat), s)
+            assert torch.equal(tr.block(o, 0, p, concat), tr.block(x, 0, p, split_axis))
 
 
 def _ipc_vs_gloo(ctx):

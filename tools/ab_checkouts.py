@@ -12,12 +12,16 @@ first, then two timed calls: prefill ms and decode ms a step), and
 ``flash_attention`` at the prefill shape (8, 2048, 2048, 15, 5, 64, causal,
 bf16; CUDA events over 30 calls).
 
-``--solver``: the radix-2 engine and the step it carries, each value the
-median of ``REPS`` CUDA-event timings: ``fft_radix2`` at N=512 f64 over
-512·512 rows (each timing the mean of 20 calls); ``ring_payload`` forward,
-inverse and roundtrip at 5462×512 f64 (run (a)'s chunk; 20 calls a
-timing); ``heat`` at N=512 f64 on a 1×1 grid, backend ``"pallas"``, ms a
-step (one warm-up step, then one step a timing).
+``--solver``: the FFT kernels, the wire and the step they carry, each value
+the median of ``REPS`` CUDA-event timings (kernels timed with the card's
+queue filled first, steps as the host drives them): ``fft_radix2`` and ``fft_mxu``
+at N=512 f64 over 512·512 rows (each timing the mean of 20 calls);
+``ring_payload`` forward, inverse and roundtrip at 5462×512 f64 (run (a)'s
+chunk; 20 calls a timing); ``ring_send`` and ``ring_land`` of two arrays'
+block 1 of a (128, 128, 512) f64 slab cut in 4 along its last axis (run
+(a)'s wire copy; 50 calls a timing); ``heat`` at N=512 f64 on a 1×1 grid,
+backends ``"pallas"`` and ``"mxu"``, ms a step (one warm-up step, then one
+step a timing).
 
 Run the two checkouts alternately in one call, e.g. parent, change,
 change, parent, to compare them on the same card.
@@ -30,9 +34,14 @@ import sys
 REPS = 7
 
 
-def _events_ms(torch, fn, iters: int) -> float:
+def _events_ms(torch, fn, iters: int, fill: bool = True) -> float:
+    """CUDA-event ms a call of ``fn`` over ``iters`` calls; with ``fill``
+    the card first sleeps ~10 ms while the host enqueues them, so that a
+    launch path slower than a short kernel is not what is timed."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if fill:
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -41,10 +50,10 @@ def _events_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _median_ms(torch, fn, iters: int, warmup: int = 3) -> dict:
+def _median_ms(torch, fn, iters: int, warmup: int = 3, fill: bool = True) -> dict:
     for _ in range(warmup):
         fn()
-    times = [_events_ms(torch, fn, iters) for _ in range(REPS)]
+    times = [_events_ms(torch, fn, iters, fill) for _ in range(REPS)]
     return {"median": statistics.median(times), "min": min(times), "max": max(times)}
 
 
@@ -74,16 +83,33 @@ def serving(torch, tag: str) -> dict:
                 torch, lambda: attention.flash_attention(q, k, v, causal=True), 30)}
 
 
-def solver(torch, tag: str) -> dict:
+def _heat_ms(torch, backend: str) -> dict:
     from repro_torch.core.decomposition import PencilGrid
-    from repro_torch.kernels import fft_radix2, ring_rdma
     from repro_torch.solvers import make_solver
+
+    s = make_solver("heat", PencilGrid.from_mesh(1, 1), 512, device="cuda",
+                    plan_cfg={"backend": backend})
+    state = s.init_state()
+    box = [s.step(state)]
+
+    def step():
+        box[0] = s.step(box[0])
+    ms = _median_ms(torch, step, 1, warmup=1, fill=False)  # host time counts
+    del s, state, box
+    torch.cuda.empty_cache()
+    return ms
+
+
+def solver(torch, tag: str) -> dict:
+    from repro_torch.core import transpose as tr
+    from repro_torch.kernels import fft_mxu, fft_radix2, ring_rdma
 
     g = torch.Generator(device="cuda").manual_seed(0)
     out = {"tag": tag, "device": torch.cuda.get_device_name(0), "reps": REPS}
     xr, xi = (torch.randn(512 * 512, 512, dtype=torch.float64, device="cuda",
                           generator=g) for _ in range(2))
     out["fft_radix2_ms"] = _median_ms(torch, lambda: fft_radix2.fft1d_radix2(xr, xi), 20)
+    out["fft_mxu_ms"] = _median_ms(torch, lambda: fft_mxu.fft1d_mxu(xr, xi), 20)
     del xr, xi
     pr, pi, dr, di = (torch.randn(5462, 512, dtype=torch.float64, device="cuda",
                                   generator=g) for _ in range(4))
@@ -92,15 +118,21 @@ def solver(torch, tag: str) -> dict:
         out[f"ring_payload_{mode}_ms"] = _median_ms(
             torch, lambda: ring_rdma.ring_payload(pr, pi, **kw), 20)
     del pr, pi, dr, di
+    xs = [torch.randn(128, 128, 512, dtype=torch.float64, device="cuda", generator=g)
+          for _ in range(2)]
+    slots = [torch.empty(128, 128, 128, dtype=torch.float64, device="cuda")
+             for _ in range(2)]
+    outs = [torch.empty(128, 512, 128, dtype=torch.float64, device="cuda")
+            for _ in range(2)]
+    out["ring_send_ms"] = _median_ms(
+        torch, lambda: ring_rdma.ring_send(xs, 1, 4, 2, slots), 50)
+    out["ring_land_ms"] = _median_ms(
+        torch, lambda: ring_rdma.ring_land(slots, outs, 1, 4, 1), 50)
+    assert all(torch.equal(tr.block(o, 1, 4, 1), s_) for o, s_ in zip(outs, slots))
+    del xs, slots, outs
     torch.cuda.empty_cache()
-    s = make_solver("heat", PencilGrid.from_mesh(1, 1), 512, device="cuda",
-                    plan_cfg={"backend": "pallas"})
-    state = s.init_state()
-    box = [s.step(state)]
-
-    def step():
-        box[0] = s.step(box[0])
-    out["heat_ms_per_step"] = _median_ms(torch, step, 1, warmup=1)
+    out["heat_ms_per_step"] = _heat_ms(torch, "pallas")
+    out["heat_mxu_ms_per_step"] = _heat_ms(torch, "mxu")
     return out
 
 
