@@ -130,6 +130,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -176,7 +177,22 @@ MULTI_RANK = (
                            "fused_roundtrip": True, "chunks": 3}),
 )
 MULTI_STEPS = 3
+MULTI_RANK_CFG = {tag: cfg for tag, _, _, cfg in MULTI_RANK}
 WIRE_MESHES = ((4, 1), (2, 2), (1, 4))
+# run (c) saves a checkpoint at step 2, restored onto each of these grids
+# for 2 more steps: bitwise on its own 2x2, within 1e-10 elsewhere
+CKPT_RUN, CKPT_STEP = "c", 2
+RESTORE_GRIDS = ((2, 2), (4, 1), (1, 4))
+CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_ckpt")
+# the 3-axis mesh: 8 rank processes, ("pod", "data", "model") of 2x2x2 with
+# u over ("pod", "data"); the 3D FFT at N=512 f64 on "pallas" through
+# make_fft3d, forward, inverse and a roundtrip with a heat diagonal
+# exp(-STAGED_DECAY·k²): (engine, fused roundtrip)
+STAGED_SIZES, STAGED_PV, STAGED_N = (2, 2), 2, 512
+STAGED_RUNS = (("pallas_ring", True), ("bidi_ring", False))
+STAGED_DECAY = 1e-5
+STAGED_SEED = 512
+STAGED_TRANSFORMS = ("fwd", "inv", "roundtrip")
 # ring kernels at the shapes of run (a): one round's chunk of a 128-row
 # slab (16384 rows of N=512 in 3 chunks) for the payload, one block of a
 # (128, 128, 512) Y-pencil slab cut in 4 along its last axis for the wire
@@ -1395,9 +1411,47 @@ def _wire_vs_plain(ctx):
     return same
 
 
-def _multi_rank_run(ctx, tag, case, mesh, cfg, ref_hist, n):
+def _wire_rounds(c, dev, before, model):
+    """Each wire's exchanges and rounds on ``dev`` since ``before`` (keyed
+    ``dim/label``: a grid dimension's own wire, or one of its mesh axes),
+    with the rounds the model gives them."""
+    out = {}
+    for (dim, label, kind), w in c.wires().items():
+        if kind == dev.type:
+            ex0, ro0 = before.get((dim, label, kind), (0, 0))
+            out[f"{dim}/{label}"] = {"p": w.p, "exchanges": w.exchanges - ex0,
+                                     "rounds": w.rounds - ro0,
+                                     "model_rounds": (w.exchanges - ex0) * model(w.p)}
+    return out
+
+
+def _save_checkpoint(solver, state, step):
+    """Run (c)'s checkpoint at ``step``: the fields gathered to rank 0
+    (collective), written by rank 0 under ``CKPT_DIR``, every rank waiting
+    for it to land.  Rank 0 returns the snapshot and write seconds and the
+    bytes."""
+    import torch.distributed as tdist
+
+    from repro_torch.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    tree = solver.state_tree(state)
+    out = {"gather_s": time.perf_counter() - t0}
+    if tree is not None:
+        mgr = CheckpointManager(CKPT_DIR, keep=1)
+        grid = solver.plan.grid
+        mgr.save(step, tree, meta={"mesh": [grid.pu, grid.pv]}, block=True)
+        out.update(snapshot_s=mgr.last_snapshot_s, write_s=mgr.last_write_s,
+                   bytes=mgr.last_save_bytes)
+    tdist.barrier()
+    return out
+
+
+def _multi_rank_run(ctx, tag, case, mesh, cfg, ref_hist, n, save_at=None):
     """Phase 7, in each rank: one multi-rank run of the main path at N=n,
-    its counts set to 0 just before its steps and read just after."""
+    its counts set to 0 just before its steps and read just after; with
+    ``save_at``, a checkpoint at that step (outside the step times) and
+    the observables of one step more (``history_full``)."""
     import numpy as np
     import torch
 
@@ -1428,22 +1482,18 @@ def _multi_rank_run(ctx, tag, case, mesh, cfg, ref_hist, n):
     if cuda:
         torch.cuda.synchronize(dev)
     _zero_ring_counts()
-    for _ in range(MULTI_STEPS):
+    for i in range(MULTI_STEPS):
         t0 = time.perf_counter()
         state = solver.step(state)
         if cuda:
             torch.cuda.synchronize(dev)
         step_ms.append((time.perf_counter() - t0) * 1e3)
         history.append(solver.observables(state))
+        if save_at == i + 1:
+            r["checkpoint"] = _save_checkpoint(solver, state, i + 1)
     r["counts"] = _ring_counts()
     model = tr.bidi_rounds if cfg["comm_engine"] == "bidi_ring" else tr.ring_rounds
-    r["wires"] = {}
-    for (dim, kind), w in c.wires().items():
-        if kind == dev.type:
-            ex0, ro0 = before.get((dim, kind), (0, 0))
-            r["wires"][dim] = {"p": w.p, "exchanges": w.exchanges - ex0,
-                               "rounds": w.rounds - ro0,
-                               "model_rounds": (w.exchanges - ex0) * model(w.p)}
+    r["wires"] = _wire_rounds(c, dev, before, model)
     r["exchange_rounds"] = solver.plan.engine().exchange_rounds
     r["step_ms"] = step_ms
     r["obs_rel_err"] = max(observables_rel_err(a, b)
@@ -1451,13 +1501,17 @@ def _multi_rank_run(ctx, tag, case, mesh, cfg, ref_hist, n):
     r["history"] = history
     r["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else 0
     fields = [gather_pencil(f, grid) for f in state.fields]
-    if cuda:  # one more step, every rank; rank 0 traces its own kernels
-        step = (lambda: solver.step(state))
-        if ctx.rank == 0:
-            r["breakdown"] = _profile(step, f"({tag}) {case} {mesh[0]}x{mesh[1]} "
-                                            "step, rank 0's kernels")
-        else:
-            step()
+    more = []  # one more step, every rank; rank 0 traces its own kernels
+
+    def step():
+        more.append(solver.step(state))
+    if cuda and ctx.rank == 0:
+        r["breakdown"] = _profile(step, f"({tag}) {case} {mesh[0]}x{mesh[1]} "
+                                        "step, rank 0's kernels")
+    else:
+        step()
+    if save_at is not None:
+        r["history_full"] = history + [solver.observables(more[0])]
     if ctx.rank == 0:
         errs = []
         for i, f in enumerate(fields):
@@ -1468,18 +1522,54 @@ def _multi_rank_run(ctx, tag, case, mesh, cfg, ref_hist, n):
         r["field_rel_err"] = max(errs)
         r["finite"] = all(bool(torch.isfinite(f).all()) for f in fields)
         r["shapes"] = [list(f.shape) for f in fields]
-    del solver, state, fields
+    del solver, state, fields, more
     if cuda:
         torch.cuda.empty_cache()
     return r
 
 
+def _restores(ctx, case, cfg, history_full, n):
+    """Phase 7, in each rank: run (c)'s checkpoint restored onto each grid
+    of ``RESTORE_GRIDS`` (``regrid``), then 2 steps; their observables
+    beside the uninterrupted run's, and the restore's time (the gauge
+    ``checkpoint.restore_us``, obs on around the restore only)."""
+    import torch
+
+    from repro_torch import dist, obs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.solvers import make_solver
+
+    out = {}
+    for grid in RESTORE_GRIDS:
+        c = dist.regrid(*grid)
+        solver = make_solver(case, c.grid(), n, device=c.device, plan_cfg=cfg)
+        with obs.capture() as (_, met):
+            state, meta = solver.restore_state(CheckpointManager(CKPT_DIR))
+        hist = []
+        for _ in range(2):
+            state = solver.step(state)
+            hist.append(solver.observables(state))
+        out[f"{grid[0]}x{grid[1]}"] = {
+            "n_steps": state.n_steps, "saved_on": meta["mesh"], "history": hist,
+            "want": history_full[3:5], "restore_us": met.get("checkpoint.restore_us")}
+        del solver, state
+        torch.cuda.empty_cache()
+    return out
+
+
 def _ranks_main(ctx, ref_hists, n=512):
     """Everything the 4 rank processes do: the wire against its plain
-    version, then the three runs of the multi-rank main path."""
-    return {"rank": ctx.rank, "wire": _wire_vs_plain(ctx),
-            "runs": [_multi_rank_run(ctx, tag, case, mesh, cfg, ref_hists[case], n)
-                     for tag, case, mesh, cfg in MULTI_RANK]}
+    version, the three runs of the multi-rank main path (run (c) with its
+    checkpoint), and the restores."""
+    out = {"rank": ctx.rank, "wire": _wire_vs_plain(ctx), "runs": []}
+    for tag, case, mesh, cfg in MULTI_RANK:
+        save_at = CKPT_STEP if tag == CKPT_RUN else None
+        out["runs"].append(_multi_rank_run(ctx, tag, case, mesh, cfg, ref_hists[case],
+                                           n, save_at=save_at))
+    run = next(r for r in out["runs"] if r["tag"] == CKPT_RUN)
+    out["restores"] = _restores(ctx, run["case"], dict(MULTI_RANK_CFG[CKPT_RUN]),
+                                run["history_full"], n)
+    return out
 
 
 def multi_rank(runs):
@@ -1496,6 +1586,7 @@ def multi_rank(runs):
     ref_hists = {case: runs["fft_radix2"][i]["history"]
                  for case, i in REFERENCE.items()}
     torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     ranks = dist.run_ranks(_ranks_main, 4, 1, device="cuda", args=(ref_hists,),
                            timeout=900)
@@ -1543,7 +1634,331 @@ def multi_rank(runs):
         if not r0["finite"] or r0["field_rel_err"] > 1e-10:
             fail(f"{name}: final fields differ from the 1x1 run by "
                  f"{r0['field_rel_err']:.3e} (finite {r0['finite']})")
+    checkpoint_restores(ranks)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     return ranks, launches
+
+
+def checkpoint_restores(ranks):
+    """Phase 7: run (c)'s checkpoint, restored on each grid, against the
+    uninterrupted run: bitwise on the 2x2 it was saved from, within 1e-10
+    by ``observables_rel_err`` on the others (``mean`` is roundoff)."""
+    from repro_torch.solvers.base import observables_rel_err
+
+    i = next(k for k, run in enumerate(MULTI_RANK) if run[0] == CKPT_RUN)
+    ck = ranks[0]["runs"][i]["checkpoint"]
+    say(f"checkpoint of run ({CKPT_RUN}) at step {CKPT_STEP}: gather to rank 0 "
+        f"{ck['gather_s']:.3f} s, host snapshot {ck['snapshot_s']:.3f} s, write "
+        f"{ck['write_s']:.3f} s, {ck['bytes']} bytes")
+    for grid in RESTORE_GRIDS:
+        key = f"{grid[0]}x{grid[1]}"
+        exact = grid == MULTI_RANK[i][2]
+        worst = 0.0
+        for rank, r in enumerate(ranks):
+            got = r["restores"][key]
+            if got["n_steps"] != CKPT_STEP + 2 or got["saved_on"] != list(MULTI_RANK[i][2]):
+                fail(f"restore onto {key}, rank {rank}: {got['n_steps']} steps, "
+                     f"saved on {got['saved_on']}")
+            if exact and got["history"] != got["want"]:
+                fail(f"restore onto {key}, rank {rank}: not bitwise: "
+                     f"{got['history']} vs {got['want']}")
+            worst = max([worst] + [observables_rel_err(a, b)
+                                   for a, b in zip(got["history"], got["want"])])
+        if worst > 1e-10:
+            fail(f"restore onto {key}: observables differ from the uninterrupted "
+                 f"run by {worst:.3e} > 1e-10")
+        us = [r["restores"][key]["restore_us"] for r in ranks]
+        say(f"restore onto {key} + 2 steps: {'bitwise' if exact else f'{worst:.2e}'} "
+            f"against the uninterrupted run; checkpoint.restore_us per rank "
+            f"{[round(u) for u in us]}")
+
+
+def _staged_input(n, grid, dev):
+    """This rank's block of the 3-axis runs' input, a planar pair: the same
+    seeded draw on every rank (and in the parent), cut by ``grid``."""
+    import torch
+
+    from repro_torch.core.fft3d import scatter_pencil
+
+    g = torch.Generator(device=dev).manual_seed(STAGED_SEED)
+    x = torch.randn((2, n, n, n), generator=g, dtype=torch.float64, device=dev)
+    block = scatter_pencil(x, grid).contiguous()
+    del x
+    return block[0], block[1]
+
+
+def _staged_transforms(plan, fwd, inv, xr, xi):
+    """The three transforms of a 3-axis run as thunks: forward, inverse of
+    the forward, and the roundtrip with the heat diagonal (fused when the
+    plan is)."""
+    import torch
+
+    from repro_torch.core import spectral as sp
+    from repro_torch.core.fft3d import DiagonalKernel, spectral_roundtrip_local
+
+    kern = DiagonalKernel(dr=torch.exp(-STAGED_DECAY * sp.k_squared(
+        plan, xr.dtype, device=xr.device)))
+    return {"fwd": lambda: fwd(xr, xi), "inv": lambda: inv(*fwd(xr, xi)),
+            "roundtrip": lambda: spectral_roundtrip_local(plan, kern, xr, xi)}
+
+
+def staged_reference(device="cuda", n=STAGED_N):
+    """Phase 7: the 1x1 "pallas" transforms the 3-axis runs are held to,
+    computed here and kept under ``REF_DIR``; returns each one's max|y|."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.decomposition import PencilGrid
+    from repro_torch.core.engine_spec import EngineSpec
+    from repro_torch.core.fft3d import make_fft3d
+
+    grid = PencilGrid.from_mesh(1, 1)
+    xr, xi = _staged_input(n, grid, device)
+    fwd, inv, plan = make_fft3d(grid, n, spec=EngineSpec(backend="pallas"),
+                                device=device)
+    scales = {}
+    for name, run in _staged_transforms(plan, fwd, inv, xr, xi).items():
+        yr, yi = run()
+        scales[name] = max(float(yr.abs().max()), float(yi.abs().max()))
+        for part, y in (("re", yr), ("im", yi)):
+            np.save(os.path.join(REF_DIR, f"staged_{name}_{part}.npy"), y.cpu().numpy())
+        del yr, yi
+    del xr, xi
+    torch.cuda.empty_cache()
+    return scales
+
+
+def _staged_main(ctx, n, scales):
+    """Phase 7, in each of the 8 rank processes: each run of ``STAGED_RUNS``
+    -- counts set to 0 just before its transforms and read just after, obs
+    on for the forward's counters -- held per rank and gathered on rank 0
+    to the 1x1 transforms; then ms per forward and per roundtrip with obs
+    off, and rank 0's breakdown of one forward."""
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import transpose as tr
+    from repro_torch.core.engine_spec import EngineSpec
+    from repro_torch.core.fft3d import gather_pencil, make_fft3d
+
+    grid, dev = ctx.grid(), ctx.device
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+    u, v = grid.coords
+    xr, xi = _staged_input(n, grid, dev)
+    out = {"rank": ctx.rank, "runs": []}
+    for engine, fused in STAGED_RUNS:
+        fwd, inv, plan = make_fft3d(grid, n, device=dev, spec=EngineSpec(
+            engine=engine, backend="pallas", fused_roundtrip=fused))
+        runs = _staged_transforms(plan, fwd, inv, xr, xi)
+        model = tr.bidi_rounds if engine == "bidi_ring" else tr.ring_rounds
+        before = {k: (w.exchanges, w.rounds) for k, w in ctx.wires().items()}
+        sync()
+        _zero_ring_counts()
+        results = {}
+        with obs.capture() as (_, met):
+            results["fwd"] = runs["fwd"]()
+            counters = met.counters()  # one forward transform's
+            results["inv"] = inv(*results["fwd"])
+            results["roundtrip"] = runs["roundtrip"]()
+            sync()
+        r = {"engine": engine, "fused": fused, "counts": _ring_counts(),
+             "wires": _wire_rounds(ctx, dev, before, model),
+             "exchange_rounds": plan.engine().exchange_rounds, "metrics": counters,
+             "err": {}, "gathered_err": {}}
+        for name, (yr, yi) in results.items():
+            err = 0.0
+            for part, y in (("re", yr), ("im", yi)):
+                want = np.load(os.path.join(REF_DIR, f"staged_{name}_{part}.npy"),
+                               mmap_mode="r")
+                a, b = y.shape[0], y.shape[1]
+                block = np.asarray(want[u * a:(u + 1) * a, v * b:(v + 1) * b])
+                err = max(err, float(np.abs(y.cpu().numpy() - block).max()))
+                whole = gather_pencil(y, grid)
+                if whole is not None:
+                    r["gathered_err"][name] = max(
+                        r["gathered_err"].get(name, 0.0),
+                        float(np.abs(whole.numpy() - want).max()) / scales[name])
+                del whole
+            r["err"][name] = err / scales[name]
+        del results
+        times = {}
+        for name in ("fwd", "roundtrip"):
+            ms = []
+            for _ in range(3):
+                sync()
+                t0 = time.perf_counter()
+                runs[name]()
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            times[name] = ms
+        r["ms"] = times
+        if cuda and ctx.rank == 0:
+            r["breakdown"] = _profile(runs["fwd"], f"2x2x2 {engine} forward N={n}, "
+                                                   "rank 0's kernels")
+        else:
+            runs["fwd"]()
+        out["runs"].append(r)
+        del fwd, inv, plan, runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def staged_mesh():
+    """Phase 7, the 3-axis mesh: one spawn of 8 rank processes on the one
+    card, the 3D FFT of ``STAGED_RUNS`` held to the 1x1 "pallas" one within
+    1e-10·max|y| (per rank, and gathered to rank 0); per rank
+    ``ring_payload``, ``ring_send``, ``ring_land`` and ``fft_radix2``
+    launched, no plain version, each mesh axis' wire at the staged model's
+    rounds, and rank 0's wire counters in the model's relation."""
+    import torch
+
+    from repro_torch import dist
+
+    scales = staged_reference()
+    t0 = time.perf_counter()
+    ranks = dist.run_ranks(_staged_main, 2 * STAGED_SIZES[0], STAGED_PV,
+                           u_sizes=STAGED_SIZES, device="cuda",
+                           args=(STAGED_N, scales), timeout=900)
+    say(f"3-axis mesh 2x2x2 (u over pod, data): 8 rank processes on one card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches = check_staged(ranks)
+    for f in os.listdir(REF_DIR):
+        if f.startswith("staged_"):
+            os.remove(os.path.join(REF_DIR, f))
+    torch.cuda.empty_cache()
+    return ranks, launches
+
+
+def check_staged(ranks):
+    """``staged_mesh``'s checks of the ranks' results; returns the ring
+    kernels' launches."""
+    from repro_torch.core import transpose as tr
+
+    launches = dict.fromkeys(RING_KERNELS, 0)
+    for i, (engine, fused) in enumerate(STAGED_RUNS):
+        name = f"2x2x2 {engine} {'fused roundtrip' if fused else 'composed'} N={STAGED_N}"
+        model = tr.bidi_rounds if engine == "bidi_ring" else tr.ring_rounds
+        for rank, r in enumerate(r_["runs"][i] for r_ in ranks):
+            c = r["counts"]
+            for k in ("ring_payload", "ring_send", "ring_land", "fft_radix2"):
+                if c[k] == 0:
+                    fail(f"{name} rank {rank}: {k} never launched")
+            if c["ref.calls"] or c["payload_plain"]:
+                fail(f"{name} rank {rank}: a plain version ran: {c}")
+            if sorted(r["wires"]) != ["u/data", "u/pod", "v/model"] or any(
+                    w["rounds"] != w["model_rounds"] or not w["exchanges"]
+                    for w in r["wires"].values()) or r["exchange_rounds"] != sum(
+                    w["rounds"] for w in r["wires"].values()):
+                fail(f"{name} rank {rank}: wires {r['wires']} against the staged "
+                     f"model, exchange_rounds {r['exchange_rounds']}")
+            bad = {k: e for k, e in r["err"].items() if not e <= 1e-10}
+            if bad:
+                fail(f"{name} rank {rank}: blocks differ from 1x1 by {bad} max|y|")
+            for k in RING_KERNELS:
+                launches[k] += c[k]
+        r0 = ranks[0]["runs"][i]
+        met = r0["metrics"]
+        for ax in ("pod", "data", "model"):
+            n_ex = met.get(f"comm.exchanges.{ax}", 0)
+            if not n_ex or met.get(f"comm.exchange_rounds.{ax}") != n_ex * model(2):
+                fail(f"{name}: rank 0's wire counters break the model on {ax}: {met}")
+        if not met.get("comm.wire_bytes"):
+            fail(f"{name}: rank 0 counted no wire bytes: {met}")
+        bad = {k: e for k, e in r0["gathered_err"].items() if not e <= 1e-10}
+        if bad or sorted(r0["gathered_err"]) != sorted(STAGED_TRANSFORMS):
+            fail(f"{name}: gathered transforms differ from 1x1: {r0['gathered_err']}")
+        say(f"{name}: vs 1x1 per rank (worst) "
+            + ", ".join(f"{k} {max(r_['runs'][i]['err'][k] for r_ in ranks):.2e}"
+                        for k in STAGED_TRANSFORMS)
+            + "; gathered on rank 0 "
+            + ", ".join(f"{k} {e:.2e}" for k, e in r0["gathered_err"].items())
+            + " max|y|")
+        say(f"{name} rank 0: ms per forward {[round(t, 3) for t in r0['ms']['fwd']]}, "
+            f"per roundtrip {[round(t, 3) for t in r0['ms']['roundtrip']]}; counts "
+            f"{r0['counts']}; wires {r0['wires']}; forward's counters {met}")
+        for line in r0.get("breakdown", {}).get("lines", []):
+            say(line)
+    return launches
+
+
+def observability(runs):
+    """Phase 5, observability: heat N=512 f64 on 1x1 "pallas", 5 steps with
+    obs off -- no wait for the card (``obs.synchronize`` never called), no
+    span, no counter -- then 5 with obs on, whose Chrome trace must pass
+    ``validate_chrome_trace`` with one ``dispatch/solver.step`` span a
+    step.  ms/step of both printed; the obs-off median must stay within
+    10 % of the fastest of the main path's heat steps (``runs``)."""
+    import statistics
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core.decomposition import PencilGrid
+    from repro_torch.solvers import make_solver
+
+    solver = make_solver("heat", PencilGrid.from_mesh(1, 1), 512, device="cuda",
+                         plan_cfg={"backend": "pallas"})
+    state = solver.step(solver.init_state())
+    waits = []
+    real_sync = obs.synchronize
+
+    def counted(out):
+        waits.append(1)
+        real_sync(out)
+
+    def steps():
+        nonlocal state
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = solver.step(state)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms
+
+    obs.disable()
+    obs.clear()
+    obs.synchronize = counted
+    try:
+        off = steps()
+        off_waits = len(waits)
+        off_records = len(obs.tracer.events()) + len(obs.metrics.counters())
+        with obs.capture() as (tracer, metrics):
+            on = steps()
+    finally:
+        obs.synchronize = real_sync
+    if off_waits or off_records:
+        fail(f"observability: with obs off, {off_waits} waits for the card and "
+             f"{off_records} spans and counters")
+    main_ms = min(runs["fft_radix2"][0]["step_ms"])
+    if statistics.median(off) > 1.10 * main_ms:
+        fail(f"observability: heat steps with obs off take {statistics.median(off):.3f} "
+             f"ms, more than 1.10 x the main path's {main_ms:.3f}")
+    path = os.path.join(HERE, "build", "chip_smoke_trace.json")
+    obs.write_chrome_trace(path, tracer, metrics, meta={"run": "heat N=512 1x1"})
+    with open(path) as f:
+        doc = json.load(f)
+    problems = obs.validate_chrome_trace(doc)
+    n_steps = [e["name"] for e in doc["traceEvents"]].count("dispatch/solver.step")
+    if problems or n_steps != len(on) or len(waits) != len(on):
+        fail(f"observability: trace problems {problems[:3]}, {n_steps} step spans "
+             f"and {len(waits)} waits for {len(on)} steps")
+    out = {"off_ms": off, "on_ms": on, "spans": len(doc["traceEvents"]),
+           "main_path_ms": main_ms}
+    say(f"observability heat N=512 1x1 pallas: ms/step obs off "
+        f"{[round(t, 3) for t in off]} (median {statistics.median(off):.3f}; the main "
+        f"path's fastest {main_ms:.3f}), obs on "
+        f"{[round(t, 3) for t in on]} (median {statistics.median(on):.3f}); trace "
+        f"{out['spans']} spans, valid, {n_steps} dispatch/solver.step")
+    del solver, state
+    torch.cuda.empty_cache()
+    return out
 
 
 REPLACES = {"flash_attention": "src/repro/kernels/attention.py:68",
@@ -1573,9 +1988,11 @@ def main() -> int:
     flash_time = flash_times[0]
     os.makedirs(REF_DIR, exist_ok=True)
     runs, launches = main_path()
+    observed = observability(runs)
     prof = [breakdown(BACKEND[k]) for k in KERNELS]
     ranks, ring_launches = multi_rank(runs)
-    launches.update(ring_launches)
+    staged_ranks, staged_launches = staged_mesh()
+    launches.update({k: n + staged_launches[k] for k, n in ring_launches.items()})
     lm = lm_serving(flash_rel)
     launches["flash_attention"] = lm["counts"]["flash_attention"]
 
@@ -1611,7 +2028,8 @@ def main() -> int:
                    "flash_sass": flash_sass_counts, "ptxas": ptxas_build,
                    "mma_rates": mma_rates,
                    "kernels": kernels, "runs": runs, "breakdown": prof,
-                   "multi_rank": ranks, "flash_bf16_gaps": flash_gaps, "lm": lm},
+                   "observability": observed, "multi_rank": ranks,
+                   "staged": staged_ranks, "flash_bf16_gaps": flash_gaps, "lm": lm},
                   f, indent=1)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -16,9 +16,14 @@ reference's names, so a reference plan config selects the same one:
 
 On a grid dimension of one rank a fold is a local permute and every engine
 runs the base slab schedule below, as the reference's ``p <= 1`` branches
-do.  Over more ranks the exchanges go over the wire of the step's grid
+do.  Over more ranks the exchanges go over the wires of the step's grid
 dimension (:meth:`repro_torch.dist.RankContext.wire`): gloo for CPU
 tensors, the peer-mapped wire of the ring kernels for CUDA tensors.
+``switched`` takes the dimension's own wire, one all-to-all over all its
+ranks; the ring engines take one wire per communicating mesh axis
+(:meth:`~repro_torch.dist.RankContext.axis_wires`), so a dimension over
+several axes (``u`` over ``("pod", "data")``) runs the staged exchange,
+one ring per axis.
 
 The scheduling contract is the reference's: ``run_fold`` (butterflies then
 fold), ``run_unfold`` (unfold then butterflies) and ``run_roundtrip`` (fold,
@@ -26,15 +31,16 @@ folded-pencil kernel, unfold, slab by slab), each over one
 :class:`~repro_torch.core.decomposition.CommStep`.  The slab boundaries are
 the reference's too, because they decide which rows a
 ``DiagonalKernel.apply(lo, hi)`` slices.  Ring engines count the wire
-rounds their exchanges cost in ``exchange_rounds`` (``wire_rounds(P)`` per
-exchange).
+rounds their exchanges cost in ``exchange_rounds`` and in the counter
+``comm.engine_exchange_rounds.<engine>``: Σᵢ ``wire_rounds(qᵢ)`` over the
+communicating mesh axes per exchange.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch import dist
+from repro_torch import dist, obs
 from repro_torch.core import decomposition as dec
 from repro_torch.core import transpose as tr
 from repro_torch.core.engine_spec import EngineSpec
@@ -122,15 +128,19 @@ class TransposeEngine:
         self.exchange_rounds = 0
 
     def _wire(self, step: dec.CommStep, device):
-        """The wire of the step's grid dimension for tensors on ``device``
-        (None on a dimension of one rank)."""
+        """The wires of the step's grid dimension for tensors on ``device``:
+        for ``switched`` the dimension's own wire, for the rings a tuple of
+        one wire per communicating mesh axis, outermost first (None on a
+        dimension of one rank)."""
         if self.grid.dim_ranks(step.grid_dim) <= 1:
             return None
         ctx = dist.context()
         if ctx is None:
-            raise RuntimeError(f"a fold over {self.grid.pu}x{self.grid.pv} "
-                               "ranks runs inside repro_torch.dist.run_ranks")
-        return ctx.wire(step.grid_dim, device)
+            raise RuntimeError(f"a fold over a {self.grid.mesh_label} mesh "
+                               "runs inside repro_torch.dist.run_ranks")
+        if self.mode == "switched":
+            return ctx.wire(step.grid_dim, device)
+        return ctx.axis_wires(step.grid_dim, device)
 
     # ---- relayout primitives (pure data movement) ------------------------
     def fold_step(self, step: dec.CommStep, a: torch.Tensor) -> torch.Tensor:
@@ -230,7 +240,12 @@ class OverlapRingEngine(TorusEngine):
     wire_rounds = staticmethod(tr.ring_rounds)
 
     def _count_rounds(self, step: dec.CommStep) -> None:
-        self.exchange_rounds += self.wire_rounds(self.grid.dim_ranks(step.grid_dim))
+        """Σ ``wire_rounds(qᵢ)`` over the communicating mesh axes of the
+        step's grid dimension: the staged exchange's rounds."""
+        rounds = sum(self.wire_rounds(q) for _, q in self.grid.comm_axes(step.grid_dim))
+        self.exchange_rounds += rounds
+        if obs.is_enabled():  # the counter's name is formatted only then
+            obs.metrics.inc(f"comm.engine_exchange_rounds.{self.name}", rounds)
 
     # ---- the transport hook ----------------------------------------------
     def _exchange(self, arrs, step, *, split_axis: int, concat_axis: int,
@@ -400,9 +415,10 @@ class PallasRingEngine(OverlapRingEngine):
     def _fusable(self, step: dec.CommStep, pair) -> bool:
         """When the payload kernel reproduces the phase compute: the plan's
         1D engine is the radix-2 kernel, the step wraps a plain c2c
-        transform (the r2c X phase pads/packs), and the wire fuses."""
-        wire = self._wire(step, pair[0].device)
-        return (wire is not None and wire.fuses and self.backend == "pallas"
+        transform (the r2c X phase pads/packs), and the wire of the first
+        stage (the innermost mesh axis), which carries the payload, fuses."""
+        wires = self._wire(step, pair[0].device)
+        return (wires is not None and wires[-1].fuses and self.backend == "pallas"
                 and step.c2c and ring_rdma.fusable_payload(pair))
 
     def run_fold(self, step: dec.CommStep, compute, arrs):

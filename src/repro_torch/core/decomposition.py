@@ -8,8 +8,9 @@ Pu×Pv process grid; local layouts (as in the reference):
 * **Z-pencil** (after the Y↔Z fold, spectral output): local
   ``(Nx/Pu, Ny/Pv, Nz)``, natural (kx, ky, kz) order.
 
-There is no JAX mesh here: a :class:`PencilGrid` is built from ``(pu, pv)``
-and this rank's ``(u, v)`` coordinates, ``(0, 0)`` on one rank.  The
+There is no JAX mesh here: a :class:`PencilGrid` is built from ``(pu, pv)``,
+or from a mesh's shape (axis name → size) and the axes each grid dimension
+spans, and this rank's ``(u, v)`` coordinates, ``(0, 0)`` on one rank.  The
 communication DAG (:class:`CommStep`, :class:`CommDAG`, :func:`fft3d_dag`)
 is the reference's, field for field.
 """
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from collections.abc import Mapping
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,11 +54,25 @@ class PencilGrid:
                              f"{self.pu}x{self.pv} grid")
 
     @classmethod
-    def from_mesh(cls, pu: int = 1, pv: int = 1, *, coords=(0, 0),
+    def from_mesh(cls, pu=1, pv: int = 1, *, coords=(0, 0),
                   u_axes=("data",), v_axes=("model",)) -> "PencilGrid":
-        """The grid of a ``pu × pv`` mesh, seen from rank ``coords``."""
-        return cls(pu=int(pu), pv=int(pv), u_axes=tuple(u_axes),
-                   v_axes=tuple(v_axes), coords=tuple(int(c) for c in coords))
+        """The grid of a ``pu × pv`` mesh, seen from rank ``coords``.
+
+        ``pu`` may instead be a mesh's shape, a mapping of axis name to
+        size (the reference's ``mesh.shape``), as in
+        ``from_mesh({"pod": 2, "data": 2, "model": 2}, u_axes=("pod",
+        "data"))``: each grid dimension then spans its axes, with their
+        sizes as its per-axis factorization (``pv`` is not given)."""
+        u_axes, v_axes = tuple(u_axes), tuple(v_axes)
+        coords = tuple(int(c) for c in coords)
+        if not isinstance(pu, Mapping):
+            return cls(pu=int(pu), pv=int(pv), u_axes=u_axes, v_axes=v_axes,
+                       coords=coords)
+        u_sizes = tuple(int(pu[a]) for a in u_axes)
+        v_sizes = tuple(int(pu[a]) for a in v_axes)
+        return cls(pu=math.prod(u_sizes), pv=math.prod(v_sizes),
+                   u_axes=u_axes, v_axes=v_axes, u_sizes=u_sizes or (1,),
+                   v_sizes=v_sizes or (1,), coords=coords)
 
     @property
     def p(self) -> int:
@@ -76,6 +92,19 @@ class PencilGrid:
     def dim_sizes(self, dim: str) -> tuple[int, ...]:
         """Per-axis rank factorization of grid dimension ``dim``."""
         return self.u_sizes if dim == "u" else self.v_sizes
+
+    def comm_axes(self, dim: str) -> tuple[tuple[str, int], ...]:
+        """``(axis, size)`` of the mesh axes of grid dimension ``dim`` that
+        communicate (size > 1): a ring engine runs one ring per entry (the
+        staged exchange), and prices Σᵢ ``wire_rounds(qᵢ)`` rounds."""
+        return tuple((a, q) for a, q in zip(self.dim_axes(dim), self.dim_sizes(dim))
+                     if q > 1)
+
+    @property
+    def mesh_label(self) -> str:
+        """The mesh's per-axis sizes, ``"2x2x2"`` or ``"4x2"``, as the
+        reference labels a mesh (``u_sizes + v_sizes``)."""
+        return "x".join(str(q) for q in self.u_sizes + self.v_sizes)
 
     # ---- local shapes ----------------------------------------------------
     def validate(self, n: tuple[int, int, int]) -> None:

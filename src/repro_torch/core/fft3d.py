@@ -20,6 +20,16 @@ own block, where the reference runs them inside ``shard_map``;
 :func:`scatter_pencil` and :func:`gather_pencil` cut a global pencil into
 the blocks and put it back together on rank 0.  :func:`make_fft3d` wraps
 the local functions as entry points on a device.
+
+Observability, with the reference's names: each fold phase runs in a
+``trace/fft3d.<phase>`` span (``fold_xy``, ``fold_yz``, ``unfold_yz``,
+``unfold_xy``, ``roundtrip_yz``) that times the host's launches of the phase
+and waits for nothing; :func:`make_fft3d`'s entry points are
+``dispatch/fft3d.fwd`` and ``dispatch/fft3d.inv`` spans, which wait for
+the card.  Left out: the spans' ``model_wire_us`` and the entry points'
+``model_predicted_us`` (the perf model, ROADMAP Queue 1 item 8), and the
+reference's ``fft3d.retraces.*`` counters, which count JAX retraces: the
+port traces nothing.
 """
 
 from __future__ import annotations
@@ -31,7 +41,7 @@ import torch
 import torch.distributed as tdist
 import torch.nn.functional as F
 
-from repro_torch import dist
+from repro_torch import dist, obs
 from repro_torch.core import comm, precision
 from repro_torch.core.decomposition import CommDAG, PencilGrid, fft3d_dag
 from repro_torch.core.engine_spec import EngineSpec
@@ -145,6 +155,15 @@ def _ifftx_phase(plan):
 # forward / inverse
 # ---------------------------------------------------------------------------
 
+def _phase_span(plan: FFT3DPlan, name: str, dim: str):
+    """A ``trace/...`` span around one fold phase over grid dimension
+    ``dim`` (the shared no-op span while obs is disabled)."""
+    if not obs.is_enabled():
+        return obs.NULL_SPAN
+    return obs.span(name, engine=plan.comm_engine, grid_dim=dim,
+                    dim_sizes=list(plan.grid.dim_sizes(dim)))
+
+
 def fft3d_local(plan: FFT3DPlan, xr, xi=None):
     """Forward 3D FFT of the local pencil (any leading axes).
 
@@ -155,13 +174,15 @@ def fft3d_local(plan: FFT3DPlan, xr, xi=None):
     dag = plan.dag()
     if xi is None:
         xi = torch.zeros_like(xr)
-    yr, yi = eng.run_fold(dag.step("xy"), lambda cr, ci: _fftx(plan, cr, ci),
-                          (xr, xi))
+    with _phase_span(plan, "trace/fft3d.fold_xy", "u"):
+        yr, yi = eng.run_fold(dag.step("xy"), lambda cr, ci: _fftx(plan, cr, ci),
+                              (xr, xi))
 
     def butterflies_y(cr, ci):
         return kops.fft1d(cr, ci, axis=-1, backend=plan.backend)
 
-    yr, yi = eng.run_fold(dag.step("yz"), butterflies_y, (yr, yi))
+    with _phase_span(plan, "trace/fft3d.fold_yz", "v"):
+        yr, yi = eng.run_fold(dag.step("yz"), butterflies_y, (yr, yi))
     return kops.fft1d(yr, yi, axis=-1, backend=plan.backend)
 
 
@@ -177,8 +198,10 @@ def ifft3d_local(plan: FFT3DPlan, kr, ki):
     def butterflies_y_inv(ur, ui):
         return kops.fft1d(ur, ui, axis=-1, backend=plan.backend, inverse=True)
 
-    yr, yi = eng.run_unfold(dag.step("yz"), butterflies_y_inv, (yr, yi))
-    out = eng.run_unfold(dag.step("xy"), _ifftx_phase(plan), (yr, yi))
+    with _phase_span(plan, "trace/fft3d.unfold_yz", "v"):
+        yr, yi = eng.run_unfold(dag.step("yz"), butterflies_y_inv, (yr, yi))
+    with _phase_span(plan, "trace/fft3d.unfold_xy", "u"):
+        out = eng.run_unfold(dag.step("xy"), _ifftx_phase(plan), (yr, yi))
     return out[0] if plan.real else out
 
 
@@ -235,8 +258,9 @@ def spectral_roundtrip_local(plan: FFT3DPlan, kernel: DiagonalKernel,
     dag = plan.dag()
     if xi is None:
         xi = torch.zeros_like(xr)
-    yr, yi = eng.run_fold(dag.step("xy"), lambda cr, ci: _fftx(plan, cr, ci),
-                          (xr, xi))
+    with _phase_span(plan, "trace/fft3d.fold_xy", "u"):
+        yr, yi = eng.run_fold(dag.step("xy"), lambda cr, ci: _fftx(plan, cr, ci),
+                              (xr, xi))
 
     def butterflies_y(cr, ci):
         return kops.fft1d(cr, ci, axis=-1, backend=plan.backend)
@@ -250,10 +274,12 @@ def spectral_roundtrip_local(plan: FFT3DPlan, kernel: DiagonalKernel,
         zr, zi = kernel.apply(zr, zi, lo, hi)
         return kops.fft1d(zr, zi, axis=-1, backend=plan.backend, inverse=True)
 
-    yr, yi = eng.run_roundtrip(dag.step("yz"), butterflies_y, middle,
-                               butterflies_y_inv, (yr, yi),
-                               diag=kernel.arrays())
-    out = eng.run_unfold(dag.step("xy"), _ifftx_phase(plan), (yr, yi))
+    with _phase_span(plan, "trace/fft3d.roundtrip_yz", "v"):
+        yr, yi = eng.run_roundtrip(dag.step("yz"), butterflies_y, middle,
+                                   butterflies_y_inv, (yr, yi),
+                                   diag=kernel.arrays())
+    with _phase_span(plan, "trace/fft3d.unfold_xy", "u"):
+        out = eng.run_unfold(dag.step("xy"), _ifftx_phase(plan), (yr, yi))
     return out[0] if plan.real else out
 
 
@@ -330,7 +356,8 @@ def make_fft3d(grid: PencilGrid, n, *, spec: EngineSpec | None = None,
     :func:`repro_torch.dist.run_ranks` (the grid takes this rank's
     coordinates).  Inputs (tensors or numpy arrays) are moved to
     ``device``.  ``real`` describes the problem and overrides ``spec.real``
-    when given.
+    when given.  ``forward`` and ``inverse`` are ``dispatch/fft3d.fwd`` and
+    ``dispatch/fft3d.inv`` spans when obs is enabled.
     """
     grid = dist.bind_grid(grid, "make_fft3d")
     dev = resolve_device(device)
@@ -356,4 +383,6 @@ def make_fft3d(grid: PencilGrid, n, *, spec: EngineSpec | None = None,
             return ifft3d_vector_local(plan, kr, ki, vector_mode=vector_mode)
         return ifft3d_local(plan, kr, ki)
 
-    return fwd, inv, plan
+    attrs = {"engine": plan.comm_engine, "n": list(n), "mesh": grid.mesh_label}
+    return (obs.traced_call(fwd, "dispatch/fft3d.fwd", attrs),
+            obs.traced_call(inv, "dispatch/fft3d.inv", attrs), plan)

@@ -20,16 +20,53 @@ is the peer-mapped wire of the ring kernels
 schedule and give the same bits.  On a grid dimension of one rank there is
 no wire (``None``) and every exchange is the identity.
 
-Exchanges over a dimension that spans several mesh axes (the reference's
-``staged_exchange``, 3-axis meshes) are not ported (ROADMAP Queue 1 item 5).
+A grid dimension over several communicating mesh axes (``u`` over
+``("pod", "data")`` of a 3-axis mesh) has one wire per axis: the rings
+take a tuple of them and run :func:`staged_exchange`, one single-axis
+exchange per axis, innermost first, bit for bit the flat tiled
+all-to-all; ``switched`` stays one all-to-all over the dimension's own
+wire.  Every exchange meters the reference's wire counters
+(:func:`_meter_exchange`), labelled by its wire.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.distributed as tdist
 
+from repro_torch import obs
+
 MODES = ("switched", "torus")
+
+
+def _meter_exchange(wire, rounds: int, arrs, *, dispatch_kind: str,
+                    dispatches: int) -> None:
+    """Wire accounting of one single-axis block exchange over ``wire``, with
+    the reference's counters (``repro.core.transpose._meter_exchange``):
+    ``comm.exchanges.<label>``, ``comm.exchange_rounds.<label>`` (the wire
+    rounds this exchange costs), ``comm.<kind>_dispatches`` and
+    ``comm.wire_bytes`` (the bytes this rank ships: (p−1)/p of the
+    arrays).  It runs with every exchange, in the rank that runs it; one
+    branch when obs is disabled."""
+    if not obs.is_enabled():
+        return
+    ax = wire.label
+    obs.metrics.inc(f"comm.exchanges.{ax}")
+    obs.metrics.inc(f"comm.exchange_rounds.{ax}", rounds)
+    obs.metrics.inc(f"comm.{dispatch_kind}_dispatches", dispatches)
+    payload = sum(a.numel() * a.element_size() for a in arrs)
+    obs.metrics.inc("comm.wire_bytes", payload * (wire.p - 1) // wire.p)
+
+
+def single_wire(wires):
+    """``wires`` as one wire where it is one: a wire, or the only wire of a
+    tuple (None for an empty one); a tuple of several stays a tuple (the
+    stages of :func:`staged_exchange`)."""
+    if isinstance(wires, (tuple, list)):
+        return tuple(wires) if len(wires) > 1 else (wires[0] if wires else None)
+    return wires
 
 
 def ring_rounds(p: int) -> int:
@@ -108,19 +145,22 @@ def run_schedule(schedule, post, land, between=None) -> None:
 
 
 class GlooWire:
-    """The plain wire of one grid dimension: gloo on CPU tensors.
+    """The plain wire of one grid dimension or mesh axis: gloo on CPU
+    tensors.
 
-    ``ranks`` are the global ranks of the dimension in order and ``me`` this
-    rank's index among them.  ``fuses`` says whether the exchanges of
-    :mod:`repro_torch.kernels.ring_rdma` may carry a payload on this wire
-    (computed by its plain version); off unless a test turns it on.
-    ``exchanges`` and ``rounds`` count what the wire carried.
+    ``ranks`` are its global ranks in order and ``me`` this rank's index
+    among them; ``label`` names it in the wire counters (the mesh axis, or
+    a dimension's axes joined by ``*``).  ``fuses`` says whether the
+    exchanges of :mod:`repro_torch.kernels.ring_rdma` may carry a payload
+    on this wire (computed by its plain version); off unless a test turns
+    it on.  ``exchanges`` and ``rounds`` count what the wire carried.
     """
 
     fuses = False
 
-    def __init__(self, group, ranks: list[int], me: int):
+    def __init__(self, group, ranks: list[int], me: int, label: str):
         self.group, self.ranks, self.me = group, list(ranks), me
+        self.label = label
         self.p = len(ranks)
         self.exchanges = 0
         self.rounds = 0
@@ -200,17 +240,54 @@ def exchange(arrs, wire, schedule, *, split_axis: int, concat_axis: int,
     return outs, (follow[0] if follow else None)
 
 
+def staged_exchange(arrs, wires, *, split_axis: int, concat_axis: int,
+                    exchange, interleave=None, **first_stage_kw):
+    """One tiled all-to-all over several mesh axes as sequential per-axis
+    exchanges (``repro.core.transpose.staged_exchange``): ``wires`` holds
+    one wire per mesh axis, outermost first.
+
+    The blocks' leading rank axis is reshaped to the axes' sizes
+    ``(q₀, q₁, …)``, row-major like the flat rank; then, innermost axis
+    first, axis i of that block grid is moved to the front and exchanged
+    over ``wires[i]`` (``exchange(cur, wire, split_axis=0,
+    concat_axis=0, **kw)``, a single-axis primitive such as
+    :func:`ring_exchange`).  The result is the flat tiled all-to-all's, bit
+    for bit, in Σᵢ rounds(qᵢ) rounds.  ``interleave`` and any
+    ``first_stage_kw`` (a payload) ride the first stage and no other: later
+    stages relay blocks that are already transformed.
+    """
+    sizes = tuple(w.p for w in wires)
+    p, k = math.prod(sizes), len(wires)
+    xss = [stack_blocks(x, p, split_axis) for x in arrs]
+    xss = [x.reshape(sizes + x.shape[1:]) for x in xss]
+    follow, first = None, True
+    for i in reversed(range(k)):
+        cur = [x.movedim(i, 0) for x in xss]
+        kw = dict(first_stage_kw) if first else {}
+        if first and interleave is not None:
+            kw["interleave"] = interleave
+        outs, fl = exchange(cur, wires[i], split_axis=0, concat_axis=0, **kw)
+        if first:
+            follow, first = fl, False
+        xss = [o.movedim(0, i) for o in outs]
+    xss = [x.reshape((p,) + x.shape[k:]) for x in xss]
+    return [merge_blocks(x, p, concat_axis) for x in xss], follow
+
+
 def all_to_all_blocks(x: torch.Tensor, wire, *, split_axis: int,
                       concat_axis: int, mode: str = "switched") -> torch.Tensor:
-    """Exchange the ``wire.p`` equal blocks of ``x`` (split along
-    ``split_axis``) so block j goes to rank j, concatenated along
-    ``concat_axis`` by source rank.  With no wire (one rank) that is ``x``
-    itself."""
+    """Exchange the P equal blocks of ``x`` (split along ``split_axis``) so
+    block j goes to rank j, concatenated along ``concat_axis`` by source
+    rank.  ``switched`` takes the dimension's own wire (one all-to-all,
+    one round); ``torus`` its wire or its per-axis wires (the staged
+    ring).  With no wire (one rank) that is ``x`` itself."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    wire = single_wire(wire)
     if wire is None:
         return x
     if mode == "switched":
+        _meter_exchange(wire, 1, (x,), dispatch_kind="all_to_all", dispatches=1)
         return wire.all_to_all([x], split_axis=split_axis,
                                concat_axis=concat_axis)[0]
     outs, _ = ring_exchange([x], wire, split_axis=split_axis,
@@ -221,8 +298,16 @@ def all_to_all_blocks(x: torch.Tensor, wire, *, split_axis: int,
 def ring_exchange(arrs, wire, *, split_axis: int, concat_axis: int,
                   interleave=None):
     """P−1 rounds over same-shaped ``arrs``; round r ships the block for
-    rank (me+r) mod P and lands the one from (me−r) mod P.  Returns
-    ``(outs, interleave result)``."""
+    rank (me+r) mod P and lands the one from (me−r) mod P.  A tuple of
+    per-axis wires runs :func:`staged_exchange`, one ring per mesh axis.
+    Returns ``(outs, interleave result)``."""
+    wire = single_wire(wire)
+    if isinstance(wire, tuple):
+        return staged_exchange(arrs, wire, split_axis=split_axis,
+                               concat_axis=concat_axis, exchange=ring_exchange,
+                               interleave=interleave)
+    _meter_exchange(wire, ring_rounds(wire.p), arrs, dispatch_kind="ppermute",
+                    dispatches=ring_rounds(wire.p) * len(arrs))
     return exchange(arrs, wire, ring_schedule(wire.p), split_axis=split_axis,
                     concat_axis=concat_axis, interleave=interleave)
 
@@ -230,8 +315,20 @@ def ring_exchange(arrs, wire, *, split_axis: int, concat_axis: int,
 def ring_exchange_bidi(arrs, wire, *, split_axis: int, concat_axis: int,
                        interleave=None):
     """The ring over both torus directions (Fig. 5.9), ⌈(P−1)/2⌉ rounds;
-    the same blocks and merge as :func:`ring_exchange`, bit for bit."""
-    return exchange(arrs, wire, bidi_schedule(wire.p), split_axis=split_axis,
+    the same blocks and merge as :func:`ring_exchange`, bit for bit, and
+    the same staging over per-axis wires."""
+    wire = single_wire(wire)
+    if isinstance(wire, tuple):
+        return staged_exchange(arrs, wire, split_axis=split_axis,
+                               concat_axis=concat_axis,
+                               exchange=ring_exchange_bidi, interleave=interleave)
+    p = wire.p
+    # the reference's ppermute count: a clockwise stream a round, and a
+    # counter-clockwise one except the shared farthest block of an even ring
+    ccw = bidi_rounds(p) - (1 if p % 2 == 0 else 0)
+    _meter_exchange(wire, bidi_rounds(p), arrs, dispatch_kind="ppermute",
+                    dispatches=(bidi_rounds(p) + ccw) * len(arrs))
+    return exchange(arrs, wire, bidi_schedule(p), split_axis=split_axis,
                     concat_axis=concat_axis, interleave=interleave)
 
 

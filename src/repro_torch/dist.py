@@ -1,4 +1,4 @@
-"""The ranks of a ``Pu × Pv`` pencil grid: one process each.
+"""The ranks of a pencil grid: one process each.
 
 Counterpart of the JAX package's mesh plumbing (``repro.compat.axes_size``
 and ``flat_axis_index``, ``repro.launch.mesh``), where ``shard_map`` runs
@@ -9,14 +9,18 @@ one program over a device mesh.  Here every rank is a process under
   method), joins them into one gloo group over ``tcp://localhost`` on a
   free port, binds rank ``r`` to ``cuda:{r % device_count}`` when the run
   is on the card, and runs ``fn(ctx, *args)`` in each;
-* rank ``r`` sits at grid coordinates ``(u, v) = (r // Pv, r % Pv)``,
-  row-major like ``flat_axis_index`` over ``("data", "model")``;
+* the mesh is 2-axis ``("data", "model")`` (``u`` over ``"data"``) or,
+  with ``u_sizes=(q₀, q₁)``, 3-axis ``("pod", "data", "model")`` with
+  ``u`` over ``("pod", "data")``, as the reference's 3-axis meshes are.
+  Ranks are row-major over the mesh axes, like ``flat_axis_index``: rank
+  ``r`` sits at grid coordinates ``(u, v) = (r // Pv, r % Pv)``, and the
+  flat ``u`` of a 3-axis mesh is ``pod·|data| + data``;
 * :class:`RankContext` holds this process's place: its coordinates, the
   gloo group of each grid dimension (the ranks that share its ``v``, or
-  its ``u``) and, per dimension and device type, the wire that carries that
-  dimension's block exchanges: the plain gloo wire for CPU tensors
-  (:class:`repro_torch.core.transpose.GlooWire`), the peer-mapped wire of
-  the ring kernels for CUDA tensors
+  its ``u``) and of each mesh axis of a dimension that spans several, and
+  the wires that carry their block exchanges: the plain gloo wire for CPU
+  tensors (:class:`repro_torch.core.transpose.GlooWire`), the peer-mapped
+  wire of the ring kernels for CUDA tensors
   (:class:`repro_torch.kernels.ring_rdma.IpcWire`).
 
 Several ranks may share one card: the peer-mapped wire does not need one
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import queue
 import socket
@@ -44,6 +49,11 @@ _CONTEXT = None
 #: seconds a rank waits in one collective before the run is called hung
 TIMEOUT_S = 600
 
+#: the names of the mesh axes, as the reference's meshes name them: ``u``
+#: over ``("data",)`` or ``("pod", "data")``, ``v`` over ``("model",)``
+U_AXES = ("pod", "data")
+V_AXES = ("model",)
+
 
 def coords_of(rank: int, pv: int) -> tuple[int, int]:
     """Grid coordinates ``(u, v)`` of a rank, row-major."""
@@ -55,32 +65,64 @@ def rank_of(u: int, v: int, pv: int) -> int:
     return u * pv + v
 
 
-class RankContext:
-    """This process's place among the ranks of a ``pu × pv`` grid.
+def layout(pu: int, pv: int, u_sizes=None) -> PencilGrid:
+    """The grid of a run's ranks, seen from rank 0: ``u`` over ``"data"``,
+    or over ``("pod", "data")`` when ``u_sizes`` factors ``pu`` in two;
+    ``v`` over ``"model"``."""
+    u_sizes = tuple(int(q) for q in (u_sizes or (pu,)))
+    if not 1 <= len(u_sizes) <= len(U_AXES) or math.prod(u_sizes) != pu:
+        raise ValueError(f"u_sizes {u_sizes} do not factor pu={pu} over at "
+                         f"most the mesh axes {U_AXES}")
+    u_axes = U_AXES[-len(u_sizes):]
+    return PencilGrid.from_mesh(dict(zip(u_axes + V_AXES, u_sizes + (pv,))),
+                                u_axes=u_axes, v_axes=V_AXES)
 
-    Built collectively in every rank (each creates every dimension group,
-    in one order, as ``torch.distributed.new_group`` requires).
+
+def _lines(sizes, k: int) -> list[list[int]]:
+    """Every line of mesh axis ``k`` (of a row-major mesh of ``sizes``):
+    the ranks that differ only in coordinate ``k``, in its order."""
+    stride = math.prod(sizes[k + 1:])
+    return [[r + c * stride for c in range(sizes[k])]
+            for r in range(math.prod(sizes)) if (r // stride) % sizes[k] == 0]
+
+
+class RankContext:
+    """This process's place among the ranks of a grid (``grid``: the run's
+    :func:`layout`).
+
+    Built collectively in every rank: each creates every group, in one
+    order, as ``torch.distributed.new_group`` requires.  Groups are keyed
+    ``(dim, label)``: the label of a grid dimension's group is its axes
+    joined by ``*`` (``"data"``, ``"pod*data"``), that of one mesh axis of a
+    dimension over several communicating axes the axis' name.
     """
 
-    def __init__(self, pu: int, pv: int, rank: int, device: torch.device):
-        self.pu, self.pv, self.rank = pu, pv, rank
-        self.coords = coords_of(rank, pv)
+    def __init__(self, grid: PencilGrid, rank: int, device: torch.device):
+        self.pu, self.pv, self.rank = grid.pu, grid.pv, rank
+        self.coords = coords_of(rank, grid.pv)
+        self.layout = dataclasses.replace(grid, coords=self.coords)
         self.device = device
-        u, v = self.coords
-        # ranks of each grid dimension, in dimension order (index = u or v)
-        self.members = {"u": [rank_of(i, v, pv) for i in range(pu)],
-                        "v": [rank_of(u, j, pv) for j in range(pv)]}
-        self.groups = {}
-        for dim, count, lines in (("u", pu, [[rank_of(i, j, pv) for i in range(pu)]
-                                             for j in range(pv)]),
-                                  ("v", pv, [[rank_of(i, j, pv) for j in range(pv)]
-                                             for i in range(pu)])):
-            if count <= 1:
-                continue
-            for ranks in lines:
+        sizes = grid.u_sizes + grid.v_sizes
+        lines = {}  # (dim, label) -> every line of that group, in order
+        for dim, flat in (("u", [[rank_of(i, j, grid.pv) for i in range(grid.pu)]
+                                 for j in range(grid.pv)]),
+                          ("v", [[rank_of(i, j, grid.pv) for j in range(grid.pv)]
+                                 for i in range(grid.pu)])):
+            if grid.dim_ranks(dim) > 1:
+                lines[(dim, self._flat_label(dim))] = flat
+        for dim in ("u", "v"):
+            comm = grid.comm_axes(dim)
+            if len(comm) > 1:
+                offset = 0 if dim == "u" else len(grid.u_sizes)
+                for k, axis in enumerate(grid.dim_axes(dim)):
+                    if sizes[offset + k] > 1:
+                        lines[(dim, axis)] = _lines(sizes, offset + k)
+        self.groups, self.members = {}, {}
+        for key, group_lines in lines.items():
+            for ranks in group_lines:
                 g = tdist.new_group(ranks, timeout=datetime.timedelta(seconds=TIMEOUT_S))
                 if rank in ranks:
-                    self.groups[dim] = g
+                    self.groups[key], self.members[key] = g, ranks
         self._wires: dict = {}
 
     @property
@@ -89,31 +131,52 @@ class RankContext:
 
     def grid(self) -> PencilGrid:
         """The pencil grid of the run, seen from this rank."""
-        return PencilGrid.from_mesh(self.pu, self.pv, coords=self.coords)
+        return self.layout
 
-    def wire(self, dim: str, device) -> object | None:
-        """The wire of grid dimension ``dim`` for tensors on ``device``:
-        None for a dimension of one rank.  Made at first use, collectively
-        over the dimension's ranks (which reach it in the same order)."""
-        ranks = self.members[dim]
-        if len(ranks) <= 1:
+    def _flat_label(self, dim: str) -> str:
+        """The label of grid dimension ``dim``'s own group and wire: its
+        mesh axes joined by ``*``, as the reference labels an exchange
+        over them."""
+        return "*".join(self.layout.dim_axes(dim))
+
+    def wire(self, dim: str, device, axis: str | None = None) -> object | None:
+        """The wire of grid dimension ``dim`` (all its ranks), or with
+        ``axis`` of that mesh axis of it, for tensors on ``device``: None
+        for a dimension of one rank.  Made at first use, collectively over
+        its ranks (which reach it in the same order)."""
+        if self.layout.dim_ranks(dim) <= 1:
             return None
         from repro_torch.core.transpose import GlooWire
         from repro_torch.kernels import ring_rdma
 
+        label = self._flat_label(dim) if axis is None else axis
         device = torch.device(device)
-        key = (dim, device.type)
+        key = (dim, label, device.type)
         if key not in self._wires:
+            ranks = self.members[(dim, label)]
             me = ranks.index(self.rank)
+            group = self.groups[(dim, label)]
             if ring_rdma.use_rdma(device):
-                self._wires[key] = ring_rdma.IpcWire(self.groups[dim], ranks, me,
-                                                     self.device)
+                self._wires[key] = ring_rdma.IpcWire(group, ranks, me, self.device,
+                                                     label=label)
             else:
-                self._wires[key] = GlooWire(self.groups[dim], ranks, me)
+                self._wires[key] = GlooWire(group, ranks, me, label=label)
         return self._wires[key]
 
+    def axis_wires(self, dim: str, device) -> tuple | None:
+        """The wires of the staged exchange over grid dimension ``dim``:
+        one per communicating mesh axis, outermost first (a dimension with
+        one such axis has its own wire), or None for a dimension of one
+        rank."""
+        comm = self.layout.comm_axes(dim)
+        if not comm:
+            return None
+        if len(comm) == 1:
+            return (self.wire(dim, device),)
+        return tuple(self.wire(dim, device, axis=a) for a, _ in comm)
+
     def wires(self) -> dict:
-        """The wires made so far, keyed by ``(dim, device type)``."""
+        """The wires made so far, keyed by ``(dim, label, device type)``."""
         return dict(self._wires)
 
     def close(self) -> None:
@@ -127,8 +190,9 @@ def context() -> RankContext | None:
     return _CONTEXT
 
 
-def regrid(pu: int, pv: int) -> RankContext:
-    """Re-cut the running ranks into a ``pu × pv`` grid of the same size
+def regrid(pu: int, pv: int, *, u_sizes=None) -> RankContext:
+    """Re-cut the running ranks into a ``pu × pv`` grid of the same size,
+    ``u`` over the mesh axes of ``u_sizes`` as in :func:`run_ranks`
     (collective: every rank calls it); the old context's wires are
     released.  Returns the new context."""
     global _CONTEXT
@@ -136,8 +200,9 @@ def regrid(pu: int, pv: int) -> RankContext:
     if ctx is None or pu * pv != ctx.p:
         raise ValueError(f"cannot re-cut {ctx.p if ctx else 0} ranks into "
                          f"a {pu}x{pv} grid")
+    grid = layout(pu, pv, u_sizes)
     ctx.close()
-    _CONTEXT = RankContext(pu, pv, ctx.rank, ctx.device)
+    _CONTEXT = RankContext(grid, ctx.rank, ctx.device)
     return _CONTEXT
 
 
@@ -145,25 +210,19 @@ def bind_grid(grid: PencilGrid, who: str) -> PencilGrid:
     """``grid`` as this process runs it.
 
     A 1×1 grid runs anywhere.  A larger one must be the grid of the running
-    ranks (:func:`run_ranks`), and comes back with this rank's coordinates.
-    A grid dimension over several mesh axes (a 3-axis mesh, staged
-    per-axis exchanges) is not ported yet.
+    ranks (:func:`run_ranks`), its mesh axes included, and comes back with
+    this rank's coordinates.
     """
-    for dim in ("u", "v"):
-        if sum(q > 1 for q in grid.dim_sizes(dim)) > 1:
-            raise NotImplementedError(
-                f"{who}: grid dimension {dim!r} spans the mesh axes "
-                f"{grid.dim_sizes(dim)}; 3-axis meshes and their staged "
-                "per-axis exchanges are ROADMAP Queue 1 item 5 (left out)")
     if grid.p == 1:
         return grid
     ctx = context()
-    if ctx is None or (ctx.pu, ctx.pv) != (grid.pu, grid.pv):
-        have = "no ranks" if ctx is None else f"ranks of a {ctx.pu}x{ctx.pv} grid"
+    mine = None if ctx is None else ctx.grid()
+    if mine is None or dataclasses.replace(grid, coords=mine.coords) != mine:
+        have = "no ranks" if ctx is None else f"ranks of a {mine.mesh_label} mesh"
         raise RuntimeError(
-            f"{who}: a {grid.pu}x{grid.pv} grid runs in its {grid.p} rank "
+            f"{who}: a {grid.mesh_label} mesh runs in its {grid.p} rank "
             f"processes, started by repro_torch.dist.run_ranks ({have} here)")
-    return dataclasses.replace(grid, coords=ctx.coords)
+    return mine
 
 
 def all_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
@@ -185,17 +244,17 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _worker(fn, pu, pv, rank, port, device, args, results):
+def _worker(fn, grid, rank, port, device, args, results):
     global _CONTEXT
     try:
         tdist.init_process_group(
             "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-            world_size=pu * pv, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+            world_size=grid.p, timeout=datetime.timedelta(seconds=TIMEOUT_S))
         dev = torch.device(device)
         if dev.type == "cuda":
             dev = torch.device("cuda", rank % torch.cuda.device_count())
             torch.cuda.set_device(dev)
-        _CONTEXT = RankContext(pu, pv, rank, dev)
+        _CONTEXT = RankContext(grid, rank, dev)
         out = fn(_CONTEXT, *args)
         _CONTEXT.close()  # the context fn ended with (see regrid)
         tdist.barrier()
@@ -208,25 +267,31 @@ def _worker(fn, pu, pv, rank, port, device, args, results):
         os._exit(1)
 
 
-def run_ranks(fn, pu: int, pv: int, *, device="cuda", args=(),
+def run_ranks(fn, pu: int, pv: int, *, u_sizes=None, device="cuda", args=(),
               timeout: float = 3 * TIMEOUT_S) -> list:
     """Run ``fn(ctx, *args)`` in each of the ``pu·pv`` rank processes of a
     ``pu × pv`` grid; returns the per-rank results, rank-ordered.
 
-    ``fn`` must be importable by name (the processes start fresh), and its
-    arguments and results picklable.  ``device`` is where the ranks run:
-    ``"cuda"`` binds rank ``r`` to card ``r % device_count`` (and raises
-    here when there is none), ``"cpu"`` keeps them on the host.  When a
-    rank fails, the others are stopped and the first traceback raises.
+    ``u_sizes`` factors ``pu`` over mesh axes: ``(2, 2)`` makes the 3-axis
+    mesh ``("pod", "data", "model")`` of sizes ``(2, 2, pv)`` with ``u``
+    over ``("pod", "data")``, whose folds over ``u`` run one exchange per
+    mesh axis (the staged exchange).  ``fn`` must be importable by name
+    (the processes start fresh), and its arguments and results picklable.
+    ``device`` is where the ranks run: ``"cuda"`` binds rank ``r`` to card
+    ``r % device_count`` (and raises here when there is none), ``"cpu"``
+    keeps them on the host.  When a rank fails, the others are stopped and
+    the first traceback raises.
     """
     if pu < 1 or pv < 1:
         raise ValueError(f"a {pu}x{pv} grid has no ranks")
+    grid = layout(pu, pv, u_sizes)
     dev = resolve_device(device)
-    p = pu * pv
+    p = grid.p
+    tag = grid.mesh_label
     port = _free_port()
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    procs = [ctx.Process(target=_worker, args=(fn, pu, pv, r, port, dev.type,
+    procs = [ctx.Process(target=_worker, args=(fn, grid, r, port, dev.type,
                                                  tuple(args), results))
              for r in range(p)]
     for proc in procs:
@@ -237,11 +302,11 @@ def run_ranks(fn, pu: int, pv: int, *, device="cuda", args=(),
         for _ in range(p):
             rank, ok, value = results.get(timeout=timeout)
             if not ok:
-                failure = f"rank {rank} of {pu}x{pv} failed:\n{value}"
+                failure = f"rank {rank} of {tag} failed:\n{value}"
                 break
             outs[rank] = value
     except queue.Empty:
-        failure = f"the {pu}x{pv} ranks did not finish within {timeout} s"
+        failure = f"the {tag} ranks did not finish within {timeout} s"
     finally:
         for proc in procs:
             if failure is not None and proc.is_alive():

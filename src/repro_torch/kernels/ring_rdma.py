@@ -28,7 +28,11 @@ back to the sender before it writes the slot again).
 reference's contract: the relayout of :func:`transpose.ring_exchange`
 bit for bit, and with ``payload=`` the payload's rows cut into one chunk a
 round (:func:`_chunk_bounds`), each launched after the next round's send
-is posted and before the current round is waited on (Fig. 4.3).
+is posted and before the current round is waited on (Fig. 4.3).  Over a
+grid dimension that spans several mesh axes they take one wire per axis
+and stage the exchange (:func:`transpose.staged_exchange`); the payload
+rides the first stage.  Each single-axis exchange meters one ``rdma``
+dispatch (:func:`transpose._meter_exchange`).
 
 The copies run row-wise on a plan made here (:func:`copy_plan`): rows of
 16-byte vectors where the layout allows, else 8- or 4-byte elements;
@@ -315,21 +319,24 @@ class _DeviceMemory:
 
 
 class IpcWire:
-    """The wire of one grid dimension on the card (see the module text).
+    """The wire of one grid dimension or mesh axis on the card (see the
+    module text).
 
-    ``ranks`` are the dimension's global ranks in order, ``me`` this rank's
-    index, ``group`` their gloo group (used to swap IPC handles and for
-    the barriers around freeing).  Flags: ``ready[src]`` at index ``src``
-    (the epoch whose block from ``src`` has landed here) and
-    ``credit[dst]`` at index ``p + dst`` (the epoch whose block ``dst`` has
-    consumed from its slot ``me``).  ``exchanges`` and ``rounds`` count
-    what the wire carried.
+    ``ranks`` are its global ranks in order, ``me`` this rank's index,
+    ``group`` their gloo group (used to swap IPC handles and for the
+    barriers around freeing), ``label`` its name in the wire counters.
+    Flags: ``ready[src]`` at index ``src`` (the epoch whose block from
+    ``src`` has landed here) and ``credit[dst]`` at index ``p + dst`` (the
+    epoch whose block ``dst`` has consumed from its slot ``me``).
+    ``exchanges`` and ``rounds`` count what the wire carried.
     """
 
     fuses = True
 
-    def __init__(self, group, ranks: list[int], me: int, device: torch.device):
+    def __init__(self, group, ranks: list[int], me: int, device: torch.device,
+                 label: str):
         self.group, self.ranks, self.me = group, list(ranks), me
+        self.label = label
         self.p = len(ranks)
         device = torch.device(device)
         if device.index is None:
@@ -481,15 +488,21 @@ class IpcWire:
 # public contract (mirrors transpose.ring_exchange)
 # ---------------------------------------------------------------------------
 
-def _rdma(arrs, wire, schedule, *, split_axis, concat_axis, interleave,
-          payload, diag, inverse):
+def _check_fusion(interleave, payload, diag, inverse) -> None:
     if interleave is not None and payload is not None:
         raise ValueError("interleave (a host thunk) and payload (kernel "
                          "butterflies) are exclusive")
     if diag is not None and (payload is None or inverse):
         raise ValueError("diag (roundtrip payload mode) needs a forward payload")
+
+
+def _rdma(arrs, wire, schedule, *, split_axis, concat_axis, interleave,
+          payload, diag, inverse):
     if wire is None:  # one rank: nothing travels
         return list(arrs), None
+    # one dispatch of the NIC engine covers all of the exchange's rounds
+    tr._meter_exchange(wire, len(schedule), arrs, dispatch_kind="rdma",
+                       dispatches=1)
     if payload is None:
         return tr.exchange(arrs, wire, schedule, split_axis=split_axis,
                            concat_axis=concat_axis, interleave=interleave)
@@ -527,8 +540,19 @@ def ring_exchange_rdma(arrs, wire, *, split_axis: int, concat_axis: int,
     with a ``payload`` pair, the payload transformed by
     :func:`ring_payload` (forward, ``inverse``, or with ``diag`` the
     roundtrip) in one chunk of rows per round.  A payload needs a wire that
-    fuses it (``wire.fuses``).
+    fuses it (``wire.fuses``).  A tuple of per-axis wires (a grid dimension
+    over several mesh axes) runs :func:`transpose.staged_exchange`, one
+    ring per axis; the payload (or thunk) rides the first stage, later
+    stages relay blocks already transformed.
     """
+    _check_fusion(interleave, payload, diag, inverse)
+    wire = tr.single_wire(wire)
+    if isinstance(wire, tuple):
+        return tr.staged_exchange(arrs, wire, split_axis=split_axis,
+                                  concat_axis=concat_axis,
+                                  exchange=ring_exchange_rdma,
+                                  interleave=interleave, payload=payload,
+                                  diag=diag, inverse=inverse)
     return _rdma(arrs, wire, tr.ring_schedule(wire.p) if wire else [],
                  split_axis=split_axis, concat_axis=concat_axis,
                  interleave=interleave, payload=payload, diag=diag,
@@ -540,7 +564,15 @@ def ring_exchange_bidi_rdma(arrs, wire, *, split_axis: int, concat_axis: int,
                             inverse: bool = False):
     """:func:`ring_exchange_rdma` over both ring directions, ⌈(P−1)/2⌉
     rounds (:func:`transpose.bidi_schedule`); the same relayout bit for
-    bit."""
+    bit, and the same staging over per-axis wires."""
+    _check_fusion(interleave, payload, diag, inverse)
+    wire = tr.single_wire(wire)
+    if isinstance(wire, tuple):
+        return tr.staged_exchange(arrs, wire, split_axis=split_axis,
+                                  concat_axis=concat_axis,
+                                  exchange=ring_exchange_bidi_rdma,
+                                  interleave=interleave, payload=payload,
+                                  diag=diag, inverse=inverse)
     return _rdma(arrs, wire, tr.bidi_schedule(wire.p) if wire else [],
                  split_axis=split_axis, concat_axis=concat_axis,
                  interleave=interleave, payload=payload, diag=diag,

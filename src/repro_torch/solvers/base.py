@@ -18,6 +18,14 @@ On a grid of more than one rank every rank process of
 of the fields (the global fields, computed from the same 1D factors on
 every rank, cut by its grid coordinates) and the observables reduce over
 the ranks.
+
+``state_tree``/``restore_state`` are the checkpoint contract
+(:class:`repro_torch.checkpoint.CheckpointManager`): the fields are saved
+as full logical arrays, so a checkpoint restores onto any grid of the same
+problem, and onto the reference's solvers.  ``step`` and ``observables``
+are the ``dispatch/solver.step`` and ``dispatch/solver.observables`` spans
+when obs is enabled (``step`` then waits for the card); disabled, they
+cost one branch.
 """
 
 from __future__ import annotations
@@ -29,10 +37,10 @@ from typing import ClassVar
 import numpy as np
 import torch
 
-from repro_torch import dist
+from repro_torch import dist, obs
 from repro_torch.core import precision
 from repro_torch.core.decomposition import PencilGrid
-from repro_torch.core.fft3d import FFT3DPlan
+from repro_torch.core.fft3d import FFT3DPlan, gather_pencil, scatter_pencil
 from repro_torch.device import resolve_device
 
 
@@ -171,12 +179,20 @@ class SpectralSolver(abc.ABC):
         return SolverState(fields=self.initial_fields(), t=0.0, n_steps=0)
 
     def step(self, state: SolverState) -> SolverState:
-        return SolverState(fields=tuple(self.step_fields(self.plan, state.fields)),
-                           t=state.t + self.dt, n_steps=state.n_steps + 1)
+        if not obs.is_enabled():
+            return SolverState(fields=tuple(self.step_fields(self.plan, state.fields)),
+                               t=state.t + self.dt, n_steps=state.n_steps + 1)
+        with obs.span("dispatch/solver.step", case=self.case,
+                      engine=self.plan.comm_engine):
+            fields = tuple(self.step_fields(self.plan, state.fields))
+            obs.synchronize(fields)
+        return SolverState(fields=fields, t=state.t + self.dt,
+                           n_steps=state.n_steps + 1)
 
     def observables(self, state: SolverState) -> dict:
-        out = {k: float(v) for k, v in
-               self.observables_fields(self.plan, state.fields).items()}
+        with obs.span("dispatch/solver.observables"):
+            out = {k: float(v) for k, v in
+                   self.observables_fields(self.plan, state.fields).items()}
         out["t"] = state.t
         return out
 
@@ -198,13 +214,52 @@ class SpectralSolver(abc.ABC):
         """Batched lanes of one problem (the serving layer's entry point)."""
         raise NotImplementedError("batched steps are ROADMAP Queue 1 item 9")
 
-    def state_tree(self, state):
-        """The checkpointable state (the fleet's restart contract)."""
-        raise NotImplementedError("checkpoints are ROADMAP Queue 1 item 7")
+    # ---- checkpoint contract ----------------------------------------------
+    def state_tree(self, state: SolverState):
+        """``state`` as a checkpointable tree for ``CheckpointManager``: the
+        fields as full logical arrays plus the clock as 0-d numpy scalars,
+        under the reference's paths (``fields/<i>``, ``t``, ``n_steps``).
 
-    def restore_state(self, manager, step=None):
-        """A state restored from a checkpoint, resharded onto this grid."""
-        raise NotImplementedError("checkpoints are ROADMAP Queue 1 item 7")
+        Collective on a grid of several ranks: each field is gathered to
+        rank 0 (:func:`~repro_torch.core.fft3d.gather_pencil`), which
+        alone gets the tree; the other ranks get None and write nothing.
+        On one rank the fields are the state's own tensors (the manager's
+        save copies them)."""
+        g = self.plan.grid
+        fields = (state.fields if g.p == 1
+                  else tuple(gather_pencil(f, g) for f in state.fields))
+        if fields and fields[0] is None:
+            return None
+        return {"fields": fields, "t": np.float64(state.t),
+                "n_steps": np.int64(state.n_steps)}
+
+    def restore_state(self, manager, step: int | None = None
+                      ) -> tuple[SolverState, dict]:
+        """``(state, manifest meta)`` from ``manager``'s checkpoint, which a
+        solver of the same problem may have written on another grid (or in
+        the reference package).  Every rank reads the file and cuts its own
+        block (:func:`~repro_torch.core.fft3d.scatter_pencil`), so the save
+        must have landed (rank 0's ``wait()``, then a barrier) before any
+        rank restores.  Onto the same grid the restore is bitwise; onto
+        another only the layout changes, and the trajectory continues to
+        roundoff."""
+        g = self.plan.grid
+        fields = self.initial_fields()         # shape/dtype template
+
+        def full(f):
+            shape = f.shape[:-3] + (f.shape[-3] * g.pu, f.shape[-2] * g.pv, f.shape[-1])
+            return torch.empty(shape, dtype=f.dtype, device="meta")
+
+        def cut(a):
+            return scatter_pencil(torch.from_numpy(a), g).contiguous().to(self.device)
+
+        target = {"fields": tuple(full(f) for f in fields), "t": np.float64(0.0),
+                  "n_steps": np.int64(0)}
+        del fields
+        tree, meta = manager.restore(target, step=step,
+                                     place={"fields": tuple(cut for _ in target["fields"])})
+        return SolverState(fields=tree["fields"], t=float(tree["t"]),
+                           n_steps=int(tree["n_steps"])), meta
 
     def plan_config(self) -> dict:
         """The FFT-plan knobs this solver runs (bench metadata)."""

@@ -8,6 +8,8 @@
         --mesh 1x4 --backend pallas --comm-engine pallas_ring
     PYTHONPATH=src python -m repro_torch.solvers.cli --case heat --n 16 \\
         --mesh 2x2 --comm-engine pallas_ring --device cpu
+    PYTHONPATH=src python -m repro_torch.solvers.cli --case heat --n 16 \\
+        --steps 2 --mesh 2x2 --device cpu --trace trace.json
 
 Takes the flags of ``repro.solvers.cli`` plus ``--device`` (default
 ``cuda``) and ``--backend`` (the plan's 1D FFT engine: ``pallas`` is the
@@ -17,8 +19,13 @@ Runs ``--steps`` cycles printing the observables, then the case's analytic
 validation (non-zero exit on failure).  ``--mesh PUxPV`` with more than
 one rank spawns the ranks (:func:`repro_torch.dist.run_ranks`, one process
 each; on the card they share it when there are fewer cards than ranks)
-and rank 0 prints.  ``--autotune`` and ``--trace`` exit 1 naming the
-ROADMAP item that brings them.
+and rank 0 prints.  ``--trace PATH`` records the run through
+``repro_torch.obs`` (``dispatch/solver.step`` spans, the fold phases' spans
+and the wire counters) and rank 0 writes its Chrome trace and prints the
+summary table: one rank's view, as the reference's per-shard counters
+are.  The mesh is ``PUxPV``, as in the reference's CLI; 3-axis meshes
+come in through ``make_fft3d`` and ``run_ranks``.  ``--autotune`` exits 1
+naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -56,7 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--quiet", action="store_true",
                     help="suppress the per-step observable lines")
     ap.add_argument("--trace", dest="trace_path", default="",
-                    help="not ported yet (ROADMAP Queue 1 item 6)")
+                    help="write a Chrome-trace JSON (Perfetto-loadable) of "
+                         "the run: dispatch/solver.step spans, the fold "
+                         "phases' spans and the wire counters (rank 0's)")
     return ap
 
 
@@ -69,7 +78,12 @@ def _run(args, grid, plan_cfg, phys, rank: int = 0) -> int:
     """Build the solver on this rank, run it, validate; rank 0 prints."""
     import torch
 
+    from repro_torch import obs
     from repro_torch.solvers import make_solver
+
+    if args.trace_path:
+        obs.clear()
+        obs.enable()
 
     def say(line=""):
         if rank == 0:
@@ -108,6 +122,15 @@ def _run(args, grid, plan_cfg, phys, rank: int = 0) -> int:
     say(f"{args.case}: {'OK' if ok else 'FAILED'}   "
         f"{wall / max(args.steps, 1) * 1e3:.1f} ms/step "
         f"(incl. the kernel build and the observables)")
+    if args.trace_path:
+        obs.disable()
+        if rank == 0:
+            obs.write_chrome_trace(args.trace_path, obs.tracer, obs.metrics,
+                                   meta={"mesh": f"{grid.pu}x{grid.pv}",
+                                         "device": where})
+            say(f"wrote trace {args.trace_path} ({len(obs.tracer.events())} spans)")
+            if not args.quiet:
+                say(obs.summary_table(obs.tracer, obs.metrics))
     return 0 if ok else 1
 
 
@@ -120,9 +143,6 @@ def main(argv=None) -> int:
     if args.autotune:
         return _fail("--autotune: solver-step autotuning is not ported yet "
                      "(ROADMAP Queue 1 item 8)")
-    if args.trace_path:
-        return _fail("--trace: tracing is not ported yet "
-                     "(ROADMAP Queue 1 item 6)")
     try:
         pu, pv = (int(p) for p in args.mesh.lower().split("x"))
     except ValueError:

@@ -9,7 +9,10 @@ p = 2 and 4; f64 and f32 -- the plan takes 16-byte vectors, and a numpy
 mirror of the kernel's row-wise index map (``copy_rows`` in
 ``csrc/ring_rdma.cu``) on the plan reproduces torch's strided copy bit for
 bit.  A base one element off 16 bytes gets the 8-byte case (f64), or the
-4-byte one (f32 at an odd offset).
+4-byte one (f32 at an odd offset).  The same holds for the copies of the
+staged exchange of a 3-axis mesh (``transpose.staged_exchange`` over two
+mesh axes of 2 ranks), whose views of the reshaped block grid have strides
+neither the fold nor the unfold makes, and their widths are pinned.
 """
 
 import ctypes
@@ -172,3 +175,101 @@ def test_a_strided_inner_dimension_copies_element_by_element():
     assert width == 8 and dims[-1] == (6, 10, 1)
     mirror(width, dims, src, dst)
     assert torch.equal(dst, src)
+
+
+# ---------------------------------------------------------------------------
+# the staged exchange's copies (3-axis meshes)
+# ---------------------------------------------------------------------------
+
+class RecordingWire:
+    """A wire of one rank that makes the peer-mapped wire's copies locally
+    through the wire's copy wrappers (``IpcWire.exchange``: the own block
+    landed; each other block sent into a slot and landed from it; on the
+    card the kernels, here plain indexing) and records each copy of the
+    first array as ``(kind, src view, dst view)``.  The "peers'" blocks
+    are this rank's own."""
+
+    def __init__(self, p: int, me: int, copies: list):
+        self.p, self.me, self.copies = p, me, copies
+
+    def exchange(self, arrs, schedule, *, split_axis, concat_axis, between=None):
+        p = self.p
+        outs = [torch.empty(tr.merged_shape(x.shape, p, split_axis, concat_axis),
+                            dtype=x.dtype, device=x.device) for x in arrs]
+        for j in range(p):
+            place = tr.block(outs[0], j, p, concat_axis)
+            if j == self.me:
+                own = [tr.block(x, j, p, split_axis) for x in arrs]
+                self.copies.append((f"p={p} land own", own[0], place))
+                ring_rdma.ring_land(own, outs, j, p, concat_axis)
+                continue
+            slots = [torch.empty(tr.block(x, j, p, split_axis).shape, dtype=x.dtype,
+                                 device=x.device) for x in arrs]
+            self.copies.append((f"p={p} send", tr.block(arrs[0], j, p, split_axis),
+                                slots[0]))
+            ring_rdma.ring_send(arrs, j, p, split_axis, slots)
+            self.copies.append((f"p={p} land slot", slots[0], place))
+            ring_rdma.ring_land(slots, outs, j, p, concat_axis)
+        for r in range(len(schedule)):
+            if between is not None:
+                between(r)
+        return outs
+
+
+# the u exchanges of the 2x2x2 main path (u over pod and data, 4 ranks), at
+# the local shapes of N=16: the fold of an X-pencil slab (a narrowed view,
+# split along x, merged along y) and the unfold of a Y-pencil slab through
+# its permute (split along its first axis, merged along its last)
+STAGED = {"fold_xy": (lambda x: x.narrow(1, 2, 2), (4, 8, 16), 2, 0),
+          "unfold_xy": (lambda x: x.permute(2, 1, 0), (4, 2, 16), 0, 2)}
+# the plan's width of each copy, in order: the permuted unfold's first
+# stage gathers element by element (its inner stride is 32 elements), as
+# the single-axis unfold does; every other copy moves 16-byte vectors
+STAGED_WIDTHS = {("fold_xy", torch.float64): [16] * 6, ("fold_xy", torch.float32): [16] * 6,
+                 ("unfold_xy", torch.float64): [8, 8] + [16] * 4,
+                 ("unfold_xy", torch.float32): [4, 4] + [16] * 4}
+
+
+def staged_layouts(dtype, which, me=(1, 0), device="cpu"):
+    """The copies (kind, src, dst) of one staged exchange over mesh axes of
+    sizes (2, 2), as rank ``me`` (its pod and data coordinates) makes them,
+    and the result, which must be the flat tiled all-to-all's."""
+    view, shape, split, concat = STAGED[which]
+    g = torch.Generator().manual_seed(len(which))
+    x = view(torch.randn(shape, generator=g).to(dtype).to(device))
+    copies = []
+    wires = tuple(RecordingWire(2, m, copies) for m in me)
+    outs, _ = tr.staged_exchange([x], wires, split_axis=split, concat_axis=concat,
+                                 exchange=tr.ring_exchange)
+    return copies, x, outs[0]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("which", list(STAGED))
+def test_staged_views_take_a_plan_that_mirrors_the_strided_copy(dtype, which):
+    copies, _, _ = staged_layouts(dtype, which)
+    # per stage (pod, data): the own block landed, one block sent, one slot
+    # landed
+    assert len(copies) == 6
+    widths = []
+    for kind, src, dst in copies:
+        width, dims = _plan(src, dst)
+        widths.append(width)
+        assert len(dims) <= ring_rdma.MAX_DIMS
+        want = dst.clone()
+        want.copy_(src)
+        dst.zero_()
+        mirror(width, dims, src, dst)
+        assert dst.numpy().tobytes() == want.numpy().tobytes(), kind
+    assert widths == STAGED_WIDTHS[(which, dtype)]
+
+
+def test_staging_reproduces_the_flat_exchange():
+    # one rank's view of a staged exchange is the flat tiled all-to-all of
+    # the same blocks, whichever rank it is (every block here is its own)
+    for which in STAGED:
+        for me in ((0, 0), (0, 1), (1, 0), (1, 1)):
+            _, x, got = staged_layouts(torch.float64, which, me)
+            _, _, split, concat = STAGED[which]
+            want = tr.merge_blocks(tr.stack_blocks(x, 4, split), 4, concat)
+            assert torch.equal(got, want), (which, me)

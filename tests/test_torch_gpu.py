@@ -224,6 +224,30 @@ def test_ring_copies_are_bit_exact_on_every_layout(cuda, dtype, p, split_axis,
             assert torch.equal(tr.block(o, 0, p, concat), tr.block(x, 0, p, split_axis))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("which", ["fold_xy", "unfold_xy"])
+def test_staged_exchange_copies_are_bit_exact(cuda, dtype, which):
+    """The copies of a staged exchange over two mesh axes of 2 ranks (a
+    3-axis mesh's u fold and unfold) on the card, each rank's view made in
+    one process (tests/test_torch_copy_plan.py::staged_layouts): the result
+    is the flat tiled all-to-all's, bit for bit, and the plan's widths are
+    those pinned on the CPU."""
+    from test_torch_copy_plan import STAGED, STAGED_WIDTHS, staged_layouts
+
+    _, _, split, concat = STAGED[which]
+    for me in ((1, 0), (0, 0), (0, 1), (1, 1)):
+        widths, sends = dict(ring_rdma.copy_widths), ring_rdma.send_launches
+        _, x, got = staged_layouts(dtype, which, me, device=cuda)
+        torch.cuda.synchronize()
+        assert ring_rdma.send_launches == sends + 2  # one a stage
+        want = tr.merge_blocks(tr.stack_blocks(x, 4, split), 4, concat)
+        assert torch.equal(got, want), me
+        if me == (1, 0):
+            launched = sorted(w for w in ring_rdma.COPY_WIDTHS
+                              for _ in range(ring_rdma.copy_widths[w] - widths[w]))
+            assert launched == sorted(STAGED_WIDTHS[(which, dtype)])
+
+
 def _ipc_vs_gloo(ctx):
     """Every schedule on the peer-mapped wire and on the gloo wire, twice
     with different data (the second exchange reuses the landing slots)."""

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """One side of a comparison of two checkouts of the port on one card.
 
-    python3 tools/ab_checkouts.py ROOT TAG [--solver]
+    python3 tools/ab_checkouts.py ROOT TAG [--solver | --multi]
 
 Imports ``repro_torch`` from ``ROOT/src`` (its kernels build into
 ``ROOT/build/kernels``) and prints one JSON line tagged ``TAG``.
@@ -23,15 +23,24 @@ block 1 of a (128, 128, 512) f64 slab cut in 4 along its last axis (run
 backends ``"pallas"`` and ``"mxu"``, ms a step (one warm-up step, then one
 step a timing).
 
+``--multi``: the multi-rank runs (a)–(c) of ``chip_smoke.py``'s phase 7
+(``MULTI_RANK``: nls 1×4 ``pallas_ring`` fused, nls 4×1 ``bidi_ring``,
+heat 2×2 ``pallas_ring`` fused; N=512 f64, 4 rank processes on the one
+card, one spawn), rank 0's ms a step on the host clock (one warm-up step,
+then ``MULTI_STEPS`` steps, each ended by a synchronize).
+
 Run the two checkouts alternately in one call, e.g. parent, change,
 change, parent, to compare them on the same card.
 """
 
 import json
+import os
 import statistics
 import sys
+import time
 
 REPS = 7
+MULTI_STEPS = 5
 
 
 def _events_ms(torch, fn, iters: int, fill: bool = True) -> float:
@@ -136,6 +145,45 @@ def solver(torch, tag: str) -> dict:
     return out
 
 
+def _multi_rank(ctx, runs):
+    """In each of the 4 rank processes: every run's steps, timed."""
+    import torch
+
+    from repro_torch import dist
+    from repro_torch.solvers import make_solver
+
+    out = {}
+    for tag, case, mesh, cfg in runs:
+        c = dist.regrid(*mesh)
+        s = make_solver(case, c.grid(), 512, device=c.device, plan_cfg=cfg)
+        state = s.step(s.init_state())
+        ms = []
+        for _ in range(MULTI_STEPS):
+            torch.cuda.synchronize(c.device)
+            t0 = time.perf_counter()
+            state = s.step(state)
+            torch.cuda.synchronize(c.device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[tag] = ms
+        del s, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def multi(torch, tag: str) -> dict:
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import MULTI_RANK
+    from repro_torch import dist
+
+    ranks = dist.run_ranks(_multi_rank, 4, 1, device="cuda", args=(MULTI_RANK,),
+                           timeout=900)
+    out = {"tag": tag, "device": torch.cuda.get_device_name(0), "steps": MULTI_STEPS}
+    for run, ms in ranks[0].items():
+        out[f"{run}_ms_per_step"] = {"median": statistics.median(ms), "min": min(ms),
+                                     "max": max(ms)}
+    return out
+
+
 def main() -> int:
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     root, tag = args[0], args[1]
@@ -145,7 +193,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ab_checkouts: no CUDA card", file=sys.stderr)
         return 1
-    run = solver if "--solver" in sys.argv[1:] else serving
+    run = (solver if "--solver" in sys.argv[1:]
+           else multi if "--multi" in sys.argv[1:] else serving)
     print(json.dumps(run(torch, tag)), flush=True)
     return 0
 
