@@ -118,7 +118,29 @@ of every layer of the prefill.  Phases, each fatal on failure:
    3× the gap measured on the H100); and both
    attentions in f32 at prompt 512, free-running: identical greedy tokens,
    logits within 1e-4·max|logit|.  One ``torch.profiler`` trace of a
-   prefill and of a decode step (informational).
+   prefill and of a decode step (informational);
+9. tuning — the perf model's calibration and the plan autotuner
+   (``repro_torch.tuning``) on the solver step.  (a) Calibration: each FFT
+   backend's 1D c2c transform in f64 at N=512 with 512·512 rows, its time
+   over ``torch.fft``'s (this process, before phase 7's spawn), and each
+   engine's X<->Y fold on 4x1 at N=128 and 256 in lockstep, the zero-payload
+   intercept per message and the slope's wire rate (the first thing phase
+   7's 4 ranks do); the document must validate, the ranks agree, and it is
+   written to ``build/chip_smoke_calibration.json``.  (b) Under it,
+   ``autotune_solver_step`` for heat N=512 f64 on 1x1 with 6 candidates
+   and 3 timed steps each, into a cold cache under ``build/``, counts set
+   to 0 just before and read just after: every kept candidate timed in the
+   model's order, none dropped, the default among them, each timed
+   backend's kernel launched and no plain version; a second call a cache
+   hit that launches nothing; the winner's plan 3 steps that pass
+   ``validate()`` within 1e-10 of phase 5's ``backend="ref"`` heat run,
+   its backend's kernel launched and no plain version.  (c) The same on
+   2x2 with 4 candidates, the last thing phase 7's ranks do: every rank
+   the same rows and winner, and the winner's steps launch ``ring_send``
+   and ``ring_land``.  (d) ``predict_step_us()`` under the model's H100
+   priors and under (a)'s calibration against the measured ms/step: heat
+   1x1 on ``"pallas"`` and ``"mxu"`` (phase 5), runs (a)–(c) of phase 7
+   (rank 0, steps 2–3) and the winners of (b) and (c) (informational).
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Full results go to
@@ -235,6 +257,16 @@ LM_PROMPT_F32 = 512
 # identical greedy tokens and max|d| <= 1e-4 · max|logit|
 LM_TOL_BF16 = 3e-2
 LM_TOL_F32 = 1e-4
+
+# phase 9, tuning: the calibration at the main path's shapes (the backends
+# at repro_torch.tuning.calibrate.CARD_BACKEND_SHAPE, the folds on 4x1 at
+# CARD_FOLD_SIZES), then heat N=512 f64's whole step tuned on 1x1 and on
+# 2x2 (TUNE_GRIDS: mesh -> max_candidates), the winners run TUNE_STEPS steps
+TUNE_CASE, TUNE_N, TUNE_ITERS, TUNE_STEPS = "heat", 512, 3, 3
+TUNE_GRIDS = {(1, 1): 6, (2, 2): 4}
+CALIBRATION_ITERS = 5
+TUNE_CACHE = os.path.join(HERE, "build", "chip_smoke_plans.json")
+CALIBRATION_OUT = os.path.join(HERE, "build", "chip_smoke_calibration.json")
 
 
 def fail(msg: str) -> None:
@@ -1000,6 +1032,7 @@ def main_path():
         for name in KERNELS:
             r = driven[name][0][i]
             r["ref_step_ms"] = plain["step_ms"]
+            r["ref_history"] = plain["history"]
             r["obs_rel_err"] = max(observables_rel_err(a, b) for a, b in
                                    zip(r["history"], plain["history"]))
             say(f"{tag} {r['backend']}: {r['launches']} launches "
@@ -1447,11 +1480,12 @@ def _save_checkpoint(solver, state, step):
     return out
 
 
-def _multi_rank_run(ctx, tag, case, mesh, cfg, ref_hist, n, save_at=None):
+def _multi_rank_run(ctx, tag, case, mesh, cfg, ref_hist, n, doc, save_at=None):
     """Phase 7, in each rank: one multi-rank run of the main path at N=n,
-    its counts set to 0 just before its steps and read just after; with
-    ``save_at``, a checkpoint at that step (outside the step times) and
-    the observables of one step more (``history_full``)."""
+    its counts set to 0 just before its steps and read just after, and its
+    ``predict_step_us()`` under the priors and the calibration ``doc``;
+    with ``save_at``, a checkpoint at that step (outside the step times)
+    and the observables of one step more (``history_full``)."""
     import numpy as np
     import torch
 
@@ -1496,6 +1530,7 @@ def _multi_rank_run(ctx, tag, case, mesh, cfg, ref_hist, n, save_at=None):
     r["wires"] = _wire_rounds(c, dev, before, model)
     r["exchange_rounds"] = solver.plan.engine().exchange_rounds
     r["step_ms"] = step_ms
+    r["predict_us"] = _predictions(solver, doc)
     r["obs_rel_err"] = max(observables_rel_err(a, b)
                            for a, b in zip(history, ref_hist))
     r["history"] = history
@@ -1557,28 +1592,36 @@ def _restores(ctx, case, cfg, history_full, n):
     return out
 
 
-def _ranks_main(ctx, ref_hists, n=512):
-    """Everything the 4 rank processes do: the wire against its plain
-    version, the three runs of the multi-rank main path (run (c) with its
-    checkpoint), and the restores."""
-    out = {"rank": ctx.rank, "wire": _wire_vs_plain(ctx), "runs": []}
+def _ranks_main(ctx, ref_hists, tune, n=512):
+    """Everything the 4 rank processes do: phase 9's fold calibration on
+    4x1, the wire against its plain version, the three runs of the
+    multi-rank main path (run (c) with its checkpoint), the restores, and
+    phase 9's 2x2 sweep."""
+    out = {"rank": ctx.rank, "calibration": _calibrate_folds(ctx, tune["weights"])}
+    out["wire"] = _wire_vs_plain(ctx)
+    out["runs"] = []
     for tag, case, mesh, cfg in MULTI_RANK:
         save_at = CKPT_STEP if tag == CKPT_RUN else None
         out["runs"].append(_multi_rank_run(ctx, tag, case, mesh, cfg, ref_hists[case],
-                                           n, save_at=save_at))
+                                           n, out["calibration"]["doc"],
+                                           save_at=save_at))
     run = next(r for r in out["runs"] if r["tag"] == CKPT_RUN)
     out["restores"] = _restores(ctx, run["case"], dict(MULTI_RANK_CFG[CKPT_RUN]),
                                 run["history_full"], n)
+    out["tuned"] = _tune_and_run(ctx, (2, 2), tune["ref_history"],
+                                 out["calibration"]["doc"])
     return out
 
 
-def multi_rank(runs):
+def multi_rank(runs, tune):
     """Phase 7: one spawn of 4 rank processes on the one card (the parent's
     cache freed first): the wire against its plain version, then the
     multi-rank main path held against the 1×1 radix-2 runs of phase 5 —
     per-step observables and final fields within 1e-10, counts of every
     kernel the run's mode uses above 0, no plain version, and
-    ``exchange_rounds`` equal to the round model summed over the wires."""
+    ``exchange_rounds`` equal to the round model summed over the wires.
+    The same spawn runs phase 9's folds on 4x1 first and its 2x2 sweep
+    last (``tune``: the backend weights of (a))."""
     import torch
 
     from repro_torch import dist
@@ -1588,8 +1631,9 @@ def multi_rank(runs):
     torch.cuda.empty_cache()
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    ranks = dist.run_ranks(_ranks_main, 4, 1, device="cuda", args=(ref_hists,),
-                           timeout=900)
+    tune = {**tune, "ref_history": runs["fft_radix2"][0]["ref_history"]}
+    ranks = dist.run_ranks(_ranks_main, 4, 1, device="cuda",
+                           args=(ref_hists, tune), timeout=900)
     say(f"multi-rank: 4 rank processes on one card in "
         f"{time.perf_counter() - t0:.1f} s")
     for key in ranks[0]["wire"]:
@@ -1961,6 +2005,277 @@ def observability(runs):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the perf model's calibration and the plan autotuner
+# ---------------------------------------------------------------------------
+
+def calibrate_backends():
+    """Phase 9 (a), in this process: each backend's 1D c2c transform at the
+    main path's shape (``CARD_BACKEND_SHAPE``: f64, N=512, 512·512 rows),
+    its time over ``torch.fft``'s.  Phase 9 starts with a cold plan cache."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.tuning import calibrate as cal
+
+    for path in (TUNE_CACHE, CALIBRATION_OUT):
+        if os.path.exists(path):
+            os.remove(path)
+    t0 = time.perf_counter()
+    weights = cal.measure_backend_weights(iters=CALIBRATION_ITERS, device="cuda",
+                                          verbose=True, **cal.CARD_BACKEND_SHAPE)
+    torch.cuda.empty_cache()
+    if set(weights) != set(ops.BACKENDS):
+        fail(f"tuning (a): backend weights measured for {sorted(weights)} only")
+    return {"weights": weights, "s": time.perf_counter() - t0}
+
+
+def _calibrate_folds(ctx, weights):
+    """Phase 9 (a), in each rank of the 4x1 grid: every engine's X<->Y fold
+    at ``CARD_FOLD_SIZES`` in lockstep (each time the max over the ranks),
+    the document assembled with the parent's backend weights and installed
+    in this process's model."""
+    from repro_torch.core import perfmodel as pm
+    from repro_torch.tuning import calibrate as cal
+
+    t0 = time.perf_counter()
+    grid = ctx.grid()
+    overheads, link = cal.measure_engine_overheads(
+        grid, iters=CALIBRATION_ITERS, sizes=cal.CARD_FOLD_SIZES,
+        verbose=ctx.rank == 0)
+    doc = cal.calibration_document(grid.mesh_label, overheads, link, weights,
+                                   quick=False, iters=CALIBRATION_ITERS,
+                                   device=ctx.device)
+    pm.set_calibration(doc)
+    return {"doc": doc, "s": time.perf_counter() - t0}
+
+
+def _predictions(solver, doc):
+    """``solver.predict_step_us()`` under the model's H100 priors and under
+    the calibration ``doc``, which stays installed."""
+    from repro_torch.core import perfmodel as pm
+
+    out = {}
+    for label, cal in (("priors", None), ("calibrated", doc)):
+        pm.set_calibration(cal)
+        out[label] = solver.predict_step_us()
+    return out
+
+
+def _tune_counts():
+    return {**_counts(), **_ring_counts()}
+
+
+def _zero_tune_counts():
+    from repro_torch.kernels import fft_mxu
+    _zero_ring_counts()
+    fft_mxu.launches = fft_mxu.plain_calls = 0
+
+
+def _expected_keep(grid):
+    """The candidates ``autotune_solver_step`` must time for TUNE_CASE on
+    ``grid``, in order: the case's space ranked by the roundtrip model, its
+    top ``TUNE_GRIDS[mesh]``, then the default if not among them."""
+    from repro_torch.core import perfmodel as pm
+    from repro_torch.solvers import SOLVERS
+    from repro_torch.tuning import DEFAULT_CANDIDATE, candidate_space
+
+    cls, n = SOLVERS[TUNE_CASE], (TUNE_N,) * 3
+    cands = candidate_space(n, grid.pu, grid.pv, real=cls.real,
+                            components=cls.components, fused=True,
+                            pu_axes=grid.u_sizes, pv_axes=grid.v_sizes)
+    cands.sort(key=lambda c: pm.estimate_roundtrip_seconds(
+        n, grid.pu, grid.pv, spec=c.spec(real=cls.real), mu=max(cls.components, 1),
+        pu_axes=grid.u_sizes, pv_axes=grid.v_sizes))
+    keep = cands[:TUNE_GRIDS[(grid.pu, grid.pv)]]
+    if DEFAULT_CANDIDATE not in keep:
+        keep.append(DEFAULT_CANDIDATE)
+    return [c.name for c in keep]
+
+
+def _tune_and_run(ctx, mesh, ref_history, doc):
+    """Phase 9 (b) on 1x1 in this process (``ctx`` None) or (c) in each rank:
+    ``autotune_solver_step`` for heat N=512 f64 under the calibration
+    ``doc`` into a cold cache, the counts set to 0 just before the sweep and
+    read just after; the same call again (a cache hit, counts read); then
+    TUNE_STEPS steps of the winner's plan, counts set to 0 just before,
+    observables held to phase 5's ``backend="ref"`` heat run."""
+    import torch
+
+    from repro_torch import dist
+    from repro_torch.core import perfmodel as pm
+    from repro_torch.core.decomposition import PencilGrid
+    from repro_torch.solvers import make_solver
+    from repro_torch.solvers.base import observables_rel_err
+    from repro_torch.tuning import autotune_solver_step
+
+    if ctx is None:
+        grid, dev, rank = PencilGrid.from_mesh(*mesh), torch.device("cuda"), 0
+    else:
+        c = dist.regrid(*mesh)
+        grid, dev, rank = c.grid(), c.device, ctx.rank
+    pm.set_calibration(doc)
+    kw = dict(dtype="float64", cache_path=TUNE_CACHE, max_candidates=TUNE_GRIDS[mesh],
+              iters=TUNE_ITERS, device=dev)
+    torch.cuda.synchronize(dev)
+    _zero_tune_counts()
+    t0 = time.perf_counter()
+    res = autotune_solver_step(grid, TUNE_CASE, TUNE_N, verbose=rank == 0, **kw)
+    out = {"mesh": list(mesh), "sweep_s": time.perf_counter() - t0,
+           "sweep_counts": _tune_counts(), "cache_hit": res.cache_hit,
+           "best": res.best_config, "best_name": res.best.name, "best_us": res.best_us,
+           "rows": res.rows, "keep": _expected_keep(grid)}
+    _zero_tune_counts()
+    again = autotune_solver_step(grid, TUNE_CASE, TUNE_N, **kw)
+    out["again"] = {"cache_hit": again.cache_hit, "best": again.best_config,
+                    "counts": _tune_counts()}
+    solver = make_solver(TUNE_CASE, grid, TUNE_N, device=dev, plan_cfg=res.best_config)
+    state = solver.init_state()
+    history = [solver.observables(state)]
+    step_ms = []
+    torch.cuda.synchronize(dev)
+    _zero_tune_counts()
+    for _ in range(TUNE_STEPS):
+        t0 = time.perf_counter()
+        state = solver.step(state)
+        torch.cuda.synchronize(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        history.append(solver.observables(state))
+    out["counts"] = _tune_counts()
+    ok, lines = solver.validate(history)
+    out.update(step_ms=step_ms, validate=bool(ok), validate_lines=lines,
+               finite=all(bool(torch.isfinite(f).all()) for f in state.fields),
+               obs_rel_err=max(observables_rel_err(a, b)
+                               for a, b in zip(history, ref_history)),
+               predict_us=_predictions(solver, doc))
+    del solver, state
+    torch.cuda.empty_cache()
+    return out
+
+
+_BACKEND_KERNEL = {"pallas": "fft_radix2", "mxu": "fft_mxu"}
+
+
+def _check_tuned(label, outs):
+    """Phase 9 (b)/(c): every rank took the same winner from the same rows;
+    every kept candidate was timed, none dropped, the default among them;
+    the kernels of the timed backends launched in the sweep; the second
+    call was a cache hit that launched nothing; the winner's steps passed
+    ``validate()`` within 1e-10 of the ref run, launched its backend's
+    kernel (and on a grid the wire's copies) and no plain version."""
+    from repro_torch.tuning import DEFAULT_CANDIDATE
+
+    o = outs[0]
+    if any(x["best"] != o["best"] or x["rows"] != o["rows"] for x in outs):
+        fail(f"tuning {label}: the ranks disagree: "
+             f"{[x['best_name'] for x in outs]}")
+    names = [r["name"] for r in o["rows"]]
+    if o["cache_hit"] or names != o["keep"] or DEFAULT_CANDIDATE.name not in names:
+        fail(f"tuning {label}: timed {names}, kept {o['keep']} (cache hit "
+             f"{o['cache_hit']})")
+    backends = {r["config"]["backend"] for r in o["rows"]}
+    winner = o["best"]
+    for rank, x in enumerate(outs):
+        sc, wc = x["sweep_counts"], x["counts"]
+        for b, k in _BACKEND_KERNEL.items():
+            if b in backends and sc[k] == 0:
+                fail(f"tuning {label} rank {rank}: {b!r} candidates timed, {k} "
+                     f"never launched: {sc}")
+        if sc["fft_mxu.plain_calls"] or sc["payload_plain"] or (
+                "ref" not in backends and sc["ref.calls"]):
+            fail(f"tuning {label} rank {rank}: a plain version ran in the sweep: {sc}")
+        if not x["again"]["cache_hit"] or x["again"]["best"] != winner or any(
+                x["again"]["counts"].values()):
+            fail(f"tuning {label} rank {rank}: the second call {x['again']}")
+        k = _BACKEND_KERNEL.get(winner["backend"])
+        if (k and wc[k] == 0) or wc["ref.calls"] or wc["fft_mxu.plain_calls"] \
+                or wc["payload_plain"]:
+            fail(f"tuning {label} rank {rank}: the winner's steps counted {wc}")
+        if len(outs) > 1 and (wc["ring_send"] == 0 or wc["ring_land"] == 0):
+            fail(f"tuning {label} rank {rank}: the winner's exchanges launched no "
+                 f"wire copy: {wc}")
+        if not x["validate"] or not x["finite"] or x["obs_rel_err"] > 1e-10:
+            fail(f"tuning {label} rank {rank}: validate {x['validate']} "
+                 f"{x['validate_lines']}, finite {x['finite']}, observables vs the "
+                 f"ref run {x['obs_rel_err']:.3e}")
+    default = next(r for r in o["rows"] if r["name"] == DEFAULT_CANDIDATE.name)
+    say(f"tuning {label}: {len(names)} candidates in {o['sweep_s']:.1f} s "
+        f"(rank 0), none dropped; winner {o['best_name']} {o['best_us']:.1f} us/step "
+        f"against the default's {default['us_per_call']:.1f} "
+        f"({default['us_per_call'] / o['best_us']:.3f}x); "
+        f"{'every rank the same; ' if len(outs) > 1 else ''}"
+        f"sweep counts (rank 0) {o['sweep_counts']}")
+    for r in o["rows"]:
+        say(f"  tuning {label} {r['name']}: {r['us_per_call']:.1f} us/step")
+    say(f"tuning {label} winner, {TUNE_STEPS} steps: ms/step "
+        f"{[round(t, 3) for t in o['step_ms']]}, counts {o['counts']}, observables vs "
+        f"the ref run {max(x['obs_rel_err'] for x in outs):.2e}, validate True; "
+        f"second call a cache hit, nothing launched")
+
+
+def tuning(runs, ranks, backends):
+    """Phase 9 in this process: the calibration of (a) (the ranks' folds
+    and this process's backends) checked and written, (c) checked, (b)
+    run and checked, then (d): ``predict_step_us()`` under the priors and
+    under the calibration against each measured ms/step."""
+    import statistics
+
+    from repro_torch.core import perfmodel as pm
+    from repro_torch.core.decomposition import PencilGrid
+    from repro_torch.solvers import make_solver
+    from repro_torch.tuning import calibrate as cal
+
+    docs = [{k: v for k, v in r["calibration"]["doc"].items() if k != "created"}
+            for r in ranks]
+    doc = ranks[0]["calibration"]["doc"]
+    problems = cal.validate_calibration(doc)
+    if problems or any(d != docs[0] for d in docs):
+        fail(f"tuning (a): calibration problems {problems}, or the ranks disagree")
+    cal.save_calibration(doc, CALIBRATION_OUT)
+    say(f"tuning (a): calibration in {backends['s']:.1f} s (backends) + "
+        f"{ranks[0]['calibration']['s']:.1f} s (folds on 4x1, N={cal.CARD_FOLD_SIZES})")
+    for b, w in sorted(doc["backend_compute_weight"].items()):
+        say(f"  compute weight   {b:<13} {w:8.4f}  (prior {pm.BACKEND_COMPUTE_WEIGHT[b]})")
+    for e in pm.ENGINE_MESSAGE_OVERHEAD_S:
+        got = doc["engine_message_overhead_s"].get(e)
+        say(f"  message overhead {e:<13} "
+            + (f"{got * 1e6:8.3f} us" if got else "not measured (noise)")
+            + f"  (prior {pm.ENGINE_MESSAGE_OVERHEAD_S[e] * 1e6:.3f} us)")
+    say(f"  wire bandwidth   {doc.get('link_bytes_per_s', 0) / 1e9:8.2f} GB/s "
+        f"(prior {pm.LINK_BYTES_PER_S / 1e9:.1f} GB/s)")
+    _check_tuned("(c) 2x2", [r["tuned"] for r in ranks])
+    ref_history = runs["fft_radix2"][0]["ref_history"]
+    one = _tune_and_run(None, (1, 1), ref_history, doc)
+    _check_tuned("(b) 1x1", [one])
+
+    table = []
+
+    def row(label, pred, step_ms):
+        ms = statistics.median(step_ms)
+        table.append({"run": label, "measured_ms": ms, **{
+            f"{k}_ms": v / 1e3 for k, v in pred.items()}, **{
+            f"{k}_err": v / 1e3 / ms - 1 for k, v in pred.items()}})
+        t = table[-1]
+        say(f"tuning (d) {label}: measured {ms:.3f} ms/step; predicted "
+            f"{t['priors_ms']:.3f} ms under the priors (model_err {t['priors_err']:+.3f}), "
+            f"{t['calibrated_ms']:.3f} under the calibration ({t['calibrated_err']:+.3f})")
+    for name in KERNELS:
+        r = runs[name][0]  # heat N=512, the main path's default plan
+        solver = make_solver("heat", PencilGrid.from_mesh(1, 1), 512, device="cuda",
+                             plan_cfg={"backend": r["backend"]})
+        row(f"heat 1x1 {r['backend']!r}", _predictions(solver, doc), r["step_ms"])
+        del solver
+    for i, (tag, case, mesh, cfg) in enumerate(MULTI_RANK):
+        r0 = ranks[0]["runs"][i]
+        row(f"({tag}) {case} {mesh[0]}x{mesh[1]} {cfg['comm_engine']}", r0["predict_us"],
+            r0["step_ms"][1:])
+    for label, o in (("(b) 1x1", one), ("(c) 2x2", ranks[0]["tuned"])):
+        row(f"tuned {label} {o['best_name']}", o["predict_us"], o["step_ms"])
+    pm.set_calibration(None)
+    return {"calibration": doc, "backends": backends, "one": one,
+            "grid": [r["tuned"] for r in ranks], "model": table}
+
+
 REPLACES = {"flash_attention": "src/repro/kernels/attention.py:68",
             "fft_radix2": "src/repro/kernels/fft_radix2.py:90",
             "fft_mxu": "src/repro/kernels/fft_mxu.py:80",
@@ -1990,11 +2305,13 @@ def main() -> int:
     runs, launches = main_path()
     observed = observability(runs)
     prof = [breakdown(BACKEND[k]) for k in KERNELS]
-    ranks, ring_launches = multi_rank(runs)
+    tune_backends = calibrate_backends()
+    ranks, ring_launches = multi_rank(runs, tune_backends)
     staged_ranks, staged_launches = staged_mesh()
     launches.update({k: n + staged_launches[k] for k, n in ring_launches.items()})
     lm = lm_serving(flash_rel)
     launches["flash_attention"] = lm["counts"]["flash_attention"]
+    tuned = tuning(runs, ranks, tune_backends)
 
     kernels = []
     for k in KERNELS:
@@ -2029,7 +2346,8 @@ def main() -> int:
                    "mma_rates": mma_rates,
                    "kernels": kernels, "runs": runs, "breakdown": prof,
                    "observability": observed, "multi_rank": ranks,
-                   "staged": staged_ranks, "flash_bf16_gaps": flash_gaps, "lm": lm},
+                   "staged": staged_ranks, "flash_bf16_gaps": flash_gaps, "lm": lm,
+                   "tuning": tuned},
                   f, indent=1)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """Assigned-architecture registry (--arch <id>): a copy of the registry of
-``repro.configs`` (its FFT problem table, ``fft_configs``, is not copied)."""
+``repro.configs`` and of its FFT problem table, ``fft_configs``."""
 
 from repro_torch.configs.base import (ArchConfig, MLACfg, MambaCfg, MoECfg,
                                 SHAPES, ShapeCfg, shape_applicable,

@@ -24,12 +24,13 @@ the local functions as entry points on a device.
 Observability, with the reference's names: each fold phase runs in a
 ``trace/fft3d.<phase>`` span (``fold_xy``, ``fold_yz``, ``unfold_yz``,
 ``unfold_xy``, ``roundtrip_yz``) that times the host's launches of the phase
-and waits for nothing; :func:`make_fft3d`'s entry points are
+and waits for nothing, annotated with the perf model's wire time of the
+phase (``model_wire_us``); :func:`make_fft3d`'s entry points are
 ``dispatch/fft3d.fwd`` and ``dispatch/fft3d.inv`` spans, which wait for
-the card.  Left out: the spans' ``model_wire_us`` and the entry points'
-``model_predicted_us`` (the perf model, ROADMAP Queue 1 item 8), and the
-reference's ``fft3d.retraces.*`` counters, which count JAX retraces: the
-port traces nothing.
+the card, annotated with the model's time of the transform
+(``model_predicted_us``).  Left out: the reference's
+``fft3d.retraces.*`` counters, which count JAX retraces: the port traces
+nothing.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch import dist, obs
 from repro_torch.core import comm, precision
+from repro_torch.core import perfmodel as pm
 from repro_torch.core.decomposition import CommDAG, PencilGrid, fft3d_dag
 from repro_torch.core.engine_spec import EngineSpec
 from repro_torch.device import resolve_device
@@ -157,11 +159,16 @@ def _ifftx_phase(plan):
 
 def _phase_span(plan: FFT3DPlan, name: str, dim: str):
     """A ``trace/...`` span around one fold phase over grid dimension
-    ``dim`` (the shared no-op span while obs is disabled)."""
+    ``dim``, annotated with the perf model's wire time of that phase (the
+    shared no-op span while obs is disabled)."""
     if not obs.is_enabled():
         return obs.NULL_SPAN
+    g = plan.grid
+    sizes = g.dim_sizes(dim)
+    wire_us = pm.estimate_fold_seconds(
+        plan.n, g.pu, g.pv, sizes, comm_engine=plan.comm_engine) * 1e6
     return obs.span(name, engine=plan.comm_engine, grid_dim=dim,
-                    dim_sizes=list(plan.grid.dim_sizes(dim)))
+                    dim_sizes=list(sizes), model_wire_us=round(wire_us, 3))
 
 
 def fft3d_local(plan: FFT3DPlan, xr, xi=None):
@@ -345,7 +352,8 @@ def gather_pencil(local: torch.Tensor, grid: PencilGrid):
 
 def make_fft3d(grid: PencilGrid, n, *, spec: EngineSpec | None = None,
                real: bool | None = None, components: int = 0,
-               device="cuda"):
+               device="cuda", autotune: bool = False,
+               tune_kwargs: dict | None = None):
     """Build ``(forward, inverse, plan)`` on ``device`` for this rank.
 
     Layout as in the reference, per rank: forward takes this rank's block
@@ -357,7 +365,16 @@ def make_fft3d(grid: PencilGrid, n, *, spec: EngineSpec | None = None,
     coordinates).  Inputs (tensors or numpy arrays) are moved to
     ``device``.  ``real`` describes the problem and overrides ``spec.real``
     when given.  ``forward`` and ``inverse`` are ``dispatch/fft3d.fwd`` and
-    ``dispatch/fft3d.inv`` spans when obs is enabled.
+    ``dispatch/fft3d.inv`` spans when obs is enabled, carrying the perf
+    model's ``model_predicted_us``.
+
+    ``autotune=True`` ignores the explicit engine configuration and
+    instead sweeps the plan space for this ``(n, grid, real, components)``
+    problem on ``device`` (see ``repro_torch.tuning``), reusing the
+    persistent plan cache when a prior run already timed it.
+    ``tune_kwargs`` forwards extra options to
+    ``repro_torch.tuning.autotune`` (``cache_path``, ``max_candidates``,
+    ``iters``, ``dtype``, ``fwd_weight``, ``inv_weight``, ...).
     """
     grid = dist.bind_grid(grid, "make_fft3d")
     dev = resolve_device(device)
@@ -365,6 +382,12 @@ def make_fft3d(grid: PencilGrid, n, *, spec: EngineSpec | None = None,
     s = spec if spec is not None else EngineSpec()
     if real is not None:
         s = s.replace(real=bool(real))
+    if autotune:
+        from repro_torch.tuning import autotune as _autotune
+        from repro_torch.tuning.space import Candidate
+        result = _autotune(grid, n, real=s.real, components=components,
+                           device=dev, **(tune_kwargs or {}))
+        s = Candidate.from_config(result.best_config).spec(real=s.real)
     plan = FFT3DPlan.from_spec(n, grid, s)
     vector_mode = s.vector_mode
 
@@ -383,6 +406,11 @@ def make_fft3d(grid: PencilGrid, n, *, spec: EngineSpec | None = None,
             return ifft3d_vector_local(plan, kr, ki, vector_mode=vector_mode)
         return ifft3d_local(plan, kr, ki)
 
-    attrs = {"engine": plan.comm_engine, "n": list(n), "mesh": grid.mesh_label}
+    attrs = {
+        "engine": plan.comm_engine, "n": list(n), "mesh": grid.mesh_label,
+        "model_predicted_us": round(pm.estimate_plan_seconds(
+            n, grid.pu, grid.pv, spec=s, mu=max(components, 1),
+            pu_axes=grid.u_sizes, pv_axes=grid.v_sizes) * 1e6, 3),
+    }
     return (obs.traced_call(fwd, "dispatch/fft3d.fwd", attrs),
             obs.traced_call(inv, "dispatch/fft3d.inv", attrs), plan)

@@ -9,16 +9,17 @@ reference's names: ``core.transpose`` and ``kernels.ring_rdma`` (the wire
 counters ``comm.exchanges.<axis>``, ``comm.exchange_rounds.<axis>``,
 ``comm.<kind>_dispatches``, ``comm.wire_bytes``), ``core.comm``
 (``comm.engine_exchange_rounds.<engine>``), ``core.fft3d`` (``trace/fft3d.*``
-phase spans, ``dispatch/fft3d.fwd``/``.inv``), ``solvers.base``
-(``dispatch/solver.step``, ``dispatch/solver.observables``) and
+phase spans with the perf model's ``model_wire_us``,
+``dispatch/fft3d.fwd``/``.inv`` with its ``model_predicted_us``),
+``solvers.base`` (``dispatch/solver.step`` with ``model_predicted_us``,
+``dispatch/solver.observables``), ``tuning`` (``tune/...`` spans,
+``tuning.candidates_timed``, ``plan_cache.hits``/``misses``) and
 ``checkpoint`` (``checkpoint.*``).
 
 What differs from the reference: there is no jit.  Counters count each
 exchange as it runs, per rank process; a ``dispatch/...`` span waits for
 the card (``torch.cuda.synchronize``) before it closes; a ``trace/...``
-span times the host's launches of a phase and waits for nothing.  The
-reference's perf-model attributes (``model_wire_us``,
-``model_predicted_us``) wait for the perf model (ROADMAP Queue 1 item 8).
+span times the host's launches of a phase and waits for nothing.
 
 Disabled — the default — every entry point returns before allocating:
 ``span()`` hands back a shared no-op singleton, ``metrics.inc`` is one

@@ -24,8 +24,10 @@ the ranks.
 as full logical arrays, so a checkpoint restores onto any grid of the same
 problem, and onto the reference's solvers.  ``step`` and ``observables``
 are the ``dispatch/solver.step`` and ``dispatch/solver.observables`` spans
-when obs is enabled (``step`` then waits for the card); disabled, they
-cost one branch.
+when obs is enabled (``step`` then waits for the card, and carries the
+perf model's ``model_predicted_us``, :meth:`SpectralSolver.predict_step_us`);
+disabled, they cost one branch.  :meth:`SpectralSolver.problem_key` is the
+plan cache's fingerprint of the problem (``repro_torch.tuning``).
 """
 
 from __future__ import annotations
@@ -38,10 +40,12 @@ import numpy as np
 import torch
 
 from repro_torch import dist, obs
+from repro_torch.core import perfmodel as pm
 from repro_torch.core import precision
 from repro_torch.core.decomposition import PencilGrid
 from repro_torch.core.fft3d import FFT3DPlan, gather_pencil, scatter_pencil
 from repro_torch.device import resolve_device
+from repro_torch.tuning.space import normalize_config
 
 
 @dataclasses.dataclass
@@ -51,15 +55,6 @@ class SolverState:
     fields: tuple
     t: float = 0.0
     n_steps: int = 0
-
-
-def normalize_config(cfg: dict) -> dict:
-    """Copy of ``cfg`` with the legacy ``net`` knob mapped onto
-    ``comm_engine`` (copy of ``repro.tuning.space.normalize_config``)."""
-    cfg = dict(cfg)
-    if not cfg.get("comm_engine") and "net" in cfg:
-        cfg["comm_engine"] = cfg["net"]
-    return cfg
 
 
 def state_from_numpy(fields, device, *, t: float = 0.0,
@@ -178,12 +173,42 @@ class SpectralSolver(abc.ABC):
             raise ValueError("a solver steps the plan it was built for")
         return SolverState(fields=self.initial_fields(), t=0.0, n_steps=0)
 
+    def predict_step_us(self) -> float:
+        """The perf model's time for one ``step()`` of this solver's plan
+        (µs). Diagonal-kernel solvers price the full spectral roundtrip of
+        their plan (fused when the plan streams it); others price the same
+        roundtrip composed.  The compute term is the paper's nominal FPGA
+        model, the wire and messages the substrate's (``perfmodel``, under
+        the calibration active at the call), so the number is tracked by
+        its error against the measured step."""
+        g = self.plan.grid
+        diagonal = type(self).spectral_kernel is not SpectralSolver.spectral_kernel
+        est = pm.estimate_roundtrip_seconds(
+            self.n, g.pu, g.pv, spec=self.plan.spec(),
+            fused=self.plan.fused_roundtrip and diagonal,
+            mu=max(self.components, 1), pu_axes=g.u_sizes, pv_axes=g.v_sizes)
+        return round(est * 1e6, 3)
+
+    def problem_key(self) -> str:
+        """This solver's plan-cache fingerprint key — the canonical id of
+        (case, shape, dtype, physics params, substrate) that
+        ``repro_torch.tuning`` keys tuned plans by."""
+        from repro_torch.tuning.cache import problem_fingerprint
+
+        g = self.plan.grid
+        key, _ = problem_fingerprint(
+            self.n, g.pu, g.pv, real=self.real, components=self.components,
+            dtype=self.dtype.name, u_axes=g.u_axes, v_axes=g.v_axes,
+            case=self.case, solver_params=self.params(), device=self.device)
+        return key
+
     def step(self, state: SolverState) -> SolverState:
         if not obs.is_enabled():
             return SolverState(fields=tuple(self.step_fields(self.plan, state.fields)),
                                t=state.t + self.dt, n_steps=state.n_steps + 1)
         with obs.span("dispatch/solver.step", case=self.case,
-                      engine=self.plan.comm_engine):
+                      engine=self.plan.comm_engine,
+                      model_predicted_us=self.predict_step_us()):
             fields = tuple(self.step_fields(self.plan, state.fields))
             obs.synchronize(fields)
         return SolverState(fields=fields, t=state.t + self.dt,

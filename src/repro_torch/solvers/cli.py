@@ -24,8 +24,12 @@ and rank 0 prints.  ``--trace PATH`` records the run through
 and the wire counters) and rank 0 writes its Chrome trace and prints the
 summary table: one rank's view, as the reference's per-shard counters
 are.  The mesh is ``PUxPV``, as in the reference's CLI; 3-axis meshes
-come in through ``make_fft3d`` and ``run_ranks``.  ``--autotune`` exits 1
-naming the ROADMAP item that brings it.
+come in through ``make_fft3d`` and ``run_ranks``.  ``--autotune`` first
+tunes the FFT plan against the case's whole step on the grid
+(:func:`repro_torch.tuning.autotune_solver_step`, on every rank; the plan
+cache at ``$REPRO_TORCH_PLAN_CACHE`` or ``~/.cache/repro_torch/``), then
+runs the steps on the winner's plan; ``--comm-engine`` and ``--backend``
+override the winner's.
 """
 
 from __future__ import annotations
@@ -59,7 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu for a CPU run)")
     ap.add_argument("--autotune", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1 item 8)")
+                    help="tune the FFT plan against the whole step first "
+                         "(cache key solver_<case>_...)")
     ap.add_argument("--quiet", action="store_true",
                     help="suppress the per-step observable lines")
     ap.add_argument("--trace", dest="trace_path", default="",
@@ -89,6 +94,22 @@ def _run(args, grid, plan_cfg, phys, rank: int = 0) -> int:
         if rank == 0:
             print(line, flush=True)
 
+    if args.autotune:
+        from repro_torch.tuning.solver import autotune_solver_step
+        try:
+            res = autotune_solver_step(grid, args.case, args.n,
+                                       dtype=args.dtype, params=phys,
+                                       device=args.device,
+                                       verbose=not args.quiet)
+        except ValueError as e:
+            if rank == 0:
+                print(f"invalid problem: {e}", file=sys.stderr)
+            return 1
+        hit = "cache hit" if res.cache_hit else "measured"
+        say(f"autotuned solver step ({hit}): {res.best.name}  "
+            f"{res.best_us:.1f} us/step")
+        # an explicit engine or backend overrides the winner's
+        plan_cfg = {**res.best_config, **plan_cfg}
     try:
         solver = make_solver(args.case, grid, args.n, device=args.device,
                              dtype=args.dtype, plan_cfg=plan_cfg or None,
@@ -140,9 +161,6 @@ def _rank_main(ctx, args, plan_cfg, phys) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.autotune:
-        return _fail("--autotune: solver-step autotuning is not ported yet "
-                     "(ROADMAP Queue 1 item 8)")
     try:
         pu, pv = (int(p) for p in args.mesh.lower().split("x"))
     except ValueError:

@@ -45,16 +45,25 @@ def test_import_leaves_jax_and_repro_out():
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True, timeout=120).stdout
     assert "LOADED []" in out, out
-    # the observability and checkpoint packages are among those imported
+    # the observability, checkpoint, perf-model and tuning modules are among
+    # those imported
     for mod in ("repro_torch.obs.tracer", "repro_torch.obs.export",
-                "repro_torch.checkpoint.checkpoint"):
+                "repro_torch.checkpoint.checkpoint", "repro_torch.core.perfmodel",
+                "repro_torch.core.topology", "repro_torch.configs.fft_configs",
+                "repro_torch.tuning.autotune", "repro_torch.tuning.calibrate",
+                "repro_torch.tuning.cli", "repro_torch.tuning.solver"):
         assert f"'{mod}'" in out, out
 
 
 def test_sources_import_neither_jax_nor_repro():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
-    assert {PORT / "obs" / "tracer.py", PORT / "checkpoint" / "checkpoint.py"} <= set(files)
+    assert {PORT / "obs" / "tracer.py", PORT / "checkpoint" / "checkpoint.py",
+            PORT / "core" / "perfmodel.py", PORT / "core" / "topology.py",
+            PORT / "configs" / "fft_configs.py"} <= set(files)
+    tuning = {f.name for f in files if f.parent == PORT / "tuning"}
+    assert tuning == {"__init__.py", "autotune.py", "cache.py", "calibrate.py",
+                      "cli.py", "solver.py", "space.py", "timing.py"}
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(REPO)} imports {hits}"
@@ -113,13 +122,21 @@ def test_multi_rank_grid_raises(pu, pv):
         make_solver("heat", staged, 8, device="cpu")
 
 
-def test_cli_refuses_what_is_not_ported(capsys):
+def test_cli_refuses_what_is_not_ported(capsys, monkeypatch, tmp_path):
     # a mesh the grid does not divide is refused before any rank starts
     assert cli.main(["--case", "heat", "--n", "8", "--mesh", "3x2",
                      "--device", "cpu"]) == 1
     assert "invalid problem for mesh 3x2" in capsys.readouterr().err
-    assert cli.main(["--case", "heat", "--autotune", "--device", "cpu"]) == 1
-    assert "Queue 1 item 8" in capsys.readouterr().err
+    # --autotune is ported: the step is tuned, then run on the winner's plan
+    monkeypatch.setenv("REPRO_TORCH_PLAN_CACHE", str(tmp_path / "plans.json"))
+    argv = ["--case", "heat", "--autotune", "--device", "cpu", "--n", "8",
+            "--steps", "1"]
+    assert cli.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "autotuned solver step (measured)" in out and "heat: OK" in out
+    assert (tmp_path / "plans.json").exists()
+    assert cli.main(argv + ["--quiet"]) == 0
+    assert "autotuned solver step (cache hit)" in capsys.readouterr().out
     # backend "mxu" is ported: the CLI runs it
     assert cli.main(["--case", "heat", "--n", "16", "--steps", "2",
                      "--backend", "mxu", "--device", "cpu", "--quiet"]) == 0

@@ -1,15 +1,14 @@
-"""``repro_torch.obs`` against ``repro.obs``: the first eleven tests of
-``tests/test_obs.py`` on the port's copy (span nesting and attributes, the
-disabled-path no-op guarantees, counters and gauges, the Chrome-trace
-export), the two packages' documents for the same spans, and the port's
-instrumentation: a ``dispatch/...`` span waits for the card (and for
-nothing on the CPU), the solver step and ``make_fft3d``'s entry points are
-spans, and the CLI's ``--trace`` writes a valid trace on a 2×2 mesh of
-ranks.
-
-``tests/test_obs.py``'s two timing tests (``time_stats`` and the
-donated-buffer guard) test ``repro.tuning.timing``, which comes to the
-port with the perf model and tuning (ROADMAP Queue 1 item 8).
+"""``repro_torch.obs`` against ``repro.obs``: the tests of ``tests/test_obs.py`` on
+the port's copy (span nesting and attributes, the disabled-path no-op
+guarantees, counters and gauges, the Chrome-trace export, and the two
+timing tests of ``repro_torch.tuning.timing``: ``time_stats`` and the
+donated-buffer guard), the two packages' documents for the same spans, and
+the port's instrumentation: a ``dispatch/...`` span waits for the card (and
+for nothing on the CPU), the solver step and ``make_fft3d``'s entry points
+are spans carrying the perf model's ``model_predicted_us`` and the fold
+phases its ``model_wire_us``, each equal to the reference's under one
+calibration, and the CLI's ``--trace`` writes a valid trace on a 2×2 mesh
+of ranks.
 """
 
 import json
@@ -21,10 +20,23 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro import obs as jobs
+from repro.core import perfmodel as jpm
 from repro_torch import obs
+from repro_torch.core import perfmodel as pm
 from repro_torch.core.decomposition import PencilGrid
 from repro_torch.core.fft3d import make_fft3d
 from repro_torch.solvers import cli, make_solver
+
+# one calibration for both packages' models (every engine, backend and the
+# wire rate measured), so the model attributes of the spans compare equal
+CALIBRATION = {
+    "engine_message_overhead_s": {"switched": 3.1e-5, "torus": 4.7e-5,
+                                  "overlap_ring": 2.9e-5,
+                                  "pallas_ring": 1.3e-5, "bidi_ring": 1.1e-5},
+    "backend_compute_weight": {"jnp": 1.0, "ref": 37.5, "pallas": 1.21,
+                               "mxu": 0.93},
+    "link_bytes_per_s": 3.3e11,
+}
 
 
 @pytest.fixture(autouse=True)
@@ -33,9 +45,18 @@ def _obs_reset():
     # the test body left it
     obs.disable()
     obs.clear()
+    pm.set_calibration(CALIBRATION)
+    jpm.set_calibration(CALIBRATION)
     yield
     obs.disable()
     obs.clear()
+    pm.set_calibration(None)
+    jpm.set_calibration(None)
+
+
+def _jax_mesh_1x1():
+    from repro import compat
+    return compat.make_mesh((1, 1), ("data", "model"))
 
 
 # ---------------------------------------------------------------------------
@@ -271,13 +292,19 @@ def test_solver_step_is_a_span_and_costs_nothing_disabled(monkeypatch):
     assert names.count("dispatch/solver.step") == 1
     assert names.count("dispatch/solver.observables") == 1
     step = next(e for e in tracer.events() if e["name"] == "dispatch/solver.step")
-    assert step["args"] == {"case": "heat", "engine": "switched"}
+    from repro.solvers import make_solver as jmake_solver
+    want = jmake_solver("heat", _jax_mesh_1x1(), 8,
+                        plan_cfg={"fused_roundtrip": True}).predict_step_us()
+    assert step["args"] == {"case": "heat", "engine": "switched",
+                            "model_predicted_us": want}
+    assert want > 0 and solver.predict_step_us() == want
     phases = {e["name"]: e for e in tracer.events() if e["name"].startswith("trace/")}
     assert set(phases) == {"trace/fft3d.fold_xy", "trace/fft3d.roundtrip_yz",
                            "trace/fft3d.unfold_xy"}
     assert phases["trace/fft3d.fold_xy"]["parent"] == "dispatch/solver.step"
     assert phases["trace/fft3d.fold_xy"]["args"] == {
-        "engine": "switched", "grid_dim": "u", "dim_sizes": [1]}
+        "engine": "switched", "grid_dim": "u", "dim_sizes": [1],
+        "model_wire_us": 0.0}
 
 
 def test_make_fft3d_entry_points_are_dispatch_spans():
@@ -288,7 +315,14 @@ def test_make_fft3d_entry_points_are_dispatch_spans():
     events = tracer.events()
     top = [e for e in events if e["depth"] == 0]
     assert [e["name"] for e in top] == ["dispatch/fft3d.fwd", "dispatch/fft3d.inv"]
-    assert top[0]["args"] == {"engine": "switched", "n": [8, 8, 8], "mesh": "1x1"}
+    from repro.core.fft3d import make_fft3d as jmake_fft3d
+    jfwd, _, _ = jmake_fft3d(_jax_mesh_1x1(), 8)
+    with jobs.capture() as (jtracer, _):
+        jfwd(x.numpy(), x.numpy() * 0)
+    (want,) = [e["args"] for e in jtracer.events() if e["name"] == "dispatch/fft3d.fwd"]
+    assert top[0]["args"] == want
+    assert set(want) == {"engine", "n", "mesh", "model_predicted_us"}
+    assert want["model_predicted_us"] > 0
     nested = {e["name"]: e["parent"] for e in events if e["depth"] == 1}
     assert nested == {"trace/fft3d.fold_xy": "dispatch/fft3d.fwd",
                       "trace/fft3d.fold_yz": "dispatch/fft3d.fwd",
@@ -315,3 +349,85 @@ def test_cli_trace_on_a_mesh_of_ranks(tmp_path, capfd):
     # rank 0's view of pallas_ring's single-axis rings on 2x2
     assert counters["comm.exchange_rounds.data"] == counters["comm.exchanges.data"]
     assert counters["comm.engine_exchange_rounds.pallas_ring"] > 0
+
+
+@pytest.mark.parametrize("engine", ["switched", "torus", "overlap_ring",
+                                    "pallas_ring", "bidi_ring"])
+def test_fold_span_model_wire_us_equals_the_reference(engine):
+    # each fold phase's span on 2x2, 4x2, 8x1 and the staged 2x2x2 (u over
+    # two mesh axes), built by both packages' _phase_span
+    from repro.core import decomposition as jdec
+    from repro.core import fft3d as jfft3d
+    from repro_torch.core import fft3d as fft3d
+
+    for pu, pv, u_sizes, n in ((2, 2, (), 8), (4, 2, (), 16), (8, 1, (), 512),
+                               (4, 2, (2, 2), 64)):
+        u_axes = ("pod", "data") if u_sizes else ("data",)
+        grids = (PencilGrid(pu=pu, pv=pv, u_axes=u_axes, u_sizes=u_sizes),
+                 jdec.PencilGrid(pu=pu, pv=pv, u_axes=u_axes, u_sizes=u_sizes))
+        plans = (fft3d.FFT3DPlan(n=(n, n, n), grid=grids[0], comm_engine=engine),
+                 jfft3d.FFT3DPlan(n=(n, n, n), grid=grids[1], comm_engine=engine))
+        for name, dim in (("trace/fft3d.fold_xy", "u"), ("trace/fft3d.fold_yz", "v")):
+            args = []
+            for pkg, mod, plan in ((obs, fft3d, plans[0]), (jobs, jfft3d, plans[1])):
+                with pkg.capture() as (tracer, _):
+                    with mod._phase_span(plan, name, dim):
+                        pass
+                (ev,) = tracer.events()
+                args.append(ev["args"])
+            assert args[0] == args[1], (pu, pv, u_sizes, name)
+            assert (args[0]["model_wire_us"] > 0) == (pu > 1 if dim == "u" else pv > 1)
+
+
+# ---------------------------------------------------------------------------
+# timing helpers: percentile stats + the donated-buffer guard
+# ---------------------------------------------------------------------------
+
+def test_time_stats_distribution_keys_and_order():
+    from repro_torch.tuning.timing import time_stats
+
+    stats = time_stats(lambda x: x + 1, 1.0, iters=7)
+    assert stats["iters"] == 7
+    assert stats["min_us"] <= stats["p50_us"] <= stats["p95_us"]
+    assert stats["mean_us"] > 0
+    with pytest.raises(ValueError, match="iters"):
+        time_stats(lambda x: x, 1.0, iters=0)
+
+
+def test_timing_refuses_donated_inputs():
+    from repro_torch.tuning.timing import time_stats, time_us
+
+    class FakeDonated:
+        deleted = False
+
+        def is_deleted(self):
+            return self.deleted
+
+    def donating_fn(a):
+        a.deleted = True  # what a jit with donate_argnums does on warm-up
+        return 0.0
+
+    with pytest.raises(ValueError, match="donated"):
+        time_us(donating_fn, FakeDonated())
+    with pytest.raises(ValueError, match="donated"):
+        time_stats(donating_fn, FakeDonated())
+
+
+def test_timing_waits_for_the_card_of_a_cuda_result(monkeypatch):
+    from repro_torch.tuning.timing import time_stats, time_us
+
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize", synced.append)
+
+    class OnCard:  # what the wait reads of a CUDA tensor
+        is_cuda = True
+        device = torch.device("cuda", 0)
+
+    time_us(lambda: (OnCard(), torch.ones(1)), iters=3)
+    assert len(synced) == 2  # after the warm-up, after the timed calls
+    synced.clear()
+    time_stats(lambda: [OnCard()], iters=3)
+    assert len(synced) == 4  # after the warm-up and after every call
+    synced.clear()
+    time_us(lambda: torch.ones(1), iters=3)  # a CPU result is ready
+    assert synced == []
