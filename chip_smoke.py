@@ -41,7 +41,10 @@ of every layer of the prefill.  Phases, each fatal on failure:
    products (which run with TF32 off).  Then ``ring_payload`` in its three
    modes (forward, inverse, roundtrip) against ``payload_plain``, f64 and
    f32, N=16, 512 and 8192 and every N of ``fft_radix2``'s edges, the
-   same tolerances; ``ring_send`` and
+   same tolerances, and in its lane mode (the serving batch's payload: 3
+   lanes of a slab narrowed out of a lane stack, read in place, the
+   multiplier shared by the lanes, a lane-strided output; each lane also
+   bitwise a launch on its own rows); ``ring_send`` and
    ``ring_land`` against plain indexing, bit for bit (the "peer" slot a
    second buffer of this process), at run (a)'s slab and over the layouts
    of ``tests/test_torch_copy_plan.py`` (splits and concats along every
@@ -140,7 +143,30 @@ of every layer of the prefill.  Phases, each fatal on failure:
    and ``ring_land``.  (d) ``predict_step_us()`` under the model's H100
    priors and under (a)'s calibration against the measured ms/step: heat
    1x1 on ``"pallas"`` and ``"mxu"`` (phase 5), runs (a)–(c) of phase 7
-   (rank 0, steps 2–3) and the winners of (b) and (c) (informational).
+   (rank 0, steps 2–3) and the winners of (b) and (c) (informational);
+10. serving — ``repro_torch.serving`` on the card, each run's counts set
+   to 0 just before it and read just after.  (a) 1x1, heat N=512 f64
+   (``fft512_p1``'s problem) on ``"pallas"`` and on ``"mxu"``: a solo
+   step's memory first (``max_batch`` 4, cut where 4 lanes would take more
+   than 70 GiB), then a burst through ``run_load`` of 200 heat requests
+   (scale 1 + 0.25·(i mod 8), 3 steps: 50 batches of 4) and 2 nls N=256
+   requests (another fingerprint); (b) the heat requests paced at 16
+   requests/s (above what one-lane batches serve) through the scheduler
+   thread, on ``"pallas"``; (c) 4 rank processes on 2x2, heat N=512 on run
+   (c)'s plan (``pallas_ring``, fused, chunks=3), 200 requests,
+   ``max_batch`` 2, rank 0 scheduling.  Gates: no request rejected or
+   failed; every lane's streamed history bitwise (exact float equality,
+   ``t`` included) a solo run of a request of its case and scale on the
+   same grid, and ``validate()`` passing; the backend's kernel launched (on
+   2x2 ``ring_payload`` with the multiplier shared by the lanes,
+   ``ring_send`` and ``ring_land``) and no plain version; one batched step
+   launching each kernel as often as one solo step; every rank the same
+   batches; in (b) a batch of more than one lane.  Printed beside the
+   card's name and power limit: requests/s, latency p50/p95/p99, the
+   batches by lane count, ms of a batched step against B × a solo step's, launches
+   a step, the slab and payload copies a step, the peak GiB at B and at 1,
+   a ``torch.profiler`` breakdown of one batched step at B=4 on 1x1 and of
+   rank 0's on 2x2 (busy and idle share).
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Full results go to
@@ -150,6 +176,7 @@ CUDA is unavailable or the port's sources are not beside this script.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import shutil
@@ -221,6 +248,30 @@ STAGED_TRANSFORMS = ("fwd", "inv", "roundtrip")
 PAYLOAD_N = (16, 512, 8192)
 PAYLOAD_ROWS = {16: 4096, 512: 5462, 8192: 64}
 SLAB = (128, 128, 512)
+
+# ring_payload's lanes (the serving batch's payload): PAYLOAD_LANES lanes of
+# a slab narrowed out of a lane stack (LANE_STACK, rows [2, 6) of axis 1),
+# the multiplier shared by the lanes, at N=16 and the main path's 512
+PAYLOAD_LANES, LANE_STACK = 3, (8, 43)
+
+# phase 10, serving (repro_torch.serving): (a) 1x1, fft512_p1's problem
+# (heat N=512 f64, real) on "pallas" and on "mxu": SERVE_REQUESTS requests of
+# scale 1 + 0.25·(i mod SERVE_SCALES) and SERVE_STEPS steps, max_batch
+# SERVE_BATCH, burst, with SERVE_NLS nls requests (another fingerprint)
+# riding along; (b) the same heat requests paced at SERVE_RATE requests/s
+# through the scheduler thread, above the rate at which one-lane batches are
+# served (~12.5/s), so that batches of several lanes form; (c) 4 ranks on
+# 2x2, heat N=512 on run (c)'s plan, SERVE_GRID_REQUESTS requests, max_batch
+# SERVE_GRID_BATCH.  Every lane bitwise a solo run of a request of its case
+# and scale (the same run as its own: the scale is the one input that varies);
+# B is cut where SERVE_BATCH lanes' step would take more than SERVE_MEM_GIB
+SERVE_N, SERVE_REQUESTS, SERVE_STEPS, SERVE_BATCH = 512, 200, 3, 4
+SERVE_SCALES = 8
+SERVE_NLS = (256, 2)    # (N, requests)
+SERVE_RATE = 16.0
+SERVE_GRID_REQUESTS, SERVE_GRID_BATCH = 200, 2
+SERVE_MEM_GIB = 70.0
+SERVE_BACKENDS = ("pallas", "mxu")
 
 # flash attention: (B, S, T, H, Hkv, D, causal) held against the plain
 # version, the LM prefill's shapes first (smollm-360m: 15 heads, 5 kv
@@ -331,27 +382,34 @@ def _radix2_log2ns(dtype: str) -> list:
 
 def radix2_ptxas(logs: dict) -> list:
     """Phase 2, the radix-2 row engine: per instantiation of
-    ``fft_radix2_kernel<T, L>`` and ``ring_payload_kernel<T, L, diag>``,
-    ptxas's registers, spill bytes and static shared memory a block (the
-    rows and twiddles are dynamic shared memory); fatal on any spill or on
-    a log N the wrapper admits without an instantiation."""
+    ``fft_radix2_kernel<T, L>`` and ``ring_payload_kernel<T, L, diag, Map>``
+    (``Map`` the row map: ``Packed`` for one lane, ``Lanes``), ptxas's
+    registers, spill bytes and static shared memory a block (the rows and
+    twiddles are dynamic shared memory); fatal on any spill or on a log N
+    the wrapper admits without an instantiation."""
     out = []
     for source, log in logs.items():
         for k in _ptxas_entries(log, r"(fft_radix2_kernel|ring_payload_kernel)I([df])"
-                                     r"Li(\d+)E(?:Lb([01])E)?"):
-            kernel, t, log2n, diag = k["groups"]
+                                     r"Li(\d+)E(?:Lb([01])E\S*?(Packed|Lanes))?"):
+            kernel, t, log2n, diag, row_map = k["groups"]
             out.append({"source": source, "kernel": kernel,
                         "dtype": {"d": "float64", "f": "float32"}[t],
-                        "log2n": int(log2n), "diag": diag == "1",
+                        "log2n": int(log2n), "diag": diag == "1", "map": row_map,
                         "registers": k["registers"], "spill_bytes": k["spill_bytes"],
                         "smem": k["smem"]})
-    for (kernel, diag), label in (
-            (("fft_radix2_kernel", False), "fft_radix2_kernel"),
-            (("ring_payload_kernel", False), "ring_payload_kernel (forward, inverse)"),
-            (("ring_payload_kernel", True), "ring_payload_kernel (roundtrip)")):
+    for (kernel, diag, row_map), label in (
+            (("fft_radix2_kernel", False, None), "fft_radix2_kernel"),
+            (("ring_payload_kernel", False, "Packed"),
+             "ring_payload_kernel (forward, inverse; one lane)"),
+            (("ring_payload_kernel", False, "Lanes"),
+             "ring_payload_kernel (forward, inverse; lanes)"),
+            (("ring_payload_kernel", True, "Packed"),
+             "ring_payload_kernel (roundtrip; one lane)"),
+            (("ring_payload_kernel", True, "Lanes"),
+             "ring_payload_kernel (roundtrip; lanes)")):
         for dtype in ("float64", "float32"):
-            ks = sorted((k for k in out if (k["kernel"], k["diag"], k["dtype"])
-                         == (kernel, diag, dtype)), key=lambda k: k["log2n"])
+            ks = sorted((k for k in out if (k["kernel"], k["diag"], k["map"], k["dtype"])
+                         == (kernel, diag, row_map, dtype)), key=lambda k: k["log2n"])
             say(f"  ptxas {label} {dtype}, log2 N: registers / spill bytes / static "
                 "smem: " + ", ".join(f"{k['log2n']}: {k['registers']}/{k['spill_bytes']}/"
                                      f"{k['smem']}" for k in ks))
@@ -1164,8 +1222,61 @@ def ring_vs_plain(gen):
             f"{'bit for bit' if land_ok else 'FAIL'}")
         if not (send_ok and land_ok):
             fail("ring_send/ring_land disagree with plain indexing")
+    payload_lanes_vs_plain(gen)
     copy_layouts(gen)
     return {"ring_payload": err512, "ring_send": 0.0, "ring_land": 0.0}
+
+
+def payload_lanes_vs_plain(gen):
+    """Phase 3, ``ring_payload``'s lanes: ``PAYLOAD_LANES`` lanes of a slab
+    narrowed out of a lane stack (read in place), a multiplier shared by
+    the lanes, into a lane-strided output, in each mode, f64 and f32, N=16
+    and 512: against ``payload_plain`` (tolerance ``TOL``), each lane
+    bitwise a launch on that lane's rows alone, nothing written outside the
+    output's lanes, and the roundtrip launch counted as a shared one."""
+    import torch
+
+    from repro_torch.kernels import fft_radix2, ring_rdma
+
+    rows, cols = LANE_STACK
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).removeprefix("torch.")
+        for n in (16, 512):
+            for mode in ("forward", "inverse", "roundtrip"):
+                inv = mode == "inverse"
+                stack = [_rand((PAYLOAD_LANES, rows, cols, n), dtype, gen)
+                         for _ in range(2)]
+                xr, xi = (t[:, 2:6] for t in stack)
+                diag = (tuple(_rand((4, cols, n), dtype, gen) for _ in range(2))
+                        if mode == "roundtrip" else None)
+                outs = [torch.full((PAYLOAD_LANES, 6, cols, n), 7.0, dtype=dtype,
+                                   device="cuda") for _ in range(2)]
+                shared = ring_rdma.shared_diag_launches
+                got = ring_rdma.ring_payload(xr, xi, diag=diag, inverse=inv,
+                                             out=tuple(o[:, 1:5] for o in outs))
+                shared = ring_rdma.shared_diag_launches - shared
+                twr, twi = fft_radix2.twiddles(n, dtype, xr.device)
+                want = ring_rdma.payload_plain(xr, xi, twr, twi, diag, inv)
+                solo = [ring_rdma.ring_payload(xr[b].contiguous(), xi[b].contiguous(),
+                                               diag=diag, inverse=inv)
+                        for b in range(PAYLOAD_LANES)]
+                torch.cuda.synchronize()
+                err, rel = _rel_err(got, want)
+                lanes_ok = all(torch.equal(sr, got[0][b]) and torch.equal(si, got[1][b])
+                               for b, (sr, si) in enumerate(solo))
+                untouched = all(bool((o[:, 0] == 7).all() and (o[:, 5] == 7).all())
+                                for o in outs)
+                if rel > TOL[dname] or not lanes_ok or not untouched or (
+                        shared != (mode == "roundtrip")):
+                    fail(f"ring_payload lanes {mode} N={n} {dname}: max|d| {err:.3e} "
+                         f"= {rel:.3e} max|y| (tol {TOL[dname]:g}), each lane a solo "
+                         f"launch's bits {lanes_ok}, outside untouched {untouched}, "
+                         f"shared-multiplier launches {shared}")
+        say(f"kernel vs plain: ring_payload lanes {dname}: {PAYLOAD_LANES} lanes of "
+            f"(4, {cols}) rows narrowed out of {(PAYLOAD_LANES, rows, cols)}, N 16 "
+            f"and 512, forward / inverse / roundtrip with the multiplier shared: "
+            f"within {TOL[dname]:g} of payload_plain, each lane bitwise a solo "
+            f"launch, nothing written outside the output's lanes: ok")
 
 
 # the layouts of tests/test_torch_copy_plan.py: (shape, p), each cut along
@@ -2276,6 +2387,386 @@ def tuning(runs, ranks, backends):
             "grid": [r["tuned"] for r in ranks], "model": table}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: serving spectral simulations (repro_torch.serving)
+# ---------------------------------------------------------------------------
+
+SERVE_KERNELS = ("fft_radix2", "fft_mxu", "ring_payload", "ring_send", "ring_land")
+SERVE_PLAIN = ("ref.calls", "fft_mxu.plain_calls", "payload_plain")
+
+
+def _serve_counts():
+    from repro_torch.kernels import fft_mxu, fft_radix2, ops, ref, ring_rdma
+    return {"fft_radix2": fft_radix2.launches, "fft_mxu": fft_mxu.launches,
+            "ring_payload": ring_rdma.payload_launches,
+            "ring_send": ring_rdma.send_launches, "ring_land": ring_rdma.land_launches,
+            "shared_diag": ring_rdma.shared_diag_launches,
+            "slab_copies": ops.slab_copies, "payload_copies": ring_rdma.payload_copies,
+            "ref.calls": ref.calls, "fft_mxu.plain_calls": fft_mxu.plain_calls,
+            "payload_plain": ring_rdma.plain_calls}
+
+
+def _zero_serve_counts():
+    from repro_torch.kernels import fft_mxu, fft_radix2, ops, ref, ring_rdma
+    fft_radix2.launches = fft_mxu.launches = ref.calls = fft_mxu.plain_calls = 0
+    ring_rdma.payload_launches = ring_rdma.send_launches = 0
+    ring_rdma.land_launches = ring_rdma.plain_calls = 0
+    ring_rdma.shared_diag_launches = ring_rdma.payload_copies = ops.slab_copies = 0
+
+
+def _since(before):
+    return {k: v - before[k] for k, v in _serve_counts().items()}
+
+
+def _serve_requests(case, n, k, cfg, scale_step=0.25):
+    from repro_torch.serving import SimRequest
+    return [SimRequest(case=case, n=n, steps=SERVE_STEPS, dtype="float64",
+                       plan_cfg=dict(cfg),
+                       scale=1.0 + scale_step * (i % SERVE_SCALES),
+                       request_id=f"{case}-{i}") for i in range(k)]
+
+
+def _solo_history(solver, req):
+    """A solo run of ``req`` (the server's initial fields, the solo step)."""
+    from repro_torch.serving import scaled_initial_fields
+    from repro_torch.solvers import SolverState
+
+    st = SolverState(fields=scaled_initial_fields(solver, req.scale))
+    hist = [solver.observables(st)]
+    for _ in range(req.steps):
+        st = solver.step(st)
+        hist.append(solver.observables(st))
+    return hist
+
+
+def _solo_key(req):
+    return f"{req.case}@{req.scale!r}"
+
+
+def _solo_histories(registry, reqs):
+    """One solo run for each (case, scale) among ``reqs``, keyed so."""
+    solos = {}
+    for r in reqs:
+        if _solo_key(r) not in solos:
+            solos[_solo_key(r)] = _solo_history(registry.get(r), r)
+    return solos
+
+
+def _batch_sizes(batch_log):
+    """``{lanes: batches}`` of a server's ``batch_log``."""
+    return dict(sorted(collections.Counter(len(ids) for _, ids in batch_log).items()))
+
+
+def _ms3(fn, dev):
+    """Median of 3 host-clock timings of ``fn()``, the card synchronised."""
+    import torch
+
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[1]
+
+
+def _step_vs_solo(solver, reqs, dev, profile_label=None, profile_step=False):
+    """One batched step of ``reqs``' lanes against one solo step of the
+    first: kernel and copy counts of each, ms (median of 3), and the step's
+    footprint (its inputs plus the peak it allocates above them).  With
+    ``profile_step``, one more batched step (every rank of a grid takes
+    it), under ``torch.profiler`` where ``profile_label`` names it."""
+    import torch
+
+    from repro_torch.serving import scaled_initial_fields
+    from repro_torch.solvers import SolverState
+
+    lanes = [scaled_initial_fields(solver, r.scale) for r in reqs]
+    stack = tuple(torch.stack(xs) for xs in zip(*lanes))
+    solo = SolverState(fields=lanes[0])
+    del lanes
+    solver.step(solo)
+    solver.batched_step(stack)   # both warm
+    out = {"lanes": len(reqs)}
+    for kind, fn, fields in (("solo", lambda: solver.step(solo), solo.fields),
+                             ("batched", lambda: solver.batched_step(stack), stack)):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        before = _serve_counts()
+        fn()
+        torch.cuda.synchronize(dev)
+        inputs = sum(f.numel() * f.element_size() for f in fields)
+        out[kind] = {"counts": _since(before), "ms": _ms3(fn, dev),
+                     "gib": (torch.cuda.max_memory_allocated(dev) - base + inputs) / 2**30}
+    if profile_step and profile_label:
+        out["breakdown"] = _profile(lambda: solver.batched_step(stack), profile_label)
+    elif profile_step:
+        solver.batched_step(stack)
+    del stack, solo
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_step_counts(tag, cmp):
+    """A batched step launches each kernel as often as a solo step, and
+    neither reaches a plain version."""
+    s, b = cmp["solo"]["counts"], cmp["batched"]["counts"]
+    if any(s[k] != b[k] for k in SERVE_KERNELS):
+        fail(f"{tag}: a batched step of {cmp['lanes']} lanes launches "
+             f"{ {k: b[k] for k in SERVE_KERNELS} }, a solo step "
+             f"{ {k: s[k] for k in SERVE_KERNELS} }")
+    if any(s[k] or b[k] for k in SERVE_PLAIN):
+        fail(f"{tag}: a plain version ran: solo {s}, batched {b}")
+
+
+def _check_lanes(tag, report, reqs, solos, registry):
+    """Every request of ``reqs`` served, none rejected or failed, each
+    lane's history bitwise the solo run of its case and scale and passing
+    its solver's ``validate()``."""
+    if report.n_rejected or report.n_failed or len(report.results) != len(reqs):
+        fail(f"{tag}: {report.n_rejected} rejected, {report.n_failed} failed: "
+             f"{[r.error for r in report.results if not r.ok]}")
+    for r in report.results:
+        want = solos[_solo_key(r.request)]
+        if r.history != want:
+            fail(f"{tag}: {r.request.request_id} is not bitwise its solo run: "
+                 f"{r.history} vs {want}")
+        ok, lines = registry.get(r.request).validate(r.history)
+        if not ok:
+            fail(f"{tag}: {r.request.request_id} validate() failed: {lines}")
+
+
+def _load_line(smi, tag, report, batch_log):
+    st = report.stats()
+    sizes = _batch_sizes(batch_log)
+    say(f"[{smi}] {tag}: {st['n_requests']} requests in {st['wall_s']:.3f} s, "
+        f"{st['requests_per_s']:.3f} requests/s, latency p50 / p95 / p99 "
+        f"{st['p50_us'] / 1e3:.1f} / {st['p95_us'] / 1e3:.1f} / "
+        f"{st['p99_us'] / 1e3:.1f} ms, batches by lanes {sizes}, "
+        f"{st['n_rejected']} rejected, {st['n_failed']} failed")
+    return {**st, "batch_sizes": sizes}
+
+
+def _step_line(smi, tag, cmp):
+    s, b = cmp["solo"], cmp["batched"]
+    say(f"[{smi}] {tag}: one batched step of B={cmp['lanes']} {b['ms']:.3f} ms "
+        f"against B x solo {cmp['lanes'] * s['ms']:.3f} ms ({s['ms']:.3f} a solo "
+        f"step; {cmp['lanes'] * s['ms'] / b['ms']:.3f}x); peak {b['gib']:.2f} GiB "
+        f"at B={cmp['lanes']}, {s['gib']:.2f} GiB at B=1; launches a step "
+        f"batched { {k: b['counts'][k] for k in SERVE_KERNELS if b['counts'][k]} } "
+        f"= solo { {k: s['counts'][k] for k in SERVE_KERNELS if s['counts'][k]} }; "
+        f"copies batched slab {b['counts']['slab_copies']} payload "
+        f"{b['counts']['payload_copies']}, solo slab {s['counts']['slab_copies']} "
+        f"payload {s['counts']['payload_copies']}")
+    for line in cmp.get("breakdown", {}).get("lines", []):
+        say(line)
+
+
+def _serve_1x1(smi, backend):
+    """Phase 10 (a) on ``backend``: the memory check, the burst of heat
+    and nls requests through ``run_load`` (counts set to 0 just before and
+    read just after), each lane against its solo run, one batched step
+    against a solo step.  Returns the results and the solo histories."""
+    import torch
+
+    from repro_torch.core.decomposition import PencilGrid
+    from repro_torch.serving import SimServer, run_load
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    grid = PencilGrid.from_mesh(1, 1)
+    cfg = {"backend": backend}
+    heat = _serve_requests("heat", SERVE_N, SERVE_REQUESTS, cfg)
+    nls = _serve_requests("nls", SERVE_NLS[0], SERVE_NLS[1], cfg, scale_step=0.5)
+    # memory first: one solo step's footprint, B lanes' at most SERVE_MEM_GIB
+    server = SimServer(grid, device=dev, max_batch=SERVE_BATCH, use_plan_cache=False)
+    probe = _step_vs_solo(server.registry.get(heat[0]), heat[:1], dev)
+    solo_gib = probe["solo"]["gib"]
+    b = SERVE_BATCH if SERVE_BATCH * solo_gib <= SERVE_MEM_GIB else max(
+        1, int(SERVE_MEM_GIB // solo_gib))
+    server.max_batch = b
+    say(f"[{smi}] serving 1x1 {backend!r}: a solo heat N={SERVE_N} step takes "
+        f"{solo_gib:.2f} GiB; {SERVE_BATCH} lanes {SERVE_BATCH * solo_gib:.2f} GiB "
+        f"against {SERVE_MEM_GIB:g}: max_batch {b}")
+    # the burst: heat 0-3, nls, the other heat, nls (the queue serves the
+    # oldest lane's head first: 4 heat, 2 nls, the other heat 4 at a time)
+    reqs = heat[:4] + nls[:1] + heat[4:] + nls[1:]
+    torch.cuda.synchronize(dev)
+    _zero_serve_counts()
+    report = run_load(server, reqs)
+    torch.cuda.synchronize(dev)
+    counts = _serve_counts()
+    if counts[_BACKEND_KERNEL[backend]] == 0 or any(counts[k] for k in SERVE_PLAIN):
+        fail(f"serving 1x1 {backend!r}: counts {counts}")
+    solos = _solo_histories(server.registry, reqs)
+    _check_lanes(f"serving 1x1 {backend!r}", report, reqs, solos, server.registry)
+    load = _load_line(smi, f"serving 1x1 {backend!r} burst (heat N={SERVE_N} "
+                           f"x{SERVE_REQUESTS} + nls N={SERVE_NLS[0]} x{SERVE_NLS[1]}, "
+                           f"{SERVE_STEPS} steps, max_batch {b})", report,
+                      server.batch_log)
+    say(f"serving 1x1 {backend!r}: counts of the burst {counts}; every lane "
+        f"bitwise its solo run and validate() passing")
+    label = (f"one batched heat N={SERVE_N} step, B={b}, {backend!r}"
+             if backend == SERVE_BACKENDS[0] else None)
+    cmp = _step_vs_solo(server.registry.get(heat[0]), heat[:b], dev, label,
+                        profile_step=label is not None)
+    _check_step_counts(f"serving 1x1 {backend!r}", cmp)
+    _step_line(smi, f"serving 1x1 {backend!r}", cmp)
+    del server, probe
+    torch.cuda.empty_cache()
+    return {"backend": backend, "max_batch": b, "solo_gib": solo_gib,
+            "counts": counts, "load": load, "step": cmp}, solos
+
+
+def _serve_threaded(smi, solos):
+    """Phase 10 (b): the heat requests paced at ``SERVE_RATE`` requests/s
+    through the scheduler thread (``run_load`` starts it; the thread takes
+    the server's card as its own), each lane against its solo run."""
+    import torch
+
+    from repro_torch.core.decomposition import PencilGrid
+    from repro_torch.serving import SimServer, run_load
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    backend = SERVE_BACKENDS[0]
+    heat = _serve_requests("heat", SERVE_N, SERVE_REQUESTS, {"backend": backend})
+    server = SimServer(PencilGrid.from_mesh(1, 1), device=dev,
+                       max_batch=SERVE_BATCH, use_plan_cache=False)
+    torch.cuda.synchronize(dev)
+    _zero_serve_counts()
+    report = run_load(server, heat, rate_hz=SERVE_RATE)
+    torch.cuda.synchronize(dev)
+    counts = _serve_counts()
+    if server.running or counts[_BACKEND_KERNEL[backend]] == 0 or any(
+            counts[k] for k in SERVE_PLAIN):
+        fail(f"serving 1x1 threaded: running {server.running}, counts {counts}")
+    _check_lanes("serving 1x1 threaded", report, heat, solos, server.registry)
+    load = _load_line(smi, f"serving 1x1 {backend!r} threaded, paced at "
+                           f"{SERVE_RATE:g} requests/s", report, server.batch_log)
+    if max(load["batch_sizes"]) < 2:
+        fail(f"serving 1x1 threaded: paced at {SERVE_RATE:g} requests/s, no "
+             f"batch held more than one lane: {load['batch_sizes']}")
+    say(f"serving 1x1 threaded: counts {counts}; every lane bitwise its solo run")
+    del server
+    torch.cuda.empty_cache()
+    return {"counts": counts, "load": load}
+
+
+def _serve_ranks(ctx):
+    """Phase 10 (c), in each of the 4 rank processes: rank 0 runs the
+    server's scheduler and the burst, the others follow its batches
+    (counts set to 0 just before, read just after); then every rank's solo
+    2x2 runs of the same requests and one batched step against a solo step,
+    rank 0's profiled."""
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.serving import SimServer, run_load
+
+    dev = ctx.device
+    reqs = _serve_requests("heat", SERVE_N, SERVE_GRID_REQUESTS,
+                           MULTI_RANK_CFG[CKPT_RUN])
+    server = SimServer(ctx.grid(), device=dev, max_batch=SERVE_GRID_BATCH,
+                       use_plan_cache=False)
+    out = {"rank": ctx.rank}
+    torch.cuda.synchronize(dev)
+    tdist.barrier()
+    _zero_serve_counts()
+    if ctx.rank == 0:
+        report = run_load(server, reqs)
+        server.close()
+        out["results"] = [(r.request.request_id, _solo_key(r.request), r.ok,
+                           r.error, r.batch_size, r.history) for r in report.results]
+        out["load"] = report.stats()
+        out["load"]["batch_sizes"] = _batch_sizes(server.batch_log)
+    else:
+        server.follow()
+    torch.cuda.synchronize(dev)
+    out["counts"] = _serve_counts()
+    out["batch_log"] = server.batch_log
+    solver = server.registry.get(reqs[0])
+    out["solos"] = _solo_histories(server.registry, reqs)
+    out["validate"] = {}
+    for key, hist in out["solos"].items():
+        ok, lines = solver.validate(hist)
+        out["validate"][key] = (bool(ok), lines)
+    label = (f"one batched heat N={SERVE_N} step on 2x2, B={SERVE_GRID_BATCH}, "
+             "rank 0's kernels") if ctx.rank == 0 else None
+    out["step"] = _step_vs_solo(solver, reqs[:SERVE_GRID_BATCH], dev, label,
+                                profile_step=True)
+    del server, solver
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_grid(smi):
+    """Phase 10 (c): the 2x2 spawn and its gates."""
+    import torch
+
+    from repro_torch import dist
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = dist.run_ranks(_serve_ranks, 2, 2, device="cuda", timeout=600)
+    tag = f"serving 2x2 {MULTI_RANK_CFG[CKPT_RUN]}"
+    r0 = ranks[0]
+    for rank, r in enumerate(ranks):
+        c = r["counts"]
+        if any(c[k] == 0 for k in ("fft_radix2", "ring_payload", "ring_send",
+                                   "ring_land", "shared_diag")) or any(
+                c[k] for k in SERVE_PLAIN):
+            fail(f"{tag} rank {rank}: counts {c}")
+        if r["batch_log"] != r0["batch_log"]:
+            fail(f"{tag}: rank {rank} served {r['batch_log']}, rank 0 {r0['batch_log']}")
+        _check_step_counts(f"{tag} rank {rank}", r["step"])
+    for rid, key, ok, err, _, hist in r0["results"]:
+        if not ok:
+            fail(f"{tag}: {rid} failed: {err}")
+        if hist != r0["solos"][key]:
+            fail(f"{tag}: {rid} is not bitwise its solo 2x2 run: {hist} vs "
+                 f"{r0['solos'][key]}")
+        v_ok, lines = r0["validate"][key]
+        if not v_ok:
+            fail(f"{tag}: {rid} validate() failed: {lines}")
+    if len(r0["results"]) != SERVE_GRID_REQUESTS or r0["load"]["n_rejected"]:
+        fail(f"{tag}: {len(r0['results'])} results, {r0['load']['n_rejected']} rejected")
+    st = r0["load"]
+    say(f"[{smi}] {tag}: 4 rank processes in {time.perf_counter() - t0:.1f} s; "
+        f"{st['n_requests']} requests in {st['wall_s']:.3f} s, "
+        f"{st['requests_per_s']:.3f} requests/s, latency p50 / p95 / p99 "
+        f"{st['p50_us'] / 1e3:.1f} / {st['p95_us'] / 1e3:.1f} / "
+        f"{st['p99_us'] / 1e3:.1f} ms, batches by lanes {st['batch_sizes']}; "
+        f"every rank served the same {len(r0['batch_log'])} batches")
+    for rank, r in enumerate(ranks):
+        say(f"{tag} rank {rank}: counts {r['counts']}")
+    say(f"{tag}: every lane bitwise its solo 2x2 run, validate() passing; "
+        f"roundtrip payloads with the multiplier shared by the lanes "
+        f"{r0['counts']['shared_diag']} on rank 0")
+    _step_line(smi, f"{tag} rank 0", r0["step"])
+    return ranks
+
+
+def serving(smi):
+    """Phase 10: serving on the card; returns the results and the kernel
+    launches of its runs (the bursts, the paced run, the 2x2 burst)."""
+    out = {"1x1": []}
+    solos = None
+    for backend in SERVE_BACKENDS:
+        r, s = _serve_1x1(smi, backend)
+        out["1x1"].append(r)
+        solos = solos or s
+    out["threaded"] = _serve_threaded(smi, solos)
+    ranks = _serve_grid(smi)
+    out["2x2"] = [{k: v for k, v in r.items() if k != "solos"} for r in ranks]
+    launches = dict.fromkeys(SERVE_KERNELS, 0)
+    for counts in ([r["counts"] for r in out["1x1"]] + [out["threaded"]["counts"]]
+                   + [r["counts"] for r in ranks]):
+        for k in SERVE_KERNELS:
+            launches[k] += counts[k]
+    return out, launches
+
+
 REPLACES = {"flash_attention": "src/repro/kernels/attention.py:68",
             "fft_radix2": "src/repro/kernels/fft_radix2.py:90",
             "fft_mxu": "src/repro/kernels/fft_mxu.py:80",
@@ -2312,6 +2803,9 @@ def main() -> int:
     lm = lm_serving(flash_rel)
     launches["flash_attention"] = lm["counts"]["flash_attention"]
     tuned = tuning(runs, ranks, tune_backends)
+    served, serve_launches = serving(smi)
+    for k, n in serve_launches.items():
+        launches[k] += n
 
     kernels = []
     for k in KERNELS:
@@ -2347,7 +2841,7 @@ def main() -> int:
                    "kernels": kernels, "runs": runs, "breakdown": prof,
                    "observability": observed, "multi_rank": ranks,
                    "staged": staged_ranks, "flash_bf16_gaps": flash_gaps, "lm": lm,
-                   "tuning": tuned},
+                   "tuning": tuned, "serving": served},
                   f, indent=1)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

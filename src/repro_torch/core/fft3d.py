@@ -292,26 +292,29 @@ def spectral_roundtrip_local(plan: FFT3DPlan, kernel: DiagonalKernel,
 
 def fft3d_vector_local(plan: FFT3DPlan, xr, xi=None,
                        vector_mode: VectorMode = "streaming"):
-    """μ-component transform; leading axis 0 of ``xr`` is the component axis.
+    """μ-component transform; axis −4 of ``xr`` is the component axis (any
+    axes before it are lanes).
 
     ``parallel``  — one pass with the component axis live throughout;
     ``streaming`` — one transform per component c.
     """
     if vector_mode == "parallel":
         return fft3d_local(plan, xr, xi)
-    outs = [fft3d_local(plan, xr[c], None if xi is None else xi[c])
-            for c in range(xr.shape[0])]
-    return (torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs]))
+    xis = (None,) * xr.shape[-4] if xi is None else xi.unbind(-4)
+    outs = [fft3d_local(plan, a, b) for a, b in zip(xr.unbind(-4), xis)]
+    return (torch.stack([o[0] for o in outs], dim=-4),
+            torch.stack([o[1] for o in outs], dim=-4))
 
 
 def ifft3d_vector_local(plan: FFT3DPlan, kr, ki,
                         vector_mode: VectorMode = "streaming"):
     if vector_mode == "parallel":
         return ifft3d_local(plan, kr, ki)
-    outs = [ifft3d_local(plan, kr[c], ki[c]) for c in range(kr.shape[0])]
+    outs = [ifft3d_local(plan, a, b) for a, b in zip(kr.unbind(-4), ki.unbind(-4))]
     if plan.real:
-        return torch.stack(outs)
-    return (torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs]))
+        return torch.stack(outs, dim=-4)
+    return (torch.stack([o[0] for o in outs], dim=-4),
+            torch.stack([o[1] for o in outs], dim=-4))
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,10 @@
 
 Port of ``repro.core.spectral``.  Every function acts on Z-pencil spectral
 fields — local shape ``(..., Kx/Pu, Ny/Pv, Nz)`` — carried as planar
-``(re, im)`` tensor pairs.  The local wavenumber slabs depend on this
-rank's ``(u, v)`` grid coordinates, which come from ``plan.grid.coords``.
+``(re, im)`` tensor pairs; a vector field's component axis is −4, so that
+leading axes (a serving batch's lanes) pass through.  The local
+wavenumber slabs depend on this rank's ``(u, v)`` grid coordinates, which
+come from ``plan.grid.coords``.
 Wavenumber helpers take the ``dtype`` and ``device`` of the fields they
 serve.  The grid reductions (``lax.psum``/``lax.pmax`` in the reference)
 are the identity on one rank and an all-reduce over the ranks' gloo group
@@ -112,27 +114,31 @@ def gradient(plan: FFT3DPlan, fr, fi):
 
 
 def curl(plan: FFT3DPlan, vr, vi):
-    """Vorticity ω̂ = i k × v̂ for a planar (3, ...) spectral field."""
+    """Vorticity ω̂ = i k × v̂ for a planar (..., 3, ...) spectral field
+    (the component axis is −4; leading axes are lanes)."""
     kx, ky, kz = local_wavenumbers(plan, vr.dtype, device=vr.device)
 
     def cross_k(ar):
-        return torch.stack([ky * ar[2] - kz * ar[1],
-                            kz * ar[0] - kx * ar[2],
-                            kx * ar[1] - ky * ar[0]])
+        a = ar.unbind(-4)
+        return torch.stack([ky * a[2] - kz * a[1],
+                            kz * a[0] - kx * a[2],
+                            kx * a[1] - ky * a[0]], dim=-4)
 
     # i*(k × v): (i k) × (vr + i vi) = -(k × vi) + i (k × vr)
     return -cross_k(vi), cross_k(vr)
 
 
 def project_divergence_free(plan: FFT3DPlan, vr, vi):
-    """Leray projection: v̂ ← v̂ − k (k·v̂)/k² for a 3-component field."""
+    """Leray projection: v̂ ← v̂ − k (k·v̂)/k² for a 3-component field
+    (component axis −4)."""
     ks = local_wavenumbers(plan, vr.dtype, device=vr.device)
     k2 = k_squared(plan, vr.dtype, device=vr.device)
+    vr, vi = vr.unbind(-4), vi.unbind(-4)
     dot_r = sum(ks[c] * vr[c] for c in range(3))
     dot_i = sum(ks[c] * vi[c] for c in range(3))
     inv = torch.where(k2 > 0, 1.0 / k2.clamp_min(1e-30), torch.zeros_like(k2))
-    pr = torch.stack([vr[c] - ks[c] * dot_r * inv for c in range(3)])
-    pi = torch.stack([vi[c] - ks[c] * dot_i * inv for c in range(3)])
+    pr = torch.stack([vr[c] - ks[c] * dot_r * inv for c in range(3)], dim=-4)
+    pi = torch.stack([vi[c] - ks[c] * dot_i * inv for c in range(3)], dim=-4)
     return pr, pi
 
 
@@ -141,12 +147,12 @@ def rotational_nonlinear_term(plan: FFT3DPlan, vr, vi, *,
     """Dealiased rotational-form convection term \\widehat{u × ω}: two
     inverse and one forward vector transform, the cross product in physical
     space, the 2/3 mask and (optionally) the Leray projection."""
-    u = ifft3d_vector_local(plan, vr, vi, vector_mode=vector_mode)
+    u = ifft3d_vector_local(plan, vr, vi, vector_mode=vector_mode).unbind(-4)
     wr, wi = curl(plan, vr, vi)
-    w = ifft3d_vector_local(plan, wr, wi, vector_mode=vector_mode)
+    w = ifft3d_vector_local(plan, wr, wi, vector_mode=vector_mode).unbind(-4)
     uxw = torch.stack([u[1] * w[2] - u[2] * w[1],
                        u[2] * w[0] - u[0] * w[2],
-                       u[0] * w[1] - u[1] * w[0]])
+                       u[0] * w[1] - u[1] * w[0]], dim=-4)
     nr, ni = fft3d_vector_local(plan, uxw, None, vector_mode=vector_mode)
     mask = dealias_mask(plan, nr.dtype, device=nr.device)
     nr, ni = nr * mask, ni * mask
@@ -173,6 +179,7 @@ def energy_spectrum_total(plan: FFT3DPlan, vr, vi):
 def max_divergence(plan: FFT3DPlan, vr, vi):
     """max |k·v̂| over the grid — the divergence-free diagnostic."""
     kx, ky, kz = local_wavenumbers(plan, vr.dtype, device=vr.device)
+    vr, vi = vr.unbind(-4), vi.unbind(-4)
     div = (kx * vr[0] + ky * vr[1] + kz * vr[2]).abs().max() + \
         (kx * vi[0] + ky * vi[1] + kz * vi[2]).abs().max()
     return grid_max(plan, div)

@@ -43,8 +43,8 @@ __global__ void __launch_bounds__(radix2::Shape<L>::THREADS, 1)
                       const T* __restrict__ twr, const T* __restrict__ twi,
                       T* __restrict__ yr, T* __restrict__ yi, long long rows,
                       int inverse, T scale) {
-  radix2::rows<T, L, false>(xr, xi, twr, twi, nullptr, nullptr, yr, yi, rows,
-                            inverse, scale);
+  radix2::rows<T, L, false>(radix2::Packed{}, xr, xi, twr, twi, nullptr,
+                            nullptr, yr, yi, rows, inverse, scale);
 }
 
 template <typename T>

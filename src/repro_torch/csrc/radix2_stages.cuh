@@ -330,29 +330,61 @@ __device__ __forceinline__ void read_natural(const Smem<T, L>& sm, int r, int t,
   }
 }
 
-// Group v's pass-0 elements of row `row` (natural indices v + e * NG) from
-// device memory, zeros past the last row.
+// Where a row of a launch lies: its input at x, its output at y and (in
+// roundtrip mode) its multiplier row at d, element offsets (RowAt), worked
+// out once a row.  Packed rows follow one another in all three.
+struct RowAt {
+  size_t x, y, d;
+};
+
+struct Packed {
+  __device__ __forceinline__ RowAt at(long long r, int n) const {
+    const size_t o = static_cast<size_t>(r) * n;
+    return {o, o, o};
+  }
+};
+
+// Lanes of lane_rows packed rows each, lane l's at l * x_stride in the
+// input and l * y_stride in the output (a narrowed slab of a stack of
+// lanes is read in place); every lane reads the same multiplier, row r
+// taking its row r mod lane_rows.  Rows are fewer than 2^31 (the
+// wrappers' limit), so one 32-bit division a row finds its lane.
+struct Lanes {
+  unsigned lane_rows;
+  long long x_stride, y_stride;
+  __device__ __forceinline__ RowAt at(long long r, int n) const {
+    const unsigned q = static_cast<unsigned>(r) / lane_rows;
+    const size_t in = static_cast<size_t>(static_cast<unsigned>(r) - q * lane_rows) * n;
+    return {static_cast<size_t>(q * x_stride) + in,
+            static_cast<size_t>(q * y_stride) + in, in};
+  }
+};
+
+// Group v's pass-0 elements of the row at element offset `at` (natural
+// indices v + e * NG) from device memory; zeros for a row past the last
+// (`valid` false).
 template <typename T, int L>
 __device__ __forceinline__ void load_group(T (&xr)[Shape<L>::E],
                                            T (&xi)[Shape<L>::E],
                                            const T* __restrict__ gr,
                                            const T* __restrict__ gi,
-                                           long long row, long long rows, int v) {
+                                           size_t at, bool valid, int v) {
   using Sh = Shape<L>;
-  const size_t base = static_cast<size_t>(row) * Sh::N + v;
+  const size_t base = at + v;
 #pragma unroll
   for (int e = 0; e < Sh::E; ++e) {
-    xr[e] = row < rows ? gr[base + e * Sh::NG] : T(0);
-    xi[e] = row < rows ? gi[base + e * Sh::NG] : T(0);
+    xr[e] = valid ? gr[base + e * Sh::NG] : T(0);
+    xi[e] = valid ? gi[base + e * Sh::NG] : T(0);
   }
 }
 
-// The whole batched transform: `rows` rows of x (planar, contiguous) into
-// y, the ROM's row 0 at (rom_r, rom_i), diag only in roundtrip mode.  One
-// block a row set at a time, the grid walking the sets; pass 0's loads of
-// the next set are in flight while a set is transformed (n <= 2048).
-template <typename T, int L, bool kRoundtrip>
-__device__ __forceinline__ void rows(const T* __restrict__ xr,
+// The whole batched transform: `rows` rows of x (planar, rows where `map`
+// puts them) into y, the ROM's row 0 at (rom_r, rom_i), diag only in
+// roundtrip mode.  One block a row set at a time, the grid walking the
+// sets; pass 0's loads of the next set are in flight while a set is
+// transformed (n <= 2048).
+template <typename T, int L, bool kRoundtrip, typename Map>
+__device__ __forceinline__ void rows(const Map map, const T* __restrict__ xr,
                                      const T* __restrict__ xi,
                                      const T* __restrict__ rom_r,
                                      const T* __restrict__ rom_i,
@@ -368,15 +400,21 @@ __device__ __forceinline__ void rows(const T* __restrict__ xr,
   // a 512-thread block has 128 registers a thread: no room for the next
   // set's elements beside the current ones
   constexpr bool kPrefetch = Sh::G == 1 && Sh::THREADS <= kSetThreads;
+  // a row's offsets (zeros past the last row, which load as zeros)
+  auto row_at = [&](long long row) {
+    return row < nrows ? map.at(row, Sh::N) : RowAt{0, 0, 0};
+  };
   T nr[Sh::E], ni[Sh::E];
+  long long next = static_cast<long long>(blockIdx.x) * Sh::R + r;
+  RowAt next_at = row_at(next);
   if constexpr (kPrefetch)  // the first set's loads fly while the table loads
-    load_group<T, L>(nr, ni, xr, xi, static_cast<long long>(blockIdx.x) * Sh::R + r,
-                     nrows, t);
+    load_group<T, L>(nr, ni, xr, xi, next_at.x, next < nrows, t);
   load_twiddles<T, L>(sm, rom_r, rom_i);
   __syncthreads();
   for (long long set = blockIdx.x; set < sets; set += gridDim.x) {
     const long long row = set * Sh::R + r;
-    const size_t row0 = static_cast<size_t>(row) * Sh::N;
+    const bool store = row < nrows;
+    const RowAt at = kPrefetch ? next_at : row_at(row);
     T cr[Sh::E], ci[Sh::E];
     if constexpr (kPrefetch) {
 #pragma unroll
@@ -384,8 +422,9 @@ __device__ __forceinline__ void rows(const T* __restrict__ xr,
         cr[e] = nr[e];
         ci[e] = ni[e];
       }
-      load_group<T, L>(nr, ni, xr, xi, row + static_cast<long long>(gridDim.x) * Sh::R,
-                       nrows, t);
+      next = row + static_cast<long long>(gridDim.x) * Sh::R;
+      next_at = row_at(next);
+      load_group<T, L>(nr, ni, xr, xi, next_at.x, next < nrows, t);
     }
     dif_passes<T, L, false>(sm, r, t, [&](int g, int v, T(&ar)[Sh::E], T(&ai)[Sh::E]) {
       if constexpr (kPrefetch) {
@@ -395,7 +434,7 @@ __device__ __forceinline__ void rows(const T* __restrict__ xr,
           ai[e] = ci[e];
         }
       } else {
-        load_group<T, L>(ar, ai, xr, xi, row, nrows, v);
+        load_group<T, L>(ar, ai, xr, xi, at.x, store, v);
       }
       if (inverse) {
 #pragma unroll
@@ -407,7 +446,7 @@ __device__ __forceinline__ void rows(const T* __restrict__ xr,
       // forward output in natural order, times diag, conjugated
       dif_passes<T, L, true>(sm, r, t, [&](int, int v, T(&ar)[Sh::E], T(&ai)[Sh::E]) {
         T pr[Sh::E], pi[Sh::E];
-        load_group<T, L>(pr, pi, dr, di, row, nrows, v);
+        load_group<T, L>(pr, pi, dr, di, at.d, store, v);
         read_group<T, L, 0, true>(ar, ai, sm, r, v);
 #pragma unroll
         for (int e = 0; e < Sh::E; ++e) {
@@ -417,16 +456,15 @@ __device__ __forceinline__ void rows(const T* __restrict__ xr,
         }
       });
     }
-    const bool store = row < nrows;
     const bool conj_out = kRoundtrip || inverse;
     read_natural<T, L, kRoundtrip>(sm, r, t, [&](int k, T a, T b) {
       if (!store) return;
       if (conj_out) {
-        yr[row0 + k] = a * scale;
-        yi[row0 + k] = -(b * scale);
+        yr[at.y + k] = a * scale;
+        yi[at.y + k] = -(b * scale);
       } else {
-        yr[row0 + k] = a;
-        yi[row0 + k] = b;
+        yr[at.y + k] = a;
+        yi[at.y + k] = b;
       }
     });
     __syncthreads();  // the buffer is free for the next set

@@ -44,12 +44,18 @@
 // the twiddles staged once a block, several rows a block on a persistent
 // grid): mode 0 forward; mode 1 the conjugate-trick inverse with 1/N;
 // mode 2 roundtrip -- forward, complex multiply by the diag row in natural
-// order, inverse -- reading x and diag once and writing once.  In the
+// order, inverse -- reading x and diag once and writing once.  The rows come
+// in lanes (radix2::Lanes, or radix2::Packed for one lane): a serving
+// batch's B lanes of one slab, each lane's rows packed, the lanes at any
+// stride, so a slab narrowed out of a stack of lanes is read in place;
+// every lane reads the same diag rows, so the multiplier is read once per
+// lane and never copied B times.  In the
 // roundtrip the inverse passes run on the bit-reversed layout of the
 // forward output, so the diag multiply rides on their first pass's reads
 // (natural order, diag read coalesced from device memory) and no reorder
-// runs between the two transforms.  Bound by bytes: 6 * rows * N *
-// sizeof(T) in roundtrip mode, 4 * rows * N * sizeof(T) otherwise.
+// runs between the two transforms.  Bound by bytes: 4 * rows * N *
+// sizeof(T), plus 2 * lane_rows * N * sizeof(T) for the diag in roundtrip
+// mode (6 * rows * N * sizeof(T) with one lane).
 //
 // C interface (no PyTorch headers, bound with ctypes).  Runtime errors come
 // back as their cudaError_t, driver errors as minus their CUresult; entry
@@ -136,28 +142,30 @@ __global__ void ring_land_kernel(BlockCopy c) {
   copy_rows<E>(c);
 }
 
-template <typename T, int L, bool kDiag>
+template <typename T, int L, bool kDiag, typename Map>
 __global__ void __launch_bounds__(radix2::Shape<L>::THREADS, 1)
-    ring_payload_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
-                        const T* __restrict__ twr, const T* __restrict__ twi,
-                        const T* __restrict__ dr, const T* __restrict__ di,
-                        T* __restrict__ yr, T* __restrict__ yi, long long rows,
-                        int inverse, T scale) {
-  radix2::rows<T, L, kDiag>(xr, xi, twr, twi, dr, di, yr, yi, rows, inverse,
-                            scale);
+    ring_payload_kernel(Map map, const T* __restrict__ xr,
+                        const T* __restrict__ xi, const T* __restrict__ twr,
+                        const T* __restrict__ twi, const T* __restrict__ dr,
+                        const T* __restrict__ di, T* __restrict__ yr,
+                        T* __restrict__ yi, long long rows, int inverse,
+                        T scale) {
+  radix2::rows<T, L, kDiag>(map, xr, xi, twr, twi, dr, di, yr, yi, rows,
+                            inverse, scale);
 }
 
-template <typename T, bool kDiag, int L>
-int payload_launch(const void* xr, const void* xi, const void* twr,
-                   const void* twi, const void* dr, const void* di, void* yr,
-                   void* yi, long long rows, int n, int mode, void* stream) {
-  const long long blocks =
-      radix2::grid_for<T, L, 1 + kDiag>(ring_payload_kernel<T, L, kDiag>, rows);
+template <typename T, bool kDiag, int L, typename Map>
+int payload_launch(const Map& map, const void* xr, const void* xi,
+                   const void* twr, const void* twi, const void* dr,
+                   const void* di, void* yr, void* yi, long long rows, int n,
+                   int mode, void* stream) {
+  const long long blocks = radix2::grid_for<T, L, 1 + kDiag>(
+      ring_payload_kernel<T, L, kDiag, Map>, rows);
   if (blocks < 0) return static_cast<int>(-blocks);
-  ring_payload_kernel<T, L, kDiag>
+  ring_payload_kernel<T, L, kDiag, Map>
       <<<static_cast<unsigned>(blocks), radix2::Shape<L>::THREADS,
          radix2::Table<T, L>::smem_bytes(), static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(xr), static_cast<const T*>(xi),
+          map, static_cast<const T*>(xr), static_cast<const T*>(xi),
           static_cast<const T*>(twr), static_cast<const T*>(twi),
           static_cast<const T*>(dr), static_cast<const T*>(di),
           static_cast<T*>(yr), static_cast<T*>(yi), rows, mode == kInverse,
@@ -168,18 +176,29 @@ int payload_launch(const void* xr, const void* xi, const void* twr,
 template <typename T>
 int payload(const void* xr, const void* xi, const void* twr, const void* twi,
             const void* dr, const void* di, void* yr, void* yi,
-            long long rows, int n, int mode, void* stream) {
+            long long rows, long long lane_rows, long long x_lane_stride,
+            long long y_lane_stride, int n, int mode, void* stream) {
   if (mode != kForward && mode != kInverse && mode != kRoundtrip)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (lane_rows < 1 || rows % lane_rows || rows > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const radix2::Lanes lanes{static_cast<unsigned>(lane_rows), x_lane_stride,
+                            y_lane_stride};
   int log2n = 0;
   while ((1 << log2n) < n) ++log2n;
+  // one lane (a solo payload) takes the packed addressing, which finds a
+  // row with no division
+  const bool one_lane = lane_rows == rows;
   return radix2::with_log2n<radix2::max_log2n<T>()>(log2n, [&](auto l) {
     constexpr int L = decltype(l)::value;
-    return mode == kRoundtrip
-               ? payload_launch<T, true, L>(xr, xi, twr, twi, dr, di, yr, yi,
-                                            rows, n, mode, stream)
-               : payload_launch<T, false, L>(xr, xi, twr, twi, dr, di, yr, yi,
-                                             rows, n, mode, stream);
+    auto launch = [&](auto map) {
+      return mode == kRoundtrip
+                 ? payload_launch<T, true, L>(map, xr, xi, twr, twi, dr, di, yr,
+                                              yi, rows, n, mode, stream)
+                 : payload_launch<T, false, L>(map, xr, xi, twr, twi, dr, di,
+                                               yr, yi, rows, n, mode, stream);
+    };
+    return one_lane ? launch(radix2::Packed{}) : launch(lanes);
   });
 }
 
@@ -265,18 +284,27 @@ int send_or_land(bool send, int elem_bytes, const void* const* src,
 
 }  // namespace
 
+// `rows` payload rows of n points in lanes of lane_rows rows: lane l's rows
+// packed at l * x_lane_stride in x and l * y_lane_stride in y (elements);
+// in roundtrip mode diag holds lane_rows rows, which every lane shares.
 extern "C" int ring_payload_f32(const void* xr, const void* xi, const void* twr,
                                 const void* twi, const void* dr, const void* di,
-                                void* yr, void* yi, long long rows, int n,
-                                int mode, void* stream) {
-  return payload<float>(xr, xi, twr, twi, dr, di, yr, yi, rows, n, mode, stream);
+                                void* yr, void* yi, long long rows,
+                                long long lane_rows, long long x_lane_stride,
+                                long long y_lane_stride, int n, int mode,
+                                void* stream) {
+  return payload<float>(xr, xi, twr, twi, dr, di, yr, yi, rows, lane_rows,
+                        x_lane_stride, y_lane_stride, n, mode, stream);
 }
 
 extern "C" int ring_payload_f64(const void* xr, const void* xi, const void* twr,
                                 const void* twi, const void* dr, const void* di,
-                                void* yr, void* yi, long long rows, int n,
-                                int mode, void* stream) {
-  return payload<double>(xr, xi, twr, twi, dr, di, yr, yi, rows, n, mode, stream);
+                                void* yr, void* yi, long long rows,
+                                long long lane_rows, long long x_lane_stride,
+                                long long y_lane_stride, int n, int mode,
+                                void* stream) {
+  return payload<double>(xr, xi, twr, twi, dr, di, yr, yi, rows, lane_rows,
+                         x_lane_stride, y_lane_stride, n, mode, stream);
 }
 
 // Block `dst` of each input (its strided view: size/src_stride) into the

@@ -10,7 +10,10 @@ of the port uses; ``backend`` selects:
 * ``"mxu"``    — the four-step FFT CUDA kernel, FP64 tensor cores in f64
   (:mod:`.fft_mxu`; its plain version for a tensor on the CPU).
 
-All take/return planar complex (re, im) pairs, any float dtype.
+All take/return planar complex (re, im) pairs, any float dtype.  The two
+kernels read packed rows: ``slab_copies`` counts the calls whose input
+had to be copied into them first (a slab narrowed out of a serving
+batch's lane stack, or a strided view); nothing else adds to it.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from repro_torch.kernels.fft_radix2 import fft1d_radix2
 
 BACKENDS = ("pallas", "ref", "jnp", "mxu")
 
+slab_copies = 0
+
 
 def check_backend(backend: str) -> None:
     """Refuse an unknown backend."""
@@ -33,6 +38,7 @@ def check_backend(backend: str) -> None:
 def fft1d(x_re, x_im, *, axis: int = -1, backend: str = "pallas",
           inverse: bool = False):
     """Complex-to-complex FFT along ``axis`` (planar in/out)."""
+    global slab_copies
     check_backend(backend)
     xr, xi = x_re.movedim(axis, -1), x_im.movedim(axis, -1)
     if backend == "jnp":
@@ -44,6 +50,8 @@ def fft1d(x_re, x_im, *, axis: int = -1, backend: str = "pallas",
         yr, yi = f(xr, xi)
     else:
         f = fft1d_mxu if backend == "mxu" else fft1d_radix2
+        if not (xr.is_contiguous() and xi.is_contiguous()):
+            slab_copies += 1
         yr, yi = f(xr.contiguous(), xi.contiguous(), inverse=inverse)
     return yr.movedim(-1, axis), yi.movedim(-1, axis)
 

@@ -42,7 +42,10 @@ Each wrapper runs its plain version for tensors that lie on the CPU
 (:func:`payload_plain`; plain indexing for take and place) and launches
 its kernel for CUDA tensors, or raises.  ``payload_launches``,
 ``send_launches`` and ``land_launches`` count kernel launches,
-``plain_calls`` calls of :func:`payload_plain`; nothing else adds to them.
+``plain_calls`` calls of :func:`payload_plain`; nothing else adds to them
+(``shared_diag_launches`` counts the roundtrip launches among
+``payload_launches`` whose multiplier several lanes shared,
+``payload_copies`` the payloads an exchange had to pack first).
 """
 
 from __future__ import annotations
@@ -61,11 +64,16 @@ payload_launches = 0
 send_launches = 0
 land_launches = 0
 plain_calls = 0
+#: packed copies an exchange made of a payload whose rows the kernel cannot
+#: read in place (a permuted view); a lane-strided slab needs none
+payload_copies = 0
+#: roundtrip launches whose multiplier more than one lane shared
+shared_diag_launches = 0
 #: launches of ring_send and ring_land by the width the plan chose
 copy_widths = {16: 0, 8: 0, 4: 0}
 
 _P = ctypes.c_void_p
-_PAYLOAD = [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
+_PAYLOAD = [_P] * 8 + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_int, _P]
 _COPY = [ctypes.c_int, ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.c_int,
          ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
          ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, _P]
@@ -122,10 +130,41 @@ def _chunk_bounds(total: int, parts: int, i: int) -> tuple[int, int]:
 # the payload
 # ---------------------------------------------------------------------------
 
+def lane_rows_of(x) -> int:
+    """The rows in the packed run that ends ``x``'s rows (its last axis):
+    all of them for a contiguous tensor, one lane's for a slab narrowed
+    out of a stack of lanes."""
+    n = x.shape[-1]
+    if n > 1 and x.stride(-1) != 1:
+        return 0
+    rows, packed = 1, n
+    for size, stride in zip(reversed(x.shape[:-1]), reversed(x.stride()[:-1])):
+        if size != 1 and stride != packed:
+            break
+        rows *= size
+        packed *= size
+    return rows
+
+
+def as_lanes(x, lane_rows: int):
+    """``x``'s rows as a ``(lanes, lane_rows, N)`` view whose rows are
+    packed within each lane (the lanes at any one stride), or None where
+    no such view exists."""
+    n = x.shape[-1]
+    try:
+        v = x.view(-1, lane_rows, n)
+    except RuntimeError:
+        return None
+    packed = (n == 1 or v.stride(2) == 1) and (lane_rows == 1 or v.stride(1) == n)
+    return v if packed else None
+
+
 def payload_plain(pr, pi, twr, twi, diag=None, inverse: bool = False):
     """The plain PyTorch version of :func:`ring_payload`, in the kernel's
     (and ``_payload_chunk``'s) order of operations, on the stages of
-    :func:`ref.dif_planar` with the twiddle tables ``twr``/``twi``."""
+    :func:`ref.dif_planar` with the twiddle tables ``twr``/``twi``; a
+    ``diag`` of the payload's trailing shape broadcasts over its leading
+    lanes, as the kernel's lanes share it."""
     global plain_calls
     plain_calls += 1
     n = pr.shape[-1]
@@ -145,10 +184,17 @@ def payload_plain(pr, pi, twr, twi, diag=None, inverse: bool = False):
 def ring_payload(pr, pi, *, diag=None, inverse: bool = False, out=None):
     """Transform the rows (last axis, a power of two) of a planar payload:
     forward radix-2, or the conjugate-trick inverse (``inverse``), or with
-    ``diag`` (a planar multiplier pair of the payload's shape) the
-    roundtrip forward → multiply → inverse.  ``out`` optionally names the
-    output pair."""
-    global payload_launches
+    ``diag`` (a planar multiplier pair) the roundtrip forward → multiply →
+    inverse.  ``out`` optionally names the output pair.
+
+    The payload may come in lanes: ``pr``/``pi`` are read as lanes of
+    packed rows, the lanes at any one stride (a slab narrowed out of a
+    stack of lanes is read in place).  A lane holds ``diag``'s rows (the
+    multiplier has the payload's trailing shape and every lane shares it,
+    payload row r reading multiplier row r mod its rows), else the rows of
+    the packed run that ends the payload (:func:`lane_rows_of`).  ``out``
+    takes the same lanes; by default it is a new contiguous pair."""
+    global payload_launches, shared_diag_launches
     _launch.check_pair(pr, pi)
     n = pr.shape[-1]
     if not (ref.is_pow2(n) and n >= 2):
@@ -157,10 +203,13 @@ def ring_payload(pr, pi, *, diag=None, inverse: bool = False, out=None):
         if inverse:
             raise ValueError("diag (roundtrip mode) needs a forward payload")
         _launch.check_pair(*diag)
-        if diag[0].shape != pr.shape or diag[0].device != pr.device:
+        k = diag[0].dim()
+        if (diag[0].device != pr.device or k > pr.dim()
+                or pr.shape[pr.dim() - k:] != diag[0].shape):
             raise ValueError(f"diag of shape {tuple(diag[0].shape)} on "
                              f"{diag[0].device} for a payload of shape "
-                             f"{tuple(pr.shape)} on {pr.device}")
+                             f"{tuple(pr.shape)} on {pr.device}: the multiplier "
+                             "has the payload's trailing shape")
     twr, twi = twiddles(n, pr.dtype, pr.device)
     if _launch.runs_plain("ring_payload", pr):
         yr, yi = payload_plain(pr, pi, twr, twi, diag, inverse)
@@ -170,22 +219,36 @@ def ring_payload(pr, pi, *, diag=None, inverse: bool = False, out=None):
         out[1].copy_(yi)
         return out
     fn = _LIB.fn("ring_payload_" + _launch.dtype_suffix("ring_payload", pr.dtype))
-    yr, yi = out if out is not None else (torch.empty_like(pr), torch.empty_like(pi))
+    yr, yi = out if out is not None else (
+        torch.empty(pr.shape, dtype=pr.dtype, device=pr.device),
+        torch.empty(pi.shape, dtype=pi.dtype, device=pi.device))
     _launch.check_pair(yr, pr)
-    _launch.check_contiguous("ring_payload", pr, pi, yr, yi,
-                             *(diag if diag is not None else ()))
+    if diag is not None:
+        _launch.check_contiguous("ring_payload", *diag)
     check_row_smem(n, pr.dtype)
     rows = pr.numel() // n
     _launch.check_rows(rows)
     if rows == 0:
         return yr, yi
+    lane_rows = diag[0].numel() // n if diag is not None else lane_rows_of(pr)
+    x, y = ([as_lanes(t, lane_rows) if lane_rows else None for t in pair]
+            for pair in ((pr, pi), (yr, yi)))
+    if (any(v is None for v in (*x, *y)) or x[0].stride() != x[1].stride()
+            or y[0].stride() != y[1].stride()):
+        raise ValueError("ring_payload reads and writes lanes of packed rows "
+                         f"({lane_rows} a lane), the lanes at one stride; got "
+                         f"strides {pr.stride()} and {yr.stride()} for shape "
+                         f"{tuple(pr.shape)}")
     mode = "roundtrip" if diag is not None else ("inverse" if inverse else "forward")
     dr, di = (d.data_ptr() for d in diag) if diag is not None else (None, None)
     _launch.launch("ring_payload", fn, pr.device, pr.data_ptr(), pi.data_ptr(),
                    twr.data_ptr(), twi.data_ptr(), dr, di, yr.data_ptr(),
-                   yi.data_ptr(), rows, n, MODES[mode],
-                   detail=f"{mode} rows={rows}, N={n}, {pr.dtype}")
+                   yi.data_ptr(), rows, lane_rows, x[0].stride(0), y[0].stride(0),
+                   n, MODES[mode],
+                   detail=f"{mode} rows={rows} in lanes of {lane_rows}, N={n}, "
+                          f"{pr.dtype}")
     payload_launches += 1
+    shared_diag_launches += diag is not None and rows > lane_rows
     return yr, yi
 
 
@@ -498,6 +561,7 @@ def _check_fusion(interleave, payload, diag, inverse) -> None:
 
 def _rdma(arrs, wire, schedule, *, split_axis, concat_axis, interleave,
           payload, diag, inverse):
+    global payload_copies
     if wire is None:  # one rank: nothing travels
         return list(arrs), None
     # one dispatch of the NIC engine covers all of the exchange's rounds
@@ -511,20 +575,31 @@ def _rdma(arrs, wire, schedule, *, split_axis, concat_axis, interleave,
                          "interleave= instead")
     pr, pi = payload
     lead, n = pr.shape[:-1], pr.shape[-1]
-    pr, pi = pr.reshape(-1, n).contiguous(), pi.reshape(-1, n).contiguous()
-    rows = pr.shape[0]
+    # the payload in lanes of packed rows (a serving batch's lanes, each
+    # with the rows of one solo payload), read in place where it can be;
+    # a multiplier broadcastable to the solo payload takes its full shape
+    # there (a lane is its rows), never the lanes'
     if diag is not None:
-        diag = tuple(torch.broadcast_to(d, lead + (n,)).reshape(rows, n).contiguous()
+        diag = tuple(torch.broadcast_to(d, pr.shape[pr.dim() - d.dim():])
                      for d in diag)
-    qr, qi = torch.empty_like(pr), torch.empty_like(pi)
+    lane_rows = diag[0].numel() // n if diag is not None else lane_rows_of(pr)
+    x = [as_lanes(t, lane_rows) if lane_rows else None for t in (pr, pi)]
+    if any(v is None for v in x) or x[0].stride() != x[1].stride():
+        payload_copies += 1
+        lane_rows = lane_rows or pr.numel() // n
+        x = [t.contiguous().view(-1, lane_rows, n) for t in (pr, pi)]
+    if diag is not None:  # one lane's multiplier, shared by every lane
+        diag = tuple(d.contiguous().view(lane_rows, n) for d in diag)
+    qr, qi = (torch.empty(x[0].shape, dtype=pr.dtype, device=pr.device)
+              for _ in range(2))
 
     def between(r):
-        off, cnt = _chunk_bounds(rows, len(schedule), r)
+        off, cnt = _chunk_bounds(lane_rows, len(schedule), r)
         if cnt:
             rng = slice(off, off + cnt)
-            ring_payload(pr[rng], pi[rng], inverse=inverse,
+            ring_payload(x[0][:, rng], x[1][:, rng], inverse=inverse,
                          diag=None if diag is None else (diag[0][rng], diag[1][rng]),
-                         out=(qr[rng], qi[rng]))
+                         out=(qr[:, rng], qi[:, rng]))
     outs = wire.exchange(arrs, schedule, split_axis=split_axis,
                          concat_axis=concat_axis, between=between)
     return outs, (qr.reshape(*lead, n), qi.reshape(*lead, n))

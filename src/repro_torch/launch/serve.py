@@ -13,8 +13,14 @@ Port of the LM mode of ``repro.launch.serve``, with the same flags plus
 The weights are random, from seed 0; the prompt tokens are those of
 ``repro.launch.serve`` (``numpy.random.RandomState(0)``).  Prints the
 prefill time, the decode time and rate, and a sample; returns the
-(B, gen) tokens.  The prefill's attention is the flash-attention kernel.  ``--sim`` (simulation
-serving) and a mesh other than ``1x1`` are not ported.
+(B, gen) tokens.  The prefill's attention is the flash-attention kernel.
+A mesh other than ``1x1`` is not ported.
+
+``--sim`` serves spectral simulations instead: every other argument goes
+to :mod:`repro_torch.serving.cli` (the batched solver server)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --sim --case heat \\
+        --n 16 --mesh 2x2 --requests 4 --max-batch 2 --validate --device cpu
 """
 
 from __future__ import annotations
@@ -78,12 +84,18 @@ def generate(cfg, run: RunCfg, model, tokens: torch.Tensor, gen: int, *,
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--sim" in argv:
-        raise NotImplementedError("--sim (serving spectral simulations) is not "
-                                  "ported yet (ROADMAP Queue 1 item 9)")
+        argv.remove("--sim")
+        from repro_torch.serving.cli import main as sim_main
+        return sim_main(argv)
     ap = argparse.ArgumentParser(
         prog="repro_torch.launch.serve",
         description="LM serving of the PyTorch/CUDA port (batched "
-                    "prefill + greedy decode).")
+                    "prefill + greedy decode); --sim switches to the batched "
+                    "spectral-simulation server (repro_torch.serving.cli "
+                    "flags apply).")
+    ap.add_argument("--sim", action="store_true",
+                    help="serve spectral simulations instead of LM tokens "
+                         "(remaining args go to repro_torch.serving.cli)")
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)

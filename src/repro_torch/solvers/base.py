@@ -6,7 +6,10 @@ One workload of the paper's simulation cycle (§1.2):
 
 * ``init_state()``        — the t=0 :class:`SolverState`;
 * ``step(state)``         — advance one Δt, eagerly on the solver's device;
-* ``observables(state)``  — scalar diagnostics as ``{name: float}``.
+* ``observables(state)``  — scalar diagnostics as ``{name: float}``;
+* ``batched_step(fields)`` / ``batched_observables(fields)`` — the same
+  over a leading lane axis of B stacked simulations (the serving layer's
+  entry point), each lane bitwise its solo run.
 
 Concrete solvers implement ``initial_fields`` / ``step_fields`` /
 ``observables_fields`` and ``validate``; the base class owns plan
@@ -234,10 +237,56 @@ class SpectralSolver(abc.ABC):
                 callback(state, history[-1])
         return state, history
 
-    # ---- not ported yet (each names its ROADMAP item) ---------------------
-    def batched_step(self, fields):
-        """Batched lanes of one problem (the serving layer's entry point)."""
-        raise NotImplementedError("batched steps are ROADMAP Queue 1 item 9")
+    # ---- batched stepping (the serving layer's entry point) --------------
+    def batched_step_fns(self):
+        """``(step, observables)`` over a leading lane axis.
+
+        ``step`` maps a field tuple whose tensors carry an extra leading
+        axis of size B (B independent simulations of *this* problem,
+        stacked) through one solver step.  The reference ``vmap``s the
+        per-instance body inside its ``shard_map``; here the case's
+        ``step_fields`` runs once on the whole stack (its transforms take
+        leading axes), so every 1-D FFT kernel, copy and exchange of the
+        step covers all B lanes in one launch.  The kernels transform each
+        row on its own, so a lane's trajectory is bitwise what the solo
+        ``step()`` computes.  ``observables`` gives ``{name: [B floats]}``
+        (without ``"t"``, which the caller's clock holds): the solo
+        reductions on each lane's own view, lane by lane (on a grid each
+        lane's scalars are all-reduced one at a time, as the solo step
+        does), so no lane's sum is reordered.
+        """
+        def step(fields) -> tuple:
+            self._check_lanes(fields)
+            return tuple(self.step_fields(self.plan, tuple(fields)))
+
+        def observables(fields) -> dict:
+            out: dict = {}
+            for b in range(self._check_lanes(fields)):
+                lane = tuple(f[b] for f in fields)
+                for k, v in self.observables_fields(self.plan, lane).items():
+                    out.setdefault(k, []).append(float(v))
+            return out
+
+        return step, observables
+
+    def _check_lanes(self, fields) -> int:
+        """The lane count B of a stack of this problem's fields."""
+        ndim = 4 if self.components else 3
+        lanes = {f.shape[0] for f in fields if f.dim() == ndim + 1}
+        if len(lanes) != 1 or any(f.dim() != ndim + 1 for f in fields):
+            raise ValueError(
+                f"{self.case}: a batched step takes fields of {ndim + 1} "
+                "dimensions with one leading lane axis, got shapes "
+                f"{[tuple(f.shape) for f in fields]}")
+        return lanes.pop()
+
+    def batched_step(self, fields) -> tuple:
+        """One Δt for a leading-lane-axis stack of field tuples."""
+        return self.batched_step_fns()[0](fields)
+
+    def batched_observables(self, fields) -> dict:
+        """``{name: [B floats]}`` diagnostics of a batched stack."""
+        return self.batched_step_fns()[1](fields)
 
     # ---- checkpoint contract ----------------------------------------------
     def state_tree(self, state: SolverState):

@@ -165,6 +165,75 @@ def test_ring_payload_matches_plain_version(cuda, n, rows, dtype, mode):
     assert err <= TOL[dtype] * scale
 
 
+@pytest.mark.parametrize("n", [16, 512])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mode", ["forward", "inverse", "roundtrip"])
+def test_ring_payload_lanes_match_plain_version(cuda, n, dtype, mode):
+    """The serving batch's payload: B=3 lanes of a slab narrowed out of a
+    lane stack (read in place, a lane stride between lanes), a multiplier
+    shared by every lane, a lane-strided output.  Held against the plain
+    version, and each lane bitwise a solo launch on that lane's rows."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    stack = [torch.randn(3, 8, 5, n, dtype=dtype, device=cuda, generator=g)
+             for _ in range(2)]
+    xr, xi = (t[:, 2:6] for t in stack)             # (3, 4, 5, n), strided
+    assert not xr.is_contiguous()
+    diag = tuple(torch.randn(4, 5, n, dtype=dtype, device=cuda, generator=g)
+                 for _ in range(2)) if mode == "roundtrip" else None
+    outs = [torch.full((3, 6, 5, n), 7.0, dtype=dtype, device=cuda)
+            for _ in range(2)]
+    out = tuple(o[:, 1:5] for o in outs)
+    before = ring_rdma.payload_launches
+    kr, ki = ring_rdma.ring_payload(xr, xi, diag=diag, inverse=mode == "inverse",
+                                    out=out)
+    assert ring_rdma.payload_launches == before + 1
+    assert kr.data_ptr() == out[0].data_ptr()
+    twr, twi = fft_radix2.twiddles(n, dtype, cuda)
+    pr, pi = ring_rdma.payload_plain(xr, xi, twr, twi, diag, mode == "inverse")
+    torch.cuda.synchronize()
+    scale = max(pr.abs().max().item(), pi.abs().max().item())
+    err = max((kr - pr).abs().max().item(), (ki - pi).abs().max().item())
+    assert err <= TOL[dtype] * scale
+    for o in outs:  # nothing outside the output's lanes was written
+        assert bool((o[:, 0] == 7.0).all()) and bool((o[:, 5] == 7.0).all())
+    for b in range(3):
+        sr, si = ring_rdma.ring_payload(xr[b].contiguous(), xi[b].contiguous(),
+                                        diag=diag, inverse=mode == "inverse")
+        assert torch.equal(sr, kr[b]) and torch.equal(si, ki[b])
+
+
+@pytest.mark.parametrize("backend", ["pallas", "mxu", "jnp"])
+@pytest.mark.parametrize("case", ["heat", "navier_stokes"])
+def test_batched_step_on_card_is_bitwise_per_lane(cuda, case, backend):
+    """A batch of 3 lanes through one step on the card: each lane's fields
+    and observables bitwise its solo step's, with the kernel launches of
+    one solo step and no plain version."""
+    from repro_torch.serving import scaled_initial_fields
+    from repro_torch.solvers import SolverState
+
+    grid = dec.PencilGrid.from_mesh(1, 1)
+    s = make_solver(case, grid, 32, device=cuda, plan_cfg={"backend": backend})
+    lanes = [scaled_initial_fields(s, 1.0 + 0.25 * b) for b in range(3)]
+    stack = tuple(torch.stack(xs) for xs in zip(*lanes))
+
+    def counts():
+        return (fft_radix2.launches, fft_mxu.launches, ref.calls,
+                fft_mxu.plain_calls)
+    c0 = counts()
+    stack = s.batched_step(stack)
+    c1 = counts()
+    batched_obs = s.batched_observables(stack)
+    solo = [s.step(SolverState(fields=lane)) for lane in lanes]
+    c2 = counts()
+    for b, st in enumerate(solo):
+        assert all(torch.equal(f[b], g) for f, g in zip(stack, st.fields))
+        o = s.observables(st)
+        assert all(batched_obs[k][b] == o[k] for k in batched_obs)
+    batch = [a - b for a, b in zip(c1, c0)]
+    per_solo = [(a - b) / 3 for a, b in zip(c2, c1)]
+    assert batch == per_solo and batch[2:] == [0, 0]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_ring_send_and_land_are_bit_exact(cuda, dtype):
     """Take and place against plain indexing; the "peer" slot is a second

@@ -24,10 +24,14 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import _build
 from repro_torch.launch import serve
 from repro_torch.models import transformer as T
+from repro_torch.serving import SimServer
+from repro_torch.serving import cli as serving_cli
 from repro_torch.solvers import cli, make_solver
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
+SERVING = tuple(f"repro_torch.serving.{m}" for m in
+                ("cli", "loadgen", "queue", "registry", "request", "server"))
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.MULTILINE)
 
 
@@ -51,7 +55,8 @@ def test_import_leaves_jax_and_repro_out():
                 "repro_torch.checkpoint.checkpoint", "repro_torch.core.perfmodel",
                 "repro_torch.core.topology", "repro_torch.configs.fft_configs",
                 "repro_torch.tuning.autotune", "repro_torch.tuning.calibrate",
-                "repro_torch.tuning.cli", "repro_torch.tuning.solver"):
+                "repro_torch.tuning.cli", "repro_torch.tuning.solver",
+                "repro_torch.fleet.records", *SERVING):
         assert f"'{mod}'" in out, out
 
 
@@ -64,6 +69,10 @@ def test_sources_import_neither_jax_nor_repro():
     tuning = {f.name for f in files if f.parent == PORT / "tuning"}
     assert tuning == {"__init__.py", "autotune.py", "cache.py", "calibrate.py",
                       "cli.py", "solver.py", "space.py", "timing.py"}
+    serving = {f"repro_torch.serving.{f.stem}" for f in files
+               if f.parent == PORT / "serving" and f.stem != "__init__"}
+    assert serving == set(SERVING)
+    assert PORT / "fleet" / "records.py" in files
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(REPO)} imports {hits}"
@@ -97,6 +106,12 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         make_fft3d(dec.PencilGrid.from_mesh(1, 1), 8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--sim", "--case", "heat", "--n", "8", "--mesh", "1x1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serving_cli.main(["--case", "heat", "--n", "8", "--mesh", "2x2"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SimServer(dec.PencilGrid.from_mesh(1, 1))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         T.init_model(get_config("smollm-360m", smoke=True))
 
@@ -194,14 +209,22 @@ def test_build_keys_each_source_by_its_headers_and_flags(monkeypatch, tmp_path):
 
 
 def test_what_this_slice_leaves_out_names_its_roadmap_item():
+    # the batched step (item 9) is ported: it runs and keeps the lanes
     solver = make_solver("heat", dec.PencilGrid.from_mesh(1, 1), 8, device="cpu")
-    for call, item in ((lambda: solver.batched_step(()), "item 9"),):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    stack = tuple(f[None] for f in solver.initial_fields())
+    assert [f.shape for f in solver.batched_step(stack)] == [s.shape for s in stack]
+    # every refusal left in the port's sources names its ROADMAP item, and
+    # none names item 9
+    raising = [f for f in sorted(PORT.rglob("*.py"))
+               if re.search(r"raise NotImplementedError", f.read_text())]
+    assert raising
+    for f in raising:
+        text = f.read_text()
+        assert re.search(r"ROADMAP Queue 1 item (1[0-3]|[1-8])\b|LM_ITEM", text), f
+        assert "item 9" not in text, f
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--sim", "--case", "heat"], "Queue 1 item 9"),
     (["--smoke", "--mesh", "2x1"], "Queue 1 item 11"),
     (["--arch", "qwen3-moe-30b-a3b"], "Queue 1 item 11"),        # MoE
     (["--arch", "deepseek-v2-lite-16b"], "Queue 1 item 11"),     # MLA + MoE
