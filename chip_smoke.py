@@ -166,7 +166,37 @@ of every layer of the prefill.  Phases, each fatal on failure:
    batches by lane count, ms of a batched step against B × a solo step's, launches
    a step, the slab and payload copies a step, the peak GiB at B and at 1,
    a ``torch.profiler`` breakdown of one batched step at B=4 on 1x1 and of
-   rank 0's on 2x2 (busy and idle share).
+   rank 0's on 2x2 (busy and idle share);
+11. fleet — ``repro_torch.fleet``'s kill-and-resume proof on the card,
+   through ``FleetController`` with this script as its worker
+   (``chip_smoke.py --fleet-worker --spec S --attempt A``: the port's
+   ``fleet.worker.main`` under ``torch.profiler``, which writes the kernel
+   wrappers' counts, the kernels the profiler saw and the time of the
+   attempt's first progress line beside the attempt's spec).  (a)
+   ``fft512_p1``'s problem, heat N=512 f64 on 1x1 ``"pallas"``, 2 jobs of 4
+   steps at scales 1.0 and 1.25, a snapshot every 2 steps, run clean and
+   then with ``kill-at-step:3``: every job completes; each chaos job in 2
+   attempts with one crash of exit code 13; ``fleet.jobs.retried`` 2,
+   ``quarantined`` 0; the histories bitwise the clean ones (``t``
+   included), the clean ones bitwise a solo in-process run of the same job;
+   ``restore_latency_us`` > 0; every finished worker launched
+   ``fft_radix2`` as often a step as the solo step and no plain version.
+   (b) one job at nls N=512 f64 on 2x1 ``pallas_ring``, fused (nls: all
+   its transforms are c2c, so the payload rides both grids; heat's would
+   ride neither), run clean and then killed at step 3 and retried on 1x2
+   (``reshape_on_retry``): it completes on 1x2, every step within 1e-10 of
+   a solo in-process 1x1 run by ``observables_rel_err`` (the steps before
+   the kill bitwise the clean 2x1 run's), and ``validate()`` passes; the
+   worker's ranks run its rank function under ``torch.profiler`` and
+   write their counts too: every rank of the clean 2x1 attempt and of the
+   1x2 retry launched ``ring_payload``, ``ring_send``, ``ring_land`` and
+   ``fft_radix2``, no plain version.  Printed beside the card's name and
+   power limit: each campaign's wall time, the time to recover (chaos
+   wall time less clean), ``restore_latency_us`` per job,
+   ``fleet.checkpoint.bytes``, each worker's startup (spawn to its first
+   progress line) and the phase's seconds.  ``chip_smoke.py --fleet-only``
+   runs phases 1 and 11 alone (in a fresh ``build/``, the two workers of
+   (a) build the kernel library at once).
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Full results go to
@@ -1113,6 +1143,17 @@ def main_path():
             {name: launches for name, (_, launches) in driven.items()})
 
 
+def _kernel_rows(prof) -> list:
+    """``(device ms, launches, name)`` of every kernel a profile saw."""
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", 0) or 0
+        if dev_us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            rows.append((dev_us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    return rows
+
+
 def _profile(step, label: str) -> dict:
     """Device time by kernel name over one call of ``step()`` from
     ``torch.profiler`` (this process's kernels), and the host-clock wall
@@ -1126,12 +1167,7 @@ def _profile(step, label: str) -> dict:
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", 0) or 0
-        if dev_us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            rows.append((dev_us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
+    rows = _kernel_rows(prof)
     busy_ms = sum(r[0] for r in rows)
     lines = [f"breakdown {label}: the profiler saw no device time (not measured)"]
     if rows:
@@ -2767,6 +2803,354 @@ def serving(smi):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the fleet (repro_torch.fleet): supervised workers, kill and resume
+# ---------------------------------------------------------------------------
+
+FLEET_DIR = os.path.join(HERE, "build", "chip_smoke_fleet")
+FLEET_N = 512
+FLEET_STEPS = 4
+FLEET_SCALES = (1.0, 1.25)
+FLEET_KILL_STEP = 3
+FLEET_KILL = f"kill-at-step:{FLEET_KILL_STEP}"
+FLEET_CKPT_EVERY = 2
+#: the step the killed attempts resume from: the last snapshot before the kill
+FLEET_RESUME = FLEET_KILL_STEP - FLEET_KILL_STEP % FLEET_CKPT_EVERY
+FLEET_CFG = {"backend": "pallas"}
+# (b): nls, whose transforms are all c2c, so the payload rides the 2x1
+# grid's X<->Y fold and the 1x2 grid's Y<->Z roundtrip; heat's would ride
+# neither (2x1: X<->Y is r2c, Y<->Z has one rank; 1x2: kx = 257 rows, a
+# prime, cut in no slabs)
+FLEET_GRID_CASE = "nls"
+FLEET_GRID_CFG = {"backend": "pallas", "comm_engine": "pallas_ring",
+                  "fused_roundtrip": True}
+FLEET_WORKER = "--fleet-worker"
+FLEET_ONLY = "--fleet-only"
+FLEET_PLAIN = ("ref.calls", "fft_mxu.plain_calls", "fft_mxu")
+RING_PLAIN = ("ref.calls", "payload_plain")
+
+
+def _write_kernels(path, rc, prof, **extra):
+    """The kernel wrappers' counts of this process and the kernels the
+    profiler saw, as ``path``."""
+    doc = {"rc": rc, "counts": {**_counts(), **_ring_counts()}, **extra,
+           "kernels": [{"ms": ms, "count": c, "name": k[:120]}
+                       for ms, c, k in _kernel_rows(prof)]}
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1)
+
+
+def _fleet_rank(ctx, spec, attempt, active):
+    """The fleet worker's rank function (``repro_torch.fleet.worker.
+    _rank_main``) under ``torch.profiler``, in each rank process of a
+    ``--fleet-worker`` job of several ranks; writes
+    ``<job>.attempt<A>.rank<r>.kernels.json``.  A killed rank writes
+    nothing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fleet import worker
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rc = worker._rank_main(ctx, spec, attempt, active)
+        torch.cuda.synchronize(ctx.device)
+    base = spec["result_path"][:-len(".result.json")]
+    _write_kernels(f"{base}.attempt{attempt}.rank{ctx.rank}.kernels.json", rc, prof)
+    return rc
+
+
+def fleet_worker(argv) -> int:
+    """``chip_smoke.py --fleet-worker --spec S --attempt A``: the
+    controller's worker (``repro_torch.fleet.worker.main``) under
+    ``torch.profiler``, its ranks' function wrapped by :func:`_fleet_rank`.
+    Beside the attempt's spec it writes ``<job>.attempt<A>.kernels.json``:
+    the kernel wrappers' counts of this process, the kernels the profiler
+    saw, and the wall-clock times of this process's start, of the end of
+    its imports and of the attempt's first progress line.  A killed 1x1
+    attempt writes nothing."""
+    import threading
+
+    t_enter = time.time()
+    sys.path.insert(0, SRC)
+    spec_path = argv[argv.index("--spec") + 1]
+    with open(spec_path) as f:
+        spec = json.load(f)
+    progress = spec["progress_path"]
+    size0 = os.path.getsize(progress) if os.path.exists(progress) else 0
+    first = []
+
+    def watch():
+        while not first:
+            if os.path.exists(progress) and os.path.getsize(progress) > size0:
+                first.append(time.time())
+            time.sleep(0.005)
+
+    threading.Thread(target=watch, daemon=True).start()
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fleet import worker
+
+    t_imported = time.time()
+    worker._rank_main = _fleet_rank
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rc = worker.main(argv)
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+    _write_kernels(spec_path.replace(".spec.json", ".kernels.json"), rc, prof,
+                   enter_time=t_enter, imported_time=t_imported,
+                   first_progress_time=first[0] if first else None)
+    return rc
+
+
+def _fleet_controller():
+    from repro_torch.fleet import FleetController
+
+    class Timed(FleetController):
+        """The controller, noting the wall-clock time of every spawn."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.spawned = {}
+
+        def _launch(self, att):
+            t = time.time()
+            run_ = super()._launch(att)
+            self.spawned[(att.job.job_id, att.attempt)] = t
+            return run_
+
+    return Timed
+
+
+def _campaign(tag, jobs, **kw):
+    """One campaign under ``FLEET_DIR/tag``: (results, controller, wall s,
+    {(job, attempt, rank or None): a worker's or rank's kernels document})."""
+    import glob
+
+    Timed = _fleet_controller()
+    workdir = os.path.join(FLEET_DIR, tag)
+    ctl = Timed(jobs, workdir=workdir, total_slots=2, ckpt_every=FLEET_CKPT_EVERY,
+                keep=2, timeout_s=600,
+                worker_argv=(sys.executable, os.path.abspath(__file__), FLEET_WORKER),
+                **kw)
+    t0 = time.perf_counter()
+    results = ctl.run()
+    wall = time.perf_counter() - t0
+    docs = {}
+    for path in glob.glob(os.path.join(workdir, "*.kernels.json")):
+        jid, attempt, *rank = os.path.basename(path).split(".")[:-2]
+        with open(path) as f:
+            docs[(jid, int(attempt[len("attempt"):]),
+                  int(rank[0][len("rank"):]) if rank else None)] = json.load(f)
+    # the snapshots are 1 GiB a field: drop them once the campaign is read
+    shutil.rmtree(os.path.join(workdir, "ckpt"), ignore_errors=True)
+    return results, ctl, wall, docs
+
+
+def _fleet_jobs(case="heat", mesh=(1, 1), cfg=FLEET_CFG, scales=FLEET_SCALES,
+                prefix="job"):
+    from repro_torch.fleet import FleetJob
+    return [FleetJob(job_id=f"{prefix}{i}", case=case, n=FLEET_N,
+                     steps=FLEET_STEPS, mesh=mesh, plan_cfg=dict(cfg), scale=s,
+                     device="cuda")
+            for i, s in enumerate(scales)]
+
+
+def _fleet_solo(case, scale, cfg):
+    """A solo in-process 1x1 run of a job: its history ``{step: obs}``, the
+    ``fft_radix2`` launches of one step (every step the same) and the
+    solver (for its ``validate()``)."""
+    import torch
+
+    from repro_torch.core.decomposition import PencilGrid
+    from repro_torch.kernels import fft_radix2
+    from repro_torch.serving.server import scaled_initial_fields
+    from repro_torch.solvers import SolverState, make_solver
+
+    solver = make_solver(case, PencilGrid.from_mesh(1, 1), FLEET_N, device="cuda",
+                         dtype="float64", plan_cfg=dict(cfg))
+    state = SolverState(fields=scaled_initial_fields(solver, scale))
+    history = {0: solver.observables(state)}
+    per_step = set()
+    for i in range(1, FLEET_STEPS + 1):
+        before = fft_radix2.launches
+        state = solver.step(state)
+        torch.cuda.synchronize()
+        per_step.add(fft_radix2.launches - before)
+        history[i] = solver.observables(state)
+    del state
+    torch.cuda.empty_cache()
+    if len(per_step) != 1:
+        fail(f"fleet: a solo {case} step launched fft_radix2 {sorted(per_step)} times")
+    return history, per_step.pop(), solver
+
+
+def _startups(ctl, docs, attempt):
+    """Seconds from each spawn of ``attempt`` to its first progress line,
+    and the part of it before the worker's imports had ended."""
+    out = {}
+    for (jid, a, rank), doc in sorted(docs.items(), key=str):
+        if a == attempt and rank is None and doc.get("first_progress_time"):
+            t = ctl.spawned[(jid, a)]
+            out[jid] = {"first_line_s": round(doc["first_progress_time"] - t, 3),
+                        "imports_s": round(doc["imported_time"] - t, 3)}
+    return out
+
+
+def _check_docs(tag, docs, need, plain, steps_of=None, per_step=0):
+    """Every document's process launched each kernel of ``need`` (with
+    ``steps_of``, ``fft_radix2`` exactly ``per_step`` times a step), no
+    plain version, and the profiler, where it saw the card, saw each
+    kernel; returns the launches of ``need`` summed."""
+    total = dict.fromkeys(need, 0)
+    for key, doc in sorted(docs.items(), key=str):
+        c = doc["counts"]
+        bad = any(c[k] == 0 for k in need) or any(c[k] for k in plain)
+        if steps_of is not None:
+            bad = bad or c["fft_radix2"] != steps_of(*key) * per_step
+        names = " ".join(k["name"] for k in doc["kernels"])
+        if bad or (names and any(f"{k}_kernel" not in names for k in need)):
+            fail(f"fleet {tag} {key}: counts {c}, kernels seen "
+                 f"{[k['name'][:60] for k in doc['kernels'][:10]]}"
+                 + (f"; a solo step launches fft_radix2 {per_step} times"
+                    if steps_of else ""))
+        for k in need:
+            total[k] += c[k]
+    return total
+
+
+def fleet(smi):
+    """Phase 11: the fleet's kill-and-resume proof on the card; returns the
+    results and the launches of rows 1, 3, 5 and 6."""
+    import torch
+
+    from repro_torch.fleet.records import KILL_EXIT
+    from repro_torch.solvers.base import observables_rel_err
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    out = {}
+    # (a) heat 1x1 on "pallas": clean, then every worker killed after step 3
+    clean, cctl, clean_s, cdocs = _campaign("clean", _fleet_jobs())
+    chaos, kctl, chaos_s, kdocs = _campaign("chaos", _fleet_jobs(), fault_spec=FLEET_KILL)
+    solos = [_fleet_solo("heat", s, FLEET_CFG) for s in FLEET_SCALES]
+    per_step = solos[0][1]
+    for i, (hist, n, _) in enumerate(solos):
+        c, k = clean[f"job{i}"], chaos[f"job{i}"]
+        if n != per_step:
+            fail(f"fleet: solo steps launch fft_radix2 {n} and {per_step} times")
+        if not c.ok or c.attempts != 1 or c.history != hist:
+            fail(f"fleet (a) clean job{i}: {c.status}, {c.attempts} attempt(s); "
+                 f"history bitwise the solo run: {c.history == hist}")
+        kinds = [(f.kind, f.exit_code) for f in k.failures]
+        if not k.ok or k.attempts != 2 or kinds != [("crash", KILL_EXIT)]:
+            fail(f"fleet (a) chaos job{i}: {k.status}, {k.attempts} attempts, "
+                 f"failures {kinds}")
+        if k.history != c.history:
+            fail(f"fleet (a) chaos job{i}: history is not bitwise the clean one: "
+                 f"{k.history} vs {c.history}")
+        if not k.restore_latency_us > 0:
+            fail(f"fleet (a) chaos job{i}: restore_latency_us {k.restore_latency_us}")
+    del solos
+    if kctl.counters["fleet.jobs.retried"] != 2 or kctl.counters["fleet.jobs.quarantined"]:
+        fail(f"fleet (a) chaos counters {kctl.counters}")
+    # every finished worker: the clean ones, the chaos retries (from step 2)
+    finished = {("clean",) + k: v for k, v in cdocs.items()}
+    finished.update({("chaos",) + k: v for k, v in kdocs.items() if k[1] == 1})
+    if set(finished) != {(run, f"job{i}", int(run == "chaos"), None)
+                         for run in ("clean", "chaos") for i in range(2)}:
+        fail(f"fleet (a): worker documents {sorted(cdocs)} {sorted(kdocs)}")
+    radix2 = _check_docs(
+        "(a)", finished, ("fft_radix2",), FLEET_PLAIN,
+        lambda run, *_: FLEET_STEPS - (FLEET_RESUME if run == "chaos" else 0),
+        per_step)["fft_radix2"]
+    out["a"] = {"clean": cctl.report(clean), "chaos": kctl.report(chaos),
+                "clean_s": clean_s, "chaos_s": chaos_s,
+                "startup": _startups(cctl, cdocs, 0),
+                "resumed_first_line": _startups(kctl, kdocs, 1),
+                "radix2_per_step": per_step, "radix2_launches": radix2}
+    say(f"[{smi}] fleet (a) heat N={FLEET_N} f64 1x1 {FLEET_CFG}, 2 jobs x "
+        f"{FLEET_STEPS} steps (scales {FLEET_SCALES}), ckpt every {FLEET_CKPT_EVERY}: "
+        f"clean {clean_s:.3f} s, chaos ({FLEET_KILL}) {chaos_s:.3f} s, time to "
+        f"recover {chaos_s - clean_s:.3f} s; restore_latency_us "
+        f"{ {j: r.restore_latency_us for j, r in sorted(chaos.items())} }; "
+        f"fleet.checkpoint.bytes clean {int(cctl.counters['fleet.checkpoint.bytes'])} "
+        f"chaos {int(kctl.counters['fleet.checkpoint.bytes'])}; worker startup "
+        f"(spawn to first progress line; to the end of its imports) "
+        f"{out['a']['startup']}; resumed attempts' first line (restore and a step) "
+        f"{out['a']['resumed_first_line']}")
+    say(f"fleet (a): every job completed, each chaos job 2 attempts with one "
+        f"crash (exit {KILL_EXIT}), retried 2, quarantined 0; histories bitwise "
+        f"the clean ones and the clean ones bitwise a solo run; fft_radix2 "
+        f"{per_step} launches a step in every finished worker ({radix2} in all), "
+        f"no plain version")
+
+    # (b) nls 2x1 on pallas_ring, fused: clean, then killed and resumed on 1x2
+    ref, _, validator = _fleet_solo(FLEET_GRID_CASE, FLEET_SCALES[0], FLEET_GRID_CFG)
+    jobs = _fleet_jobs(FLEET_GRID_CASE, (2, 1), FLEET_GRID_CFG, FLEET_SCALES[:1], "grid")
+    gclean, gcctl, gclean_s, gcdocs = _campaign("grid_clean", jobs)
+    gchaos, gkctl, gchaos_s, gkdocs = _campaign(
+        "grid_chaos", jobs, fault_spec=FLEET_KILL, reshape_on_retry=((1, 2),))
+    gc, gk = gclean["grid0"], gchaos["grid0"]
+    with open(os.path.join(FLEET_DIR, "grid_chaos", "grid0.attempt1.spec.json")) as f:
+        retry_mesh = json.load(f)["mesh"]
+    kinds = [(f.kind, f.exit_code) for f in gk.failures]
+    if not gc.ok or gc.attempts != 1 or not gk.ok or gk.attempts != 2 or \
+            kinds != [("crash", KILL_EXIT)] or retry_mesh != [1, 2]:
+        fail(f"fleet (b): clean {gc.status} in {gc.attempts} attempt(s), chaos "
+             f"{gk.status} in {gk.attempts} attempts, failures {kinds}, the retry "
+             f"on {retry_mesh}")
+    errs = {}
+    for step, want in ref.items():
+        have = gk.history.get(step)
+        if have is None or have["t"] != want["t"]:
+            fail(f"fleet (b) step {step}: {have} vs the solo 1x1 run's {want}")
+        errs[step] = observables_rel_err(have, want)
+    if max(errs.values()) > 1e-10:
+        fail(f"fleet (b): observables vs the solo 1x1 run {errs} > 1e-10")
+    if any(gk.history[i] != gc.history[i] for i in range(FLEET_RESUME + 1)):
+        fail("fleet (b): the steps before the kill are not bitwise the clean 2x1 run's")
+    ok, lines = validator.validate([gk.history[i] for i in sorted(gk.history)])
+    if not ok:
+        fail(f"fleet (b): validate() failed: {lines}")
+    del validator
+    torch.cuda.empty_cache()
+    # every rank of the finished attempts: the clean 2x1 run, the 1x2 retry
+    ranks = {("clean",) + k: v for k, v in gcdocs.items() if k[2] is not None}
+    ranks.update({("chaos",) + k: v for k, v in gkdocs.items() if k[2] is not None})
+    if set(ranks) != {(run, "grid0", int(run == "chaos"), r)
+                      for run in ("clean", "chaos") for r in range(2)}:
+        fail(f"fleet (b): rank documents {sorted(ranks)}")
+    ring = _check_docs("(b)", ranks, RING_KERNELS, RING_PLAIN)
+    out["b"] = {"case": FLEET_GRID_CASE, "clean": gcctl.report(gclean),
+                "chaos": gkctl.report(gchaos), "clean_s": gclean_s,
+                "chaos_s": gchaos_s, "obs_rel_err": errs,
+                "startup": _startups(gcctl, gcdocs, 0),
+                "resumed_first_line": _startups(gkctl, gkdocs, 1),
+                "rank_counts": {"/".join(map(str, k)): v["counts"]
+                                for k, v in sorted(ranks.items())}}
+    say(f"[{smi}] fleet (b) {FLEET_GRID_CASE} N={FLEET_N} f64 2x1 {FLEET_GRID_CFG}, "
+        f"1 job: clean {gclean_s:.3f} s, chaos ({FLEET_KILL}, retried on 1x2) "
+        f"{gchaos_s:.3f} s, time to recover {gchaos_s - gclean_s:.3f} s; "
+        f"restore_latency_us {gk.restore_latency_us}; fleet.checkpoint.bytes clean "
+        f"{int(gcctl.counters['fleet.checkpoint.bytes'])} chaos "
+        f"{int(gkctl.counters['fleet.checkpoint.bytes'])}; worker startup (spawn "
+        f"to first progress line, 2 ranks; to the end of the worker's imports) "
+        f"{out['b']['startup']}; the 1x2 retry's first line (2 ranks, restore "
+        f"and a step) {out['b']['resumed_first_line']}")
+    say(f"fleet (b): completed on 1x2, every step within {max(errs.values()):.3e} "
+        f"of the solo 1x1 run (steps 0-{FLEET_RESUME} bitwise the clean 2x1 "
+        f"run's), validate() passing; every rank of the clean 2x1 attempt and "
+        f"of the 1x2 retry launched {', '.join(RING_KERNELS)} ({ring} in all), "
+        f"no plain version; counts (run, job, attempt, rank) "
+        f"{out['b']['rank_counts']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"[{smi}] fleet: phase 11 in {out['phase_s']:.3f} s")
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    return out, {"fft_radix2": radix2, **ring}
+
+
 REPLACES = {"flash_attention": "src/repro/kernels/attention.py:68",
             "fft_radix2": "src/repro/kernels/fft_radix2.py:90",
             "fft_mxu": "src/repro/kernels/fft_mxu.py:80",
@@ -2775,13 +3159,16 @@ REPLACES = {"flash_attention": "src/repro/kernels/attention.py:68",
             "ring_land": "src/repro/kernels/ring_rdma.py:101"}
 
 
-def main() -> int:
+def main(argv) -> int:
     name, smi = card()
     sys.path.insert(0, SRC)
     import torch
 
     # the plain versions' products go through cuBLAS: full f32, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
+    if argv == [FLEET_ONLY]:
+        fleet(smi)
+        return 0
     flash_sass_counts, ptxas_build = build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_abs = kernel_vs_plain(gen)
@@ -2805,6 +3192,9 @@ def main() -> int:
     tuned = tuning(runs, ranks, tune_backends)
     served, serve_launches = serving(smi)
     for k, n in serve_launches.items():
+        launches[k] += n
+    fleeted, fleet_launches = fleet(smi)
+    for k, n in fleet_launches.items():
         launches[k] += n
 
     kernels = []
@@ -2841,7 +3231,7 @@ def main() -> int:
                    "kernels": kernels, "runs": runs, "breakdown": prof,
                    "observability": observed, "multi_rank": ranks,
                    "staged": staged_ranks, "flash_bf16_gaps": flash_gaps, "lm": lm,
-                   "tuning": tuned, "serving": served},
+                   "tuning": tuned, "serving": served, "fleet": fleeted},
                   f, indent=1)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
@@ -2850,4 +3240,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == [FLEET_WORKER]:
+        sys.exit(fleet_worker(sys.argv[2:]))
+    sys.exit(main(sys.argv[1:]))

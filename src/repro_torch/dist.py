@@ -6,9 +6,14 @@ one program over a device mesh.  Here every rank is a process under
 ``torch.distributed``:
 
 * :func:`run_ranks` spawns the ``Pu·Pv`` processes (``spawn`` start
-  method), joins them into one gloo group over ``tcp://localhost`` on a
-  free port, binds rank ``r`` to ``cuda:{r % device_count}`` when the run
-  is on the card, and runs ``fn(ctx, *args)`` in each;
+  method), joins them into one gloo group through a ``TCPStore`` on
+  localhost that the parent opens (and so holds its port) before any
+  rank starts, binds rank ``r`` to ``cuda:{r % device_count}`` when the
+  run is on the card, and runs ``fn(ctx, *args)`` in each.  It watches
+  the processes as well as their results: a rank that dies without
+  reporting (``os._exit``, a signal, a CUDA abort) stops the run within
+  a second or two, and every failure raises :class:`RankFailure` with
+  the ranks' exit codes;
 * the mesh is 2-axis ``("data", "model")`` (``u`` over ``"data"``) or,
   with ``u_sizes=(q₀, q₁)``, 3-axis ``("pod", "data", "model")`` with
   ``u`` over ``("pod", "data")``, as the reference's 3-axis meshes are.
@@ -34,7 +39,7 @@ import datetime
 import math
 import os
 import queue
-import socket
+import time
 import traceback
 
 import torch
@@ -48,6 +53,12 @@ _CONTEXT = None
 
 #: seconds a rank waits in one collective before the run is called hung
 TIMEOUT_S = 600
+#: seconds between two looks at the rank processes while run_ranks waits
+POLL_S = 0.1
+#: seconds the other ranks get to exit on their own once one has failed
+#: (the fleet's kill makes every rank exit with the same code) before
+#: they are terminated
+GRACE_S = 2.0
 
 #: the names of the mesh axes, as the reference's meshes name them: ``u``
 #: over ``("data",)`` or ``("pod", "data")``, ``v`` over ``("model",)``
@@ -238,18 +249,26 @@ def all_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
     return t.to(x.device)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+class RankFailure(RuntimeError):
+    """A run of :func:`run_ranks` failed: a rank raised, exited without a
+    result, or the run outlived its timeout.  ``rank`` is the rank that
+    failed first (None for a timeout); ``exit_codes`` maps every rank to
+    its process's exit code once the run was stopped (negative: the
+    signal that ended it, ``-15`` for the ranks stopped here)."""
+
+    def __init__(self, msg: str, rank: int | None, exit_codes: dict):
+        super().__init__(msg)
+        self.rank = rank
+        self.exit_codes = dict(exit_codes)
 
 
 def _worker(fn, grid, rank, port, device, args, results):
     global _CONTEXT
     try:
-        tdist.init_process_group(
-            "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-            world_size=grid.p, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+        timeout = datetime.timedelta(seconds=TIMEOUT_S)
+        store = tdist.TCPStore("localhost", port, is_master=False, timeout=timeout)
+        tdist.init_process_group("gloo", store=store, rank=rank,
+                                 world_size=grid.p, timeout=timeout)
         dev = torch.device(device)
         if dev.type == "cuda":
             dev = torch.device("cuda", rank % torch.cuda.device_count())
@@ -267,6 +286,38 @@ def _worker(fn, grid, rank, port, device, args, results):
         os._exit(1)
 
 
+def _wait(procs, results, tag: str, timeout: float):
+    """Collect every rank's result; returns ``(outs, None)``, or
+    ``(outs, (message, rank))`` at the first failure: a rank's traceback,
+    a rank process that exited without a result, or the deadline."""
+    outs: list = [None] * len(procs)
+    done: set = set()
+    deadline = time.monotonic() + timeout
+    while len(done) < len(procs):
+        try:
+            rank, ok, value = results.get(timeout=POLL_S)
+        except queue.Empty:
+            dead = [r for r, proc in enumerate(procs)
+                    if r not in done and proc.exitcode is not None]
+            if dead:
+                try:  # a rank's last report may still be in the pipe
+                    rank, ok, value = results.get(timeout=1.0)
+                except queue.Empty:
+                    r = dead[0]
+                    return outs, (f"rank {r} of {tag} exited with code "
+                                  f"{procs[r].exitcode} without a result", r)
+            elif time.monotonic() > deadline:
+                return outs, (f"the {tag} ranks did not finish within "
+                              f"{timeout} s", None)
+            else:
+                continue
+        if not ok:
+            return outs, (f"rank {rank} of {tag} failed:\n{value}", rank)
+        outs[rank] = value
+        done.add(rank)
+    return outs, None
+
+
 def run_ranks(fn, pu: int, pv: int, *, u_sizes=None, device="cuda", args=(),
               timeout: float = 3 * TIMEOUT_S) -> list:
     """Run ``fn(ctx, *args)`` in each of the ``pu·pv`` rank processes of a
@@ -279,42 +330,46 @@ def run_ranks(fn, pu: int, pv: int, *, u_sizes=None, device="cuda", args=(),
     (the processes start fresh), and its arguments and results picklable.
     ``device`` is where the ranks run: ``"cuda"`` binds rank ``r`` to card
     ``r % device_count`` (and raises here when there is none), ``"cpu"``
-    keeps them on the host.  When a rank fails, the others are stopped and
-    the first traceback raises.
+    keeps them on the host.  When a rank fails (raises, or its process
+    exits without a result), the others are stopped and
+    :class:`RankFailure` raises with the first failure and every rank's
+    exit code; so does a run that outlives ``timeout`` seconds.
     """
     if pu < 1 or pv < 1:
         raise ValueError(f"a {pu}x{pv} grid has no ranks")
     grid = layout(pu, pv, u_sizes)
     dev = resolve_device(device)
     p = grid.p
-    tag = grid.mesh_label
-    port = _free_port()
+    # the store listens before any rank starts, on a port the OS picks and
+    # this process holds until the run ends: no other run can take it
+    store = tdist.TCPStore("localhost", 0, is_master=True, wait_for_workers=False,
+                           timeout=datetime.timedelta(seconds=TIMEOUT_S))
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    procs = [ctx.Process(target=_worker, args=(fn, grid, r, port, dev.type,
+    procs = [ctx.Process(target=_worker, args=(fn, grid, r, store.port, dev.type,
                                                  tuple(args), results))
              for r in range(p)]
-    for proc in procs:
-        proc.start()
-    outs: list = [None] * p
-    failure = None
+    # until _wait returns, a failure: anything raised here stops every rank
+    outs, failure = None, ("interrupted", None)
     try:
-        for _ in range(p):
-            rank, ok, value = results.get(timeout=timeout)
-            if not ok:
-                failure = f"rank {rank} of {tag} failed:\n{value}"
-                break
-            outs[rank] = value
-    except queue.Empty:
-        failure = f"the {tag} ranks did not finish within {timeout} s"
-    finally:
         for proc in procs:
+            proc.start()
+        outs, failure = _wait(procs, results, grid.mesh_label, timeout)
+    finally:
+        started = [proc for proc in procs if proc.pid is not None]
+        if failure is not None:  # the others get GRACE_S to exit by themselves
+            end = time.monotonic() + GRACE_S
+            for proc in started:
+                proc.join(timeout=max(0.0, end - time.monotonic()))
+        for proc in started:
             if failure is not None and proc.is_alive():
                 proc.terminate()
             proc.join(timeout=60)
             if proc.is_alive():
                 proc.kill()
                 proc.join()
+        del store
     if failure is not None:
-        raise RuntimeError(failure)
+        msg, rank = failure
+        raise RankFailure(msg, rank, {r: proc.exitcode for r, proc in enumerate(procs)})
     return outs

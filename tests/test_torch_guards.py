@@ -21,6 +21,7 @@ from repro_torch.core import decomposition as dec
 from repro_torch.core import spectral as sp
 from repro_torch.core.fft3d import FFT3DPlan, make_fft3d
 from repro_torch.configs import get_config
+from repro_torch.fleet import cli as fleet_cli
 from repro_torch.kernels import _build
 from repro_torch.launch import serve
 from repro_torch.models import transformer as T
@@ -32,6 +33,8 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
 SERVING = tuple(f"repro_torch.serving.{m}" for m in
                 ("cli", "loadgen", "queue", "registry", "request", "server"))
+FLEET = tuple(f"repro_torch.fleet.{m}" for m in
+              ("cli", "controller", "faults", "records", "worker"))
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.MULTILINE)
 
 
@@ -56,7 +59,7 @@ def test_import_leaves_jax_and_repro_out():
                 "repro_torch.core.topology", "repro_torch.configs.fft_configs",
                 "repro_torch.tuning.autotune", "repro_torch.tuning.calibrate",
                 "repro_torch.tuning.cli", "repro_torch.tuning.solver",
-                "repro_torch.fleet.records", *SERVING):
+                *FLEET, *SERVING):
         assert f"'{mod}'" in out, out
 
 
@@ -72,7 +75,9 @@ def test_sources_import_neither_jax_nor_repro():
     serving = {f"repro_torch.serving.{f.stem}" for f in files
                if f.parent == PORT / "serving" and f.stem != "__init__"}
     assert serving == set(SERVING)
-    assert PORT / "fleet" / "records.py" in files
+    fleet = {f"repro_torch.fleet.{f.stem}" for f in files
+             if f.parent == PORT / "fleet" and f.stem != "__init__"}
+    assert fleet == set(FLEET)
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(REPO)} imports {hits}"
@@ -97,6 +102,37 @@ def test_suite_collects_without_torch():
     assert "tests/test_fft3d.py::" in r.stdout  # the reference's tests
 
 
+def test_fleet_exports_the_reference_names():
+    import repro.fleet
+    import repro_torch.fleet
+
+    assert repro_torch.fleet.__all__ == repro.fleet.__all__
+    for name in repro.fleet.__all__:
+        assert hasattr(repro_torch.fleet, name), name
+
+
+def test_fleet_worker_leaves_jax_and_repro_out(tmp_path, monkeypatch):
+    # a real worker attempt of a 1x1 CPU job, run through the controller's
+    # worker_argv hook; what the process holds when the job has ended
+    from repro_torch.fleet import FleetController, FleetJob
+
+    code = ("import sys\n"
+            "from repro_torch.fleet import worker\n"
+            "rc = worker.main(sys.argv[1:])\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'repro'))\n"
+            "print('LOADED', bad, 'SOLVER', 'repro_torch.solvers.heat' in sys.modules)\n"
+            "sys.exit(rc)\n")
+    monkeypatch.setenv("PYTHONPATH", str(REPO / "src"))
+    ctl = FleetController(
+        [FleetJob(job_id="j0", case="heat", n=8, steps=2, mesh=(1, 1), device="cpu")],
+        workdir=str(tmp_path), total_slots=1, verbose=False,
+        worker_argv=(sys.executable, "-c", code))
+    res = ctl.run()["j0"]
+    log = (tmp_path / "j0.attempt0.log").read_text()
+    assert res.ok and sorted(res.history) == [0, 1, 2], log
+    assert "LOADED [] SOLVER True" in log, log
+
+
 def test_default_device_is_cuda_and_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
@@ -114,6 +150,8 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         SimServer(dec.PencilGrid.from_mesh(1, 1))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         T.init_model(get_config("smollm-360m", smoke=True))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fleet_cli.main(["--jobs", "1", "--n", "8", "--submesh", "1x1"])
 
 
 @pytest.mark.parametrize("pu,pv", [(2, 1), (1, 2), (4, 2)])
