@@ -5,13 +5,14 @@
 
 Run from the root of a checkout (it imports ``src/repro_torch``; nothing of
 JAX or of the JAX package ``repro``).  It covers the six kernels of the
-port's two main paths.  The solver step: ``fft_radix2`` (backend
+port's three main paths.  The solver step: ``fft_radix2`` (backend
 ``"pallas"``), ``fft_mxu`` (backend ``"mxu"``, the four-step FFT on the
 FP64 tensor cores), and the NIC engine's ``ring_payload``, ``ring_send``
 and ``ring_land`` (``csrc/ring_rdma.cu``, engines
 ``pallas_ring``/``bidi_ring`` on a grid of more than one rank).  LM
-serving: ``flash_attention`` (``csrc/flash_attention.cu``), the attention
-of every layer of the prefill.  Phases, each fatal on failure:
+serving and training: ``flash_attention`` (``csrc/flash_attention.cu``),
+the attention of every layer of the prefill and of every forward of a
+training step.  Phases, each fatal on failure:
 
 1. card — ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build — the four CUDA sources, ``nvcc`` processes started together,
@@ -79,8 +80,9 @@ of every layer of the prefill.  Phases, each fatal on failure:
    34 TFLOP/s; FP64 tensor cores, 67 TFLOP/s, for ``fft_mxu``); for
    ``flash_attention`` also the served head dimensions 128 (qwen1.5-4b's
    heads) and 256 (gemma-2b's) at B=8, S=T=2048, bf16, causal, against
-   SDPA, and the f32 kernel at the f32 prefill shape against f32 SDPA
-   (TF32 off);
+   SDPA, the f32 kernel at the f32 prefill shape against f32 SDPA
+   (TF32 off), and the bf16 kernel at the training step's shape (B=8,
+   S=T=512) against SDPA and its plain version;
 5. main path — ``heat`` (fused roundtrip off and on), ``poisson`` and
    ``nls`` at N=512 f64 and ``navier_stokes`` at N=256 f64 through
    ``make_solver(..., device="cuda", plan_cfg={"backend": ...})`` on a 1×1
@@ -196,7 +198,33 @@ of every layer of the prefill.  Phases, each fatal on failure:
    ``fleet.checkpoint.bytes``, each worker's startup (spawn to its first
    progress line) and the phase's seconds.  ``chip_smoke.py --fleet-only``
    runs phases 1 and 11 alone (in a fresh ``build/``, the two workers of
-   (a) build the kernel library at once).
+   (a) build the kernel library at once);
+12. training — ``smollm-360m`` at full width and depth through
+   ``repro_torch.launch.train`` (bf16 compute, f32 params and moments,
+   two-level remat, B=8, S=512, random weights from seed 0).  (a) Step
+   0's loss and gradients through the kernel path against the plain
+   attention's (``RunCfg(plain_attention=True)``), in bf16 and in f32: the
+   kernel launched once a block forward (``models.transformer.
+   block_forwards``: 92 a step, 32 layers in groups of 8) and no plain
+   call; every ``wq``/``wk``/``wv`` gradient nonzero; per gradient leaf
+   ``||d|| <= tol·||g_plain||`` (bf16 5e-2, f32 1e-5); the losses within
+   3e-2 relative; and the same gate must refuse a control whose kernel
+   output is detached from q, k and v (the fault this slice repaired).
+   (b) 12 steps through ``launch/train.py``'s ``main``, counts set to 0
+   just before and read just after: every loss finite, ``flash_attention``
+   launched 12 × 92 times, no plain call, no pad copy.  (c) The run halted
+   after step 6 (checkpoints of ≈4.34 GB at steps 0 and 6, under
+   ``build/``), the latest restored onto the card on the clock, then
+   resumed in a fresh process (``python -m repro_torch.launch.train``):
+   the losses of steps 8-11 within 1e-4 of (b)'s (the lines print 4
+   decimals; whether they equal (b)'s as printed, and the halted run's
+   bitwise, is shown); the directory deleted after.
+   (d) ms/step (host clock around each synchronised step, the first
+   apart), tokens/s, peak GiB, the checkpoint's bytes, snapshot, write and
+   restore seconds, one step under ``torch.profiler``, and the attention's
+   forward and backward at the training shape (kernel + ``attention_grad``
+   against SDPA).  ``chip_smoke.py --train-only`` runs phases 1 and 12
+   alone.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Full results go to
@@ -308,6 +336,8 @@ SERVE_BACKENDS = ("pallas", "mxu")
 # heads, head_dim 64; bf16 at prompt 2048, f32 at prompt 512), then the
 # edges of tests/test_torch_gpu.py (D 20..256, groups 1, 3, 8, S 1..2048)
 FLASH_MAIN = (8, 2048, 2048, 15, 5, 64, True)
+# phase 4 also times the training step's shape (phase 12: B=8, S=512)
+FLASH_TRAIN = (8, 512, 512, 15, 5, 64, True)
 FLASH_CHECKS = {
     "bfloat16": (FLASH_MAIN, (1, 1, 1, 8, 1, 256, True), (1, 17, 17, 6, 2, 20, True),
                  (2, 64, 77, 24, 3, 128, False), (1, 2048, 2048, 6, 2, 256, True),
@@ -651,10 +681,11 @@ def flash_timing(gen):
     """Phase 4, flash attention, bf16 and causal at B=8, S=T=2048: at the
     prefill shape (smollm-360m's heads) and with the heads of
     ``FLASH_ARCHS`` (head dimensions 128 and 256); then the f32 kernel at
-    phase 3's f32 prefill shape.  Each against ``scaled_dot_product_attention``
-    on (B, H, S, D) views with ``enable_gqa`` (a yardstick the port never
-    calls; f32 with TF32 off, as ``main`` sets), CUDA events; the plain
-    version at the prefill shape only.  The bound is the larger of q, k, v
+    phase 3's f32 prefill shape, and bf16 at the training step's shape
+    (B=8, S=T=512).  Each against ``scaled_dot_product_attention`` on (B,
+    H, S, D) views with ``enable_gqa`` (a yardstick the port never calls;
+    f32 with TF32 off, as ``main`` sets), CUDA events; the plain version at
+    the prefill and training shapes only.  The bound is the larger of q, k, v
     and o's bytes over 3.35 TB/s and the kept pairs' flops over the peak of
     the units the kernel runs on (bf16 tensor cores; f32 CUDA cores).
     Returns one record a shape, the prefill shape's first."""
@@ -671,6 +702,7 @@ def flash_timing(gen):
                               True), torch.bfloat16, BF16_TC_FLOPS))
     shapes.append(("smollm-360m f32", FLASH_CHECKS["float32"][0], torch.float32,
                    FP32_FLOPS))
+    shapes.append(("smollm-360m training", FLASH_TRAIN, torch.bfloat16, BF16_TC_FLOPS))
     out = []
     for label, shape, dtype, peak in shapes:
         b, s, t, h, hkv, d, causal = shape
@@ -680,7 +712,8 @@ def flash_timing(gen):
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         ms = _time_ms(lambda: attention.flash_attention(q, k, v, causal=causal), 20, 3)
         plain_ms = (_time_ms(lambda: attention.flash_attention_plain(
-            q, k, v, causal=causal), 3, 1) if shape == FLASH_MAIN else None)
+            q, k, v, causal=causal), 3, 1) if shape in (FLASH_MAIN, FLASH_TRAIN)
+            else None)
         library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True), 20, 3)
         moved = q.element_size() * (2 * b * s * h * d + 2 * b * t * hkv * d)
@@ -1154,10 +1187,11 @@ def _kernel_rows(prof) -> list:
     return rows
 
 
-def _profile(step, label: str) -> dict:
+def _profile(step, label: str, top: int = 8) -> dict:
     """Device time by kernel name over one call of ``step()`` from
     ``torch.profiler`` (this process's kernels), and the host-clock wall
-    time around it; busy over wall gives the idle share."""
+    time around it; busy over wall gives the idle share.  Prints the
+    ``top`` kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1172,9 +1206,10 @@ def _profile(step, label: str) -> dict:
     lines = [f"breakdown {label}: the profiler saw no device time (not measured)"]
     if rows:
         lines = [f"breakdown {label}: wall {wall_ms:.3f} ms, device busy "
-                 f"{busy_ms:.3f} ms, idle {1 - busy_ms / wall_ms:.1%}"]
+                 f"{busy_ms:.3f} ms, idle {1 - busy_ms / wall_ms:.1%}, "
+                 f"{sum(r[1] for r in rows)} kernels"]
         lines += [f"  {ms:9.3f} ms {ms / busy_ms:6.1%} x{c:<4d} {k[:90]}"
-                  for ms, c, k in rows[:8]]
+                  for ms, c, k in rows[:top]]
     return {"label": label, "wall_ms": wall_ms, "busy_ms": busy_ms,
             "kernels": [{"ms": ms, "count": c, "name": k[:120]}
                         for ms, c, k in rows], "lines": lines}
@@ -3151,6 +3186,348 @@ def fleet(smi):
     return out, {"fft_radix2": radix2, **ring}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: training (repro_torch.launch.train) at smollm-360m's full width
+# ---------------------------------------------------------------------------
+
+# launch/train.py's defaults: smollm-360m (32 layers, d 960), bf16 compute,
+# f32 params and moments, remat, B=8, S=512
+TRAIN_ARCH = "smollm-360m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 12
+# (c): the halted run saves at steps 0 and 6 (every 6) and stops after 7;
+# the resumed run restarts at 7 and saves at 11, its last step
+TRAIN_HALT, TRAIN_CKPT_EVERY = 7, 6
+TRAIN_RESUME_TOL = 1e-4
+TRAIN_DIR = os.path.join(HERE, "build", "chip_smoke_train")
+# (a): the kernel path against the plain attention through the whole model
+# at step 0: per gradient leaf ||g_kernel - g_plain|| <= tol·||g_plain||,
+# every wq/wk/wv gradient nonzero, the losses within TRAIN_LOSS_TOL
+# relative; the same gate must refuse the kernel's output detached from q,
+# k and v (the fault this slice repaired: no gradient reaches wq, wk, wv).
+# The tolerances are about 3-4x the largest gaps measured on the H100:
+# 1.48e-2 in bf16 (one-unit differences of the attention's bf16 output and
+# gradients, through 32 layers) and 2.45e-6 in f32
+TRAIN_GRAD_TOL = {"bfloat16": 5e-2, "float32": 1e-5}
+TRAIN_LOSS_TOL = 3e-2
+# (d): steps timed after the first
+TRAIN_TIMED = 5
+TRAIN_ONLY = "--train-only"
+
+
+def _train_grads(cfg, run, model, tokens):
+    """(loss, {name: gradient}) of ``lm_loss`` at ``model``'s parameters;
+    a parameter the loss does not reach gets a zero gradient."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    model.requires_grad_(True)
+    loss = T.lm_loss(cfg, run, model, {"tokens": tokens})
+    names, leaves = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return loss.item(), dict(zip(names, grads))
+
+
+def _check_grads(label, got, want, loss, loss_want, tol):
+    """(a)'s gate on the gradients ``got`` against ``want``: every leaf
+    finite and within ``tol`` (||d|| over ||want||), every wq/wk/wv
+    gradient nonzero, the losses within TRAIN_LOSS_TOL relative.  Prints
+    the gaps; returns (passes, record)."""
+    import torch
+
+    gaps = {}
+    for name, w in want.items():
+        d = got[name].float() - w.float()
+        gaps[name] = ((d.norm() / w.float().norm().clamp_min(1e-30)).item(),
+                      (d.abs().max() / w.float().abs().max().clamp_min(1e-30)).item())
+    worst = max(gaps, key=lambda n: gaps[n][0])
+    qkv = [n for n in got if n.rsplit(".", 1)[-1] in ("wq", "wk", "wv")]
+    zero = [n for n in qkv if not bool(got[n].abs().max() > 0)]
+    finite = all(bool(torch.isfinite(g).all()) for g in got.values())
+    loss_gap = abs(loss - loss_want) / abs(loss_want)
+    ok = finite and gaps[worst][0] <= tol and not zero and loss_gap <= TRAIN_LOSS_TOL
+    qkv_gap = max(gaps[n][0] for n in qkv)
+    say(f"training (a) {label}: loss {loss:.6f} against the plain attention's "
+        f"{loss_want:.6f} ({loss_gap:.3e} relative, tol {TRAIN_LOSS_TOL:g}); "
+        f"gradient leaves ||d||/||g|| max {gaps[worst][0]:.3e} at {worst} "
+        f"(max|d|/max|g| {gaps[worst][1]:.3e}), wq/wk/wv max {qkv_gap:.3e} "
+        f"(tol {tol:g}); {len(zero)} of {len(qkv)} wq/wk/wv gradients zero: "
+        f"{'passes' if ok else 'refused'}")
+    return ok, {"loss": loss, "loss_plain": loss_want, "loss_gap": loss_gap,
+                "worst_leaf": worst, "worst_norm_gap": gaps[worst][0],
+                "worst_max_gap": gaps[worst][1], "qkv_norm_gap": qkv_gap,
+                "max_gap": max(g[1] for g in gaps.values()),
+                "zero_qkv": len(zero), "finite": finite, "tol": tol, "ok": ok}
+
+
+def _train_grad_checks(cfg):
+    """Phase 12 (a): step 0's gradients through the repaired kernel path
+    against the plain attention's (``RunCfg(plain_attention=True)``), in
+    bf16 as configured and in f32, the kernel launched once a block
+    forward and no plain call; then the control with the kernel's output
+    detached, which the bf16 gate must refuse."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.kernels import attention
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    model = T.init_model(cfg, seed=0, device="cuda")
+    pipe = Pipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH))
+    tokens = torch.from_numpy(pipe.batch_for_step(0)["tokens"]).cuda()
+    run, plain = T.RunCfg(), T.RunCfg(plain_attention=True)
+    out, kept = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        attention.launches = attention.plain_calls = 0
+        loss, got = _train_grads(c, run, model, tokens)
+        counts = [attention.launches, attention.plain_calls]
+        loss_p, want = _train_grads(c, plain, model, tokens)
+        ok, out[dtype] = _check_grads(dtype, got, want, loss, loss_p,
+                                      TRAIN_GRAD_TOL[dtype])
+        out[dtype]["counts"] = counts
+        if counts != [T.block_forwards(c, run), 0]:
+            fail(f"training (a) {dtype}: the kernel path made {counts} launches "
+                 f"and plain calls, want [{T.block_forwards(c, run)}, 0]")
+        if not ok:
+            fail(f"training (a) {dtype}: the kernel path's gradients fail the gate")
+        if dtype == "bfloat16":
+            kept = {"want": want, "loss": loss_p}
+        del got, want
+    detached = L.flash_attention
+    L.flash_attention = lambda q, k, v, causal: attention._kernel_forward(q, k, v, causal)
+    try:
+        loss, got = _train_grads(cfg, run, model, tokens)
+    finally:
+        L.flash_attention = detached
+    ok, out["detached_control"] = _check_grads(
+        "control, output detached", got, kept["want"], loss, kept["loss"],
+        TRAIN_GRAD_TOL["bfloat16"])
+    if ok:
+        fail("training (a): the gradient gate accepted the detached output")
+    del model, got, kept
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_argv(*extra):
+    return ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1", *extra]
+
+
+def _step_losses(stdout):
+    """{step: loss} of the ``step N loss ...`` lines."""
+    out = {}
+    for line in stdout.splitlines():
+        if line.startswith("step"):
+            parts = line.split()
+            out[int(parts[1])] = float(parts[3])
+    return out
+
+
+def _train_resume(cfg, ref):
+    """Phase 12 (c): ``launch/train.py`` halted after step TRAIN_HALT - 1 in
+    this process (checkpoints at steps 0 and 6), the latest checkpoint
+    restored here on the clock, then the run resumed in a fresh process;
+    the resumed losses within TRAIN_RESUME_TOL of the uninterrupted
+    run's ``ref``."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    ck = ["--ckpt-dir", TRAIN_DIR, "--ckpt-every", str(TRAIN_CKPT_EVERY)]
+    obs.enable()
+    obs.clear()
+    t0 = time.perf_counter()
+    halted = train.main(_train_argv(*ck, "--halt-after", str(TRAIN_HALT)))
+    halted_s = time.perf_counter() - t0
+    saved = {k: obs.metrics.get(k) for k in ("checkpoint.saves", "checkpoint.bytes",
+                                             "checkpoint.snapshot_us",
+                                             "checkpoint.write_us")}
+    obs.disable()
+    latest = CheckpointManager(TRAIN_DIR).latest_step()
+    model = T.init_model(cfg, seed=1, device="cuda")
+    acfg = adamw.AdamWConfig(moment_dtype=cfg.opt_state_dtype)
+    opt = adamw.init(acfg, dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meta = train.restore_train_state(CheckpointManager(TRAIN_DIR), model, opt)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del model, opt
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=SRC)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        *_train_argv(*ck)], env=env, cwd=HERE, capture_output=True,
+                       text=True, timeout=600)
+    resume_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"training (c): the resumed run exited {r.returncode}: {r.stderr[-2000:]}")
+    got = _step_losses(r.stdout)
+    resumed_from = TRAIN_HALT - 1 - (TRAIN_HALT - 1) % TRAIN_CKPT_EVERY
+    gaps = {s: abs(got[s] - ref[s]) for s in got}
+    worst = max(gaps[s] for s in range(8, TRAIN_STEPS))
+    # the lines print 4 decimals, so a gap below 5e-5 may be their rounding
+    as_printed = all(f"{got[s]:.4f}" == f"{ref[s]:.4f}" for s in got)
+    halted_same = halted == [ref[s] for s in range(TRAIN_HALT)]
+    out = {"halted_losses": halted, "halted_s": halted_s, "latest": latest,
+           "saved": saved, "restore_s": restore_s, "restored_step": meta["step"],
+           "resume_s": resume_s, "resumed_losses": got, "gaps": gaps,
+           "worst_gap_8_11": worst, "tol": TRAIN_RESUME_TOL,
+           "equal_as_printed": as_printed, "halted_bitwise": halted_same}
+    say(f"training (c) kill and resume: halted after step {TRAIN_HALT - 1} in "
+        f"{halted_s:.3f} s ({int(saved['checkpoint.saves'])} saves, "
+        f"{int(saved['checkpoint.bytes'])} B; the last one's snapshot "
+        f"{saved['checkpoint.snapshot_us'] / 1e6:.3f} s, write "
+        f"{saved['checkpoint.write_us'] / 1e6:.3f} s); latest checkpoint step "
+        f"{latest} restored onto the card in {restore_s:.3f} s; resumed in a fresh "
+        f"process in {resume_s:.3f} s; steps 8-11 within {worst:.3e} of the "
+        f"uninterrupted run (tol {TRAIN_RESUME_TOL:g}); every gap "
+        f"{ {s: f'{g:.2e}' for s, g in sorted(gaps.items())} }, the resumed "
+        f"losses {'equal' if as_printed else 'NOT equal'} to the uninterrupted "
+        f"run's at the 4 decimals the lines print; the halted run's losses at "
+        f"steps 0-{TRAIN_HALT - 1} {'bitwise' if halted_same else 'NOT bitwise'} "
+        f"(b)'s")
+    if f"[resume] from step {resumed_from}" not in r.stdout:
+        fail(f"training (c): no '[resume] from step {resumed_from}' in the resumed "
+             f"run's output: {r.stdout[-1500:]}")
+    if sorted(got) != list(range(resumed_from + 1, TRAIN_STEPS)) or \
+            not worst <= TRAIN_RESUME_TOL:
+        fail(f"training (c): resumed losses {got} against {ref}")
+    if saved["checkpoint.saves"] != 2 or len(halted) != TRAIN_HALT:
+        fail(f"training (c): the halted run saved {saved['checkpoint.saves']} times "
+             f"and ran {len(halted)} steps")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return out
+
+
+def _train_measure(smi, cfg):
+    """Phase 12 (d): ms/step on the host clock around each synchronised
+    step (the first apart), tokens/s, peak memory; one step under
+    ``torch.profiler``; the attention's forward and backward at the
+    training shape, kernel and ``attention_grad`` against SDPA's."""
+    import statistics
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.kernels import attention
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.training.train_loop import TrainCfg, make_train_step
+
+    model = T.init_model(cfg, seed=0, device="cuda")
+    acfg = adamw.AdamWConfig(total_steps=TRAIN_STEPS,
+                             warmup_steps=max(TRAIN_STEPS // 20, 5),
+                             moment_dtype=cfg.opt_state_dtype)
+    opt = adamw.init(acfg, dict(model.named_parameters()))
+    step = make_train_step(cfg, T.RunCfg(remat=cfg.remat), TrainCfg(adamw=acfg))
+    pipe = Pipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(TRAIN_TIMED + 1):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch_for_step(i).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(model, opt, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(times[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    prof = _profile(lambda: step(model, opt, batch),
+                    f"training step {TRAIN_ARCH} B={TRAIN_BATCH} S={TRAIN_SEQ}", top=12)
+    del model, opt
+    torch.cuda.empty_cache()
+    # the attention alone at the training shape, forward and backward
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    b, s, h, hkv, d = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = _rand((b, s, h, d), torch.float32, gen).bfloat16().requires_grad_()
+    k = _rand((b, s, hkv, d), torch.float32, gen).bfloat16().requires_grad_()
+    v = _rand((b, s, hkv, d), torch.float32, gen).bfloat16().requires_grad_()
+    do = _rand((b, s, h, d), torch.float32, gen).bfloat16()
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+    attn = {
+        "kernel_fwd_bwd_ms": _time_ms(lambda: attention.flash_attention(
+            q, k, v).backward(do), 10, 2),
+        "attention_grad_ms": _time_ms(lambda: attention.attention_grad(
+            q.detach(), k.detach(), v.detach(), do), 10, 2),
+        "sdpa_fwd_bwd_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True).backward(do.transpose(1, 2)),
+            10, 2)}
+    del q, k, v, do, qt, kt, vt
+    torch.cuda.empty_cache()
+    out = {"ms_per_step": ms, "step_ms": times, "first_step_ms": times[0],
+           "tokens_per_s": tokens / (ms / 1e3), "peak_bytes": peak,
+           "breakdown": prof, "attention": attn}
+    say(f"[{smi}] training {TRAIN_ARCH} bf16 remat B={TRAIN_BATCH} S={TRAIN_SEQ}: "
+        f"{ms:.3f} ms/step (median of {TRAIN_TIMED}; "
+        f"{', '.join(f'{t:.3f}' for t in times[1:])}; first {times[0]:.3f}), "
+        f"{out['tokens_per_s']:.1f} tokens/s, peak {peak / 2**30:.3f} GiB")
+    for line in prof["lines"]:
+        say(line)
+    say(f"[{smi}] training attention B={b} S={s} H={h} Hkv={hkv} D={d} bf16 causal, "
+        f"forward and backward: kernel + attention_grad {attn['kernel_fwd_bwd_ms']:.4f} ms "
+        f"(attention_grad alone {attn['attention_grad_ms']:.4f}), SDPA "
+        f"{attn['sdpa_fwd_bwd_ms']:.4f} ms")
+    return out
+
+
+def training(smi):
+    """Phase 12: training of smollm-360m at full width and depth on the
+    card; returns the results and (b)'s ``flash_attention`` launches."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    out = {"grads": _train_grad_checks(cfg)}
+    # (b) 12 steps through launch/train.py's main, counts from 0
+    attention.launches = attention.plain_calls = attention.pad_copies = 0
+    t0 = time.perf_counter()
+    losses = train.main(_train_argv())
+    wall = time.perf_counter() - t0
+    counts = {"flash_attention": attention.launches,
+              "flash_attention_plain": attention.plain_calls,
+              "pad_copies": attention.pad_copies}
+    per_step = T.block_forwards(cfg, T.RunCfg(remat=cfg.remat))
+    want = TRAIN_STEPS * per_step
+    out["train"] = {"losses": losses, "wall_s": wall, "counts": counts,
+                    "launches_per_step": per_step}
+    say(f"training (b) {TRAIN_ARCH} {TRAIN_STEPS} steps through launch/train.py: "
+        f"{wall:.3f} s, losses {losses[0]:.4f} -> {losses[-1]:.4f}, counts {counts} "
+        f"(want {want}: {TRAIN_STEPS} steps x {per_step} block forwards, "
+        f"{cfg.n_layers} layers with two-level remat)")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"training (b): losses {losses}")
+    if counts != {"flash_attention": want, "flash_attention_plain": 0, "pad_copies": 0}:
+        fail(f"training (b): counts {counts}, want {want} launches, no plain call, "
+             "no pad copy")
+    out["resume"] = _train_resume(cfg, dict(enumerate(losses)))
+    out["measure"] = _train_measure(smi, cfg)
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"[{smi}] training: phase 12 in {out['phase_s']:.3f} s")
+    return out, counts["flash_attention"]
+
+
 REPLACES = {"flash_attention": "src/repro/kernels/attention.py:68",
             "fft_radix2": "src/repro/kernels/fft_radix2.py:90",
             "fft_mxu": "src/repro/kernels/fft_mxu.py:80",
@@ -3168,6 +3545,9 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if argv == [FLEET_ONLY]:
         fleet(smi)
+        return 0
+    if argv == [TRAIN_ONLY]:
+        training(smi)
         return 0
     flash_sass_counts, ptxas_build = build()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3196,6 +3576,8 @@ def main(argv) -> int:
     fleeted, fleet_launches = fleet(smi)
     for k, n in fleet_launches.items():
         launches[k] += n
+    trained, launches_trained = training(smi)
+    launches["flash_attention"] += launches_trained
 
     kernels = []
     for k in KERNELS:
@@ -3231,7 +3613,8 @@ def main(argv) -> int:
                    "kernels": kernels, "runs": runs, "breakdown": prof,
                    "observability": observed, "multi_rank": ranks,
                    "staged": staged_ranks, "flash_bf16_gaps": flash_gaps, "lm": lm,
-                   "tuning": tuned, "serving": served, "fleet": fleeted},
+                   "tuning": tuned, "serving": served, "fleet": fleeted,
+                   "training": trained},
                   f, indent=1)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

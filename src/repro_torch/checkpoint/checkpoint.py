@@ -32,8 +32,9 @@ Failure semantics, as in the reference:
   falls back to scanning for the newest *complete* step directory.
 
 Counters: ``checkpoint.saves``, ``checkpoint.bytes``,
-``checkpoint.write_errors``, ``checkpoint.restores``; gauge
-``checkpoint.restore_us``.
+``checkpoint.write_errors``, ``checkpoint.restores``; gauges
+``checkpoint.restore_us``, and the latest save's ``checkpoint.snapshot_us``
+and ``checkpoint.write_us``.
 """
 
 from __future__ import annotations
@@ -123,6 +124,7 @@ class CheckpointManager:
         host = {k: _host_copy(v) for k, v in _flatten(tree).items()}
         self.last_snapshot_s = time.perf_counter() - t0
         self.last_save_bytes = sum(a.nbytes for a in host.values())
+        obs.metrics.set_gauge("checkpoint.snapshot_us", self.last_snapshot_s * 1e6)
         obs.metrics.inc("checkpoint.saves")
         obs.metrics.inc("checkpoint.bytes", self.last_save_bytes)
         self.wait()                    # re-raises a prior async failure
@@ -178,6 +180,7 @@ class CheckpointManager:
         os.replace(ptr, os.path.join(self.dir, "LATEST"))
         self._gc()
         self.last_write_s = time.perf_counter() - t0
+        obs.metrics.set_gauge("checkpoint.write_us", self.last_write_s * 1e6)
 
     def _gc(self):
         steps = sorted(d for d in os.listdir(self.dir) if d.startswith("step_")

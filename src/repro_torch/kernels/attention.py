@@ -24,7 +24,12 @@ copies any other operand into a zero-padded contiguous buffer first.
 
 :func:`flash_attention` launches the kernel for CUDA tensors, or raises.
 For tensors that lie on the CPU it runs the plain version,
-:func:`flash_attention_plain`.  ``launches`` counts kernel launches,
+:func:`flash_attention_plain`.  Where autograd records (grad enabled and
+q, k or v requiring grad) the launch goes through :class:`FlashAttention`,
+an autograd Function whose backward is :func:`attention_grad`, the
+gradient of the direct softmax attention in torch ops: the kernel writes
+its output through ``ctypes``, so without it that output would carry no
+history and q, k and v no gradient.  ``launches`` counts kernel launches,
 ``plain_calls`` plain-version calls and ``pad_copies`` the launches whose
 operands had to be copied into padded buffers; nothing else adds to any.
 """
@@ -188,12 +193,70 @@ def flash_attention(q, k, v, *, causal: bool = True, blk_q: int = 256,
     diagonal aligned at the top left, as the JAX kernel; meant for S == T).
     ``blk_q``/``blk_k`` block the plain version as the JAX kernel's grid;
     the CUDA kernel tiles by its own sizes (128 queries and 64 or 128 keys
-    for bf16, 32 for f32)."""
-    global launches, pad_copies
+    for bf16, 32 for f32).  On CUDA tensors that autograd records, the
+    launch goes through :class:`FlashAttention`, so the output is attached
+    to q, k and v."""
     check_qkv(q, k, v)
     if _launch.runs_plain("flash_attention", q):
         return flash_attention_plain(q, k, v, causal=causal, blk_q=blk_q,
                                      blk_k=blk_k)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal)
+    return _kernel_forward(q, k, v, causal)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel's forward under autograd.  The forward is the launch of
+    :func:`flash_attention` and saves q, k and v; the backward recomputes
+    the scores and returns :func:`attention_grad`.  The JAX package
+    differentiates its plain attention (``layers.py`` ``_sdpa_direct``), so
+    this is the gradient it takes; no backward kernel exists there."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _kernel_forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*attention_grad(q, k, v, do, causal=ctx.causal), None)
+
+
+def attention_grad(q, k, v, do, *, causal: bool = True):
+    """Gradients of q, k and v of the direct GQA softmax attention
+    ``softmax(q·kᵀ/sqrt(D)) · v`` (masked as :func:`flash_attention`) for
+    the output's gradient ``do``, in f32, each cast to its input's dtype:
+    with p the softmax and dp = do·vᵀ, dv = pᵀ·do, ds = p ⊙ (dp − Σ p ⊙ dp)
+    over keys, dq = ds·k/sqrt(D) and dk = dsᵀ·q/sqrt(D), the query heads of
+    a group summed into their kv head."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    scale = 1.0 / d ** 0.5
+    qf = q.float().reshape(b, s, hkv, h // hkv, d)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(b, s, hkv, h // hkv, d)
+    sc = torch.einsum("bshgd,bthd->bhgst", qf, kf) * scale
+    if causal:
+        pos_q = torch.arange(s, device=q.device)
+        pos_k = torch.arange(k.shape[1], device=q.device)
+        sc = sc.masked_fill(pos_k[None, :] > pos_q[:, None], NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    del sc
+    dv = torch.einsum("bhgst,bshgd->bthd", p, dof)
+    dp = torch.einsum("bshgd,bthd->bhgst", dof, vf)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    del p, dp
+    dq = torch.einsum("bhgst,bthd->bshgd", ds, kf) * scale
+    dk = torch.einsum("bhgst,bshgd->bthd", ds, qf) * scale
+    return dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _kernel_forward(q, k, v, causal: bool):
+    """One launch of the CUDA kernel: the output in a new tensor."""
+    global launches, pad_copies
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     if any(x.stride(-1) != 1 for x in (q, k, v)):

@@ -1,1 +1,1 @@
-"""Entry points of the port's language-model path (``serve``)."""
+"""Entry points of the port's language-model path (``serve``, ``train``)."""

@@ -5,7 +5,11 @@ leading layer axis L.  :func:`params_from_jax` takes them as numpy arrays
 (``jax.tree.map(np.asarray, params)``; nothing here imports JAX), unstacks
 ``blocks`` into the port's per-layer modules and keeps every other layout
 as it is (``wq`` (d, H, Dh), ``wo`` (H, Dh, d), ...), so that the port's
-einsums match the JAX ones term for term.
+einsums match the JAX ones term for term.  :func:`params_to_jax_tree` is
+its inverse: the JAX tree of any ``{port name: tensor}`` mapping (the
+parameters, or an optimizer moment beside them), the layout in which the
+trainer writes checkpoints, so that either package resumes the other's
+training.
 """
 
 from __future__ import annotations
@@ -61,3 +65,29 @@ def params_from_jax(cfg: ArchConfig, tree, device="cuda") -> Transformer:
         with torch.no_grad():
             p.copy_(torch.tensor(src, dtype=p.dtype))
     return model
+
+
+def params_to_jax_tree(named) -> dict:
+    """The JAX package's nested dict of a ``{port name: tensor}`` mapping
+    (``model.named_parameters()``, or a moment keyed as they are): the
+    per-layer ``blocks.<i>.<path>`` leaves stacked on a leading L axis under
+    ``blocks``, every other name split at its dots.  Tensors stay on their
+    device (``meta`` makes a template of shapes and dtypes)."""
+    tree: dict = {}
+    stacks: dict = {}
+    for name, leaf in dict(named).items():
+        if name.startswith("blocks."):
+            _, i, rest = name.split(".", 2)
+            stacks.setdefault(rest, {})[int(i)] = leaf
+            continue
+        _put(tree, name.split("."), leaf)
+    for rest, layers in stacks.items():
+        _put(tree, ["blocks"] + rest.split("."),
+             torch.stack([layers[i] for i in sorted(layers)]))
+    return tree
+
+
+def _put(tree: dict, path: list, leaf) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf

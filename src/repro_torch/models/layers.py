@@ -5,11 +5,12 @@ Port of ``repro.models.layers``.  Layers that hold weights are
 ``nn.Module``s (:class:`MLP`, :class:`Attention`) with the JAX package's
 parameter names and layouts (``wq`` (d, H, Dh), ``wo`` (H, Dh, d), ...);
 the ``apply_*`` functions take a dict of (cast) tensors, as the JAX
-functions take a pytree.  The prefill's self-attention runs on the
-hand-written flash-attention kernel
-(:func:`repro_torch.kernels.attention.flash_attention`); the one-token
-decode attention stays plain PyTorch (:func:`_sdpa_direct`), as it never
-reached a Pallas kernel in JAX.
+functions take a pytree.  The self-attention of prefill and training runs
+on the hand-written flash-attention kernel
+(:func:`repro_torch.kernels.attention.flash_attention`, whose backward is
+the direct attention's gradient); the one-token decode attention stays
+plain PyTorch (:func:`_sdpa_direct`), as it never reached a Pallas kernel
+in JAX.
 
 Not ported here: ``apply_cross_attention`` (Whisper) and
 ``decode_attention_seqsharded`` (the multi-device ``long_500k`` decode),
@@ -205,9 +206,9 @@ def _sdpa_chunked(q, k, v, a: AttnDims, causal: bool,
 
 
 def apply_attention(p, a: AttnDims, x, positions, *, plain: bool = False):
-    """Full self-attention for prefill; returns (out, (k, v)).  The
-    attention itself is the flash-attention kernel (its plain version for
-    CPU tensors, or everywhere with ``plain=True``)."""
+    """Full self-attention for prefill and training; returns (out, (k, v)).
+    The attention itself is the flash-attention kernel (its plain version
+    for CPU tensors, or everywhere with ``plain=True``)."""
     q, k, v = _qkv(p, a, x, positions)
     attend = flash_attention_plain if plain else flash_attention
     o = attend(q, k, v, causal=a.causal)

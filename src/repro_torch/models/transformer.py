@@ -1,5 +1,5 @@
 """The dense uniform decoder of the port: init, full-sequence forward,
-prefill and one-token greedy decode over a KV cache.
+the training loss, prefill and one-token greedy decode over a KV cache.
 
 Port of the uniform path of ``repro.models.transformer`` (smollm,
 deepseek, qwen, gemma: GQA/MQA, SwiGLU/GeGLU, optional QKV bias, RoPE,
@@ -7,7 +7,9 @@ RMSNorm or RMSNorm(1 + w), optional embedding scale, tied or untied head).
 Layers run as a Python loop over an ``nn.ModuleList`` where JAX scans over
 layer-stacked params; each block's params are cast to the compute dtype
 where JAX's ``_cast_f`` casts them, at the top of every block.  The
-prefill's attention is the flash-attention kernel.
+attention of the forward (prefill and training) is the flash-attention
+kernel.  Under autograd the blocks are rematerialised as JAX's
+``_scan_blocks`` does (:func:`_scan_blocks`: ``torch.utils.checkpoint``).
 
 Configs outside this path raise ``NotImplementedError`` naming ROADMAP
 Queue 1 item 11: MoE, MLA, RWKV, the Jamba hybrid, Whisper's
@@ -21,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
@@ -34,11 +37,13 @@ LM_ITEM = "ROADMAP Queue 1 item 11"
 @dataclasses.dataclass(frozen=True)
 class RunCfg:
     """Runtime context (orthogonal to the arch config).  JAX's ``mesh``,
-    ``seq_shard_kv``, axis names and ``remat`` have no counterpart on one
-    device.  ``plain_attention`` sends the prefill's attention through the
-    kernel's plain version on any device; it is off on the main path and
-    exists to compare the two."""
+    ``seq_shard_kv`` and axis names have no counterpart on one device.
+    ``remat`` rematerialises the blocks in the backward where the config's
+    ``remat`` is on too, as JAX's.  ``plain_attention`` sends the forward's
+    attention through the kernel's plain version on any device; it is off
+    on the main path and exists to compare the two."""
     plain_attention: bool = False
+    remat: bool = True
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -176,13 +181,71 @@ def _head_out(params: Transformer, cfg: ArchConfig, x):
     return x @ w.to(x.dtype)
 
 
+def _remat_group(n: int, target: int = 8) -> int:
+    """The largest divisor of ``n`` up to ``target`` (``transformer.py:331``)."""
+    for g in range(min(target, n), 0, -1):
+        if n % g == 0:
+            return g
+    return 1
+
+
+def _checkpoint(fn, *args):
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def _scan_blocks(blocks, x, body, remat: bool):
+    """``x`` through ``body(block, x)`` for each block in order
+    (``transformer.py:338``).  With ``remat``, two levels as JAX's: one
+    checkpoint a layer, inside one a group of :func:`_remat_group` layers
+    (a single level when the group is one layer or all of them).  The
+    backward then holds one residual a group, recomputes the group's
+    forward to get its layers' inputs and each layer's forward once more
+    for its own backward; nothing of the arithmetic changes."""
+    if not remat:
+        for block in blocks:
+            x = body(block, x)
+        return x
+    n = len(blocks)
+    group = _remat_group(n)
+    if group <= 1 or group == n:
+        for block in blocks:
+            x = _checkpoint(body, block, x)
+        return x
+
+    def run_group(y, first):
+        for block in blocks[first:first + group]:
+            y = _checkpoint(body, block, y)
+        return y
+
+    for first in range(0, n, group):
+        x = _checkpoint(run_group, x, first)
+    return x
+
+
+def block_forwards(cfg: ArchConfig, run: RunCfg) -> int:
+    """Forward passes of the blocks in one training step (forward and
+    backward of :func:`lm_loss`): one a layer without remat; with it, a
+    layer's forward runs again for its own backward, and within a group of
+    several layers the group's recompute stops, as torch's checkpoint
+    does by default, once it has the last layer's input."""
+    n = cfg.n_layers
+    if not (run.remat and cfg.remat):
+        return n
+    group = _remat_group(n)
+    if group <= 1 or group == n:
+        return 2 * n
+    return 3 * n - n // group
+
+
 def forward(cfg: ArchConfig, run: RunCfg, params: Transformer, batch, *,
             collect_cache: bool = False, t_max: int = 0, last_only: bool = False):
     """Full-sequence forward over ``batch["tokens"]`` (B, S).  Returns
     (logits, cache|None): the cache holds every layer's k and v,
     ``(L, B, max(S, t_max), Hkv, Dh)`` in the compute dtype, zeros past S
     (JAX's stacked cache then ``pad_cache``, written in one buffer).
-    ``last_only`` computes the head on the last position only."""
+    ``last_only`` computes the head on the last position only.  Without a
+    cache and with grad enabled, the blocks are rematerialised where
+    ``run.remat`` and ``cfg.remat`` are both on (:func:`_scan_blocks`)."""
     check_supported(cfg)
     cd = _dt(cfg)
     tokens = batch["tokens"]
@@ -194,15 +257,32 @@ def forward(cfg: ArchConfig, run: RunCfg, params: Transformer, batch, *,
         shape = (cfg.n_layers, b, max(s, t_max), cfg.n_kv_heads, cfg.head_dim_)
         cache = {"k": torch.zeros(shape, dtype=cd, device=x.device),
                  "v": torch.zeros(shape, dtype=cd, device=x.device)}
-    for i, block in enumerate(params.blocks):
-        x, (k, v) = _uniform_block_fwd(_cast_f(block, cd), cfg, run, x, positions)
-        if collect_cache:
+        for i, block in enumerate(params.blocks):
+            x, (k, v) = _uniform_block_fwd(_cast_f(block, cd), cfg, run, x,
+                                           positions)
             cache["k"][i, :, :s] = k
             cache["v"][i, :, :s] = v
+    else:
+        def body(block, y):
+            return _uniform_block_fwd(_cast_f(block, cd), cfg, run, y, positions)[0]
+        remat = run.remat and cfg.remat and torch.is_grad_enabled()
+        x = _scan_blocks(params.blocks, x, body, remat)
     if last_only:
         x = x[:, -1:]
     x = _apply_norm(_cast_f(params.final_norm, None), x, cfg)
     return _head_out(params, cfg, x), cache
+
+
+def lm_loss(cfg: ArchConfig, run: RunCfg, params: Transformer, batch):
+    """Next-token cross entropy, mean over tokens (``transformer.py:767``):
+    the logits cast to f32, ``logsumexp − gold`` for each position but the
+    last against the next token."""
+    logits, _ = forward(cfg, run, params, batch)
+    logits = logits.float()[:, :-1]
+    targets = batch["tokens"][:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return (logz - gold).mean()
 
 
 def init_cache(cfg: ArchConfig, b: int, t_max: int, device="cuda"):

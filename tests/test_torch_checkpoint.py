@@ -174,6 +174,15 @@ def test_checkpoint_metrics(tmp_path):
     assert metrics.gauges()["checkpoint.restore_us"] > 0
 
 
+def test_checkpoint_save_gauges_time_the_latest_save(tmp_path):
+    with obs.capture() as (_, metrics):
+        mgr = CheckpointManager(str(tmp_path / "ck"), keep=3)
+        mgr.save(2, _tree(2.0), block=True)
+    g = metrics.gauges()
+    assert g["checkpoint.snapshot_us"] == mgr.last_snapshot_s * 1e6
+    assert g["checkpoint.write_us"] == mgr.last_write_s * 1e6 > 0
+
+
 # ---------------------------------------------------------------------------
 # the port's own: the snapshot, the keys, the placement
 # ---------------------------------------------------------------------------

@@ -451,3 +451,47 @@ def test_lm_prefill_on_card_launches_the_kernel_and_matches_cpu(cuda):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     logits, cache = T.decode_step(cfg, run, model, cache, got[:, -1].argmax(-1)[:, None])
     assert cache["len"] == 25 and torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_under_autograd_reaches_q_k_v(cuda, no_tf32, dtype, causal):
+    # the kernel's output is attached to q, k and v; the backward is the
+    # direct attention's gradient (in f32: the f32 plain version's autograd)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn(2, 150, 6, 64, device=cuda, generator=g).to(dtype).requires_grad_()
+    k = torch.randn(2, 150, 2, 64, device=cuda, generator=g).to(dtype).requires_grad_()
+    v = torch.randn(2, 150, 2, 64, device=cuda, generator=g).to(dtype).requires_grad_()
+    do = torch.randn(2, 150, 6, 64, device=cuda, generator=g).to(dtype)
+    launches, plain = attention.launches, attention.plain_calls
+    out = attention.flash_attention(q, k, v, causal=causal)
+    assert out.grad_fn is not None and attention.launches == launches + 1
+    out.backward(do)
+    assert attention.plain_calls == plain
+    ref = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    attention.flash_attention_plain(*ref, causal=causal).backward(do.float())
+    for got, want in zip((q, k, v), ref):
+        assert got.grad.dtype == dtype and bool(got.grad.abs().max() > 0)
+        scale = want.grad.abs().max().item()
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        assert (got.grad.float() - want.grad).abs().max().item() <= tol * scale
+
+
+def test_train_step_on_card_launches_the_kernel_and_matches_cpu(cuda, no_tf32):
+    cfg = dataclasses.replace(get_config("smollm-360m", smoke=True), remat=True)  # f32
+    from repro_torch.optim import adamw
+    from repro_torch.training.train_loop import TrainCfg, make_train_step
+
+    tokens = torch.randint(0, cfg.vocab, (2, 32), generator=torch.Generator().manual_seed(2))
+    losses = {}
+    for dev in ("cpu", cuda):
+        model = T.init_model(cfg, seed=0, device="cpu").to(dev)
+        acfg = adamw.AdamWConfig(warmup_steps=1, total_steps=3)
+        state = adamw.init(acfg, dict(model.named_parameters()))
+        step = make_train_step(cfg, T.RunCfg(), TrainCfg(adamw=acfg))
+        launches = attention.launches
+        losses[str(dev)] = [float(step(model, state, {"tokens": tokens.to(dev)})[0])
+                            for _ in range(3)]
+        if dev != "cpu":
+            assert attention.launches == launches + 3 * T.block_forwards(cfg, T.RunCfg())
+    assert losses["cpu"] == pytest.approx(losses["cuda"], abs=1e-4)

@@ -24,6 +24,7 @@ from repro_torch.configs import get_config
 from repro_torch.fleet import cli as fleet_cli
 from repro_torch.kernels import _build
 from repro_torch.launch import serve
+from repro_torch.launch import train
 from repro_torch.models import transformer as T
 from repro_torch.serving import SimServer
 from repro_torch.serving import cli as serving_cli
@@ -35,6 +36,8 @@ SERVING = tuple(f"repro_torch.serving.{m}" for m in
                 ("cli", "loadgen", "queue", "registry", "request", "server"))
 FLEET = tuple(f"repro_torch.fleet.{m}" for m in
               ("cli", "controller", "faults", "records", "worker"))
+TRAINING = ("repro_torch.data.pipeline", "repro_torch.optim.adamw",
+            "repro_torch.training.train_loop", "repro_torch.launch.train")
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.MULTILINE)
 
 
@@ -59,7 +62,7 @@ def test_import_leaves_jax_and_repro_out():
                 "repro_torch.core.topology", "repro_torch.configs.fft_configs",
                 "repro_torch.tuning.autotune", "repro_torch.tuning.calibrate",
                 "repro_torch.tuning.cli", "repro_torch.tuning.solver",
-                *FLEET, *SERVING):
+                *FLEET, *SERVING, *TRAINING):
         assert f"'{mod}'" in out, out
 
 
@@ -69,6 +72,8 @@ def test_sources_import_neither_jax_nor_repro():
     assert {PORT / "obs" / "tracer.py", PORT / "checkpoint" / "checkpoint.py",
             PORT / "core" / "perfmodel.py", PORT / "core" / "topology.py",
             PORT / "configs" / "fft_configs.py"} <= set(files)
+    assert {PORT.joinpath(*m.split(".")[1:]).with_suffix(".py")
+            for m in TRAINING} <= set(files)
     tuning = {f.name for f in files if f.parent == PORT / "tuning"}
     assert tuning == {"__init__.py", "autotune.py", "cache.py", "calibrate.py",
                       "cli.py", "solver.py", "space.py", "timing.py"}
@@ -274,6 +279,24 @@ def test_what_this_slice_leaves_out_names_its_roadmap_item():
 def test_serve_refuses_what_is_not_ported(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         serve.main(argv + ["--smoke", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mesh", "2x1"],
+    ["--grad-compression"],
+    ["--arch", "qwen3-moe-30b-a3b"],                             # MoE
+    ["--arch", "rwkv6-3b"],                                      # RWKV
+])
+def test_train_refuses_what_is_not_ported(argv):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        train.main(argv + ["--smoke", "--device", "cpu", "--steps", "1"])
+
+
+def test_train_defaults_to_cuda_and_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--smoke", "--steps", "1"])
 
 
 def test_lm_path_refuses_kv_quant_and_seq_sharded_decode():
