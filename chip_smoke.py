@@ -12,7 +12,9 @@ and ``ring_land`` (``csrc/ring_rdma.cu``, engines
 ``pallas_ring``/``bidi_ring`` on a grid of more than one rank).  LM
 serving and training: ``flash_attention`` (``csrc/flash_attention.cu``),
 the attention of every layer of the prefill and of every forward of a
-training step.  Phases, each fatal on failure:
+training step; sharded over a mesh of rank processes, the LM's
+collectives run on ``ring_send`` and ``ring_land`` too.  Phases, each
+fatal on failure:
 
 1. card — ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build — the four CUDA sources, ``nvcc`` processes started together,
@@ -218,13 +220,33 @@ training step.  Phases, each fatal on failure:
    resumed in a fresh process (``python -m repro_torch.launch.train``):
    the losses of steps 8-11 within 1e-4 of (b)'s (the lines print 4
    decimals; whether they equal (b)'s as printed, and the halted run's
-   bitwise, is shown); the directory deleted after.
+   bitwise, is shown); its step-6 checkpoint kept for phase 13.
    (d) ms/step (host clock around each synchronised step, the first
    apart), tokens/s, peak GiB, the checkpoint's bytes, snapshot, write and
    restore seconds, one step under ``torch.profiler``, and the attention's
    forward and backward at the training shape (kernel + ``attention_grad``
    against SDPA).  ``chip_smoke.py --train-only`` runs phases 1 and 12
-   alone.
+   alone;
+13. the sharded LM — one spawn of 4 rank processes on the one card
+   (``repro_torch.launch.mesh``; every collective on the peer-mapped wire,
+   ``ring_send``/``ring_land``: no NCCL, no gloo for a CUDA tensor), the
+   counts set to 0 just before each part and read just after.  (a)
+   Phase 12's model, seed and data on 2x2 (FSDP over ``data``, the mlp and
+   vocab over ``model``, the 15 heads replicated): 6 steps, each loss
+   within 3e-2 of phase 12 (d)'s 1x1 step (the gaps and gnorms' printed),
+   ms/step on rank 0, one step under ``torch.profiler`` on rank 0 (its
+   idle share), every rank's peak below phase 12's, per step and rank 92
+   ``flash_attention`` launches and no plain call, the wire copies and
+   bytes.  (b) ``launch/train.py`` on 2x2 saves at steps 0 and 3 and
+   halts (its checkpoint resumed on 1x1 here for steps 4-5), and phase
+   12's step-6 checkpoint resumed on 2x2 for steps 7-8; each loss within
+   3e-2 of phase 12 (b)'s.  (c) Re-cut to (pod 2, data 1, model 2): 3
+   steps with the int8 pod sync, the losses against (a)'s and the largest
+   residual.  (d) Re-cut to 2x2: phase 8's serving (B=8, prompt 2048, 32
+   tokens), teacher-forced with phase 8's tokens, every step's logits
+   within 3e-2·max|logit| of phase 8's, one launch a layer a rank; prefill
+   ms and decode ms/step on rank 0.  ``chip_smoke.py --lm-only`` runs
+   phases 1, 8, 12 and 13.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Full results go to
@@ -800,6 +822,7 @@ def lm_serving(flash_rel_bf16):
     if tuple(r["logits"][0].shape) != (LM_BATCH, 1, cfg.vocab):
         fail(f"LM serving: prefill logits {tuple(r['logits'][0].shape)}")
 
+    kept = {"tokens": r["tokens"].cpu(), "logits": [x.cpu() for x in r["logits"]]}
     p = serve.generate(cfg, plain_run, model, tokens, LM_GEN, forced=r["tokens"],
                        keep_logits=True)
     gaps = _logit_gaps(r["logits"], p["logits"])
@@ -848,7 +871,7 @@ def lm_serving(flash_rel_bf16):
         fail(f"LM f32: launches {n32}, same tokens {same}, gap {max(gaps32):.3e}")
     del model, k32, p32
     torch.cuda.empty_cache()
-    return out
+    return out, kept
 
 
 def _rand(shape, dtype, gen):
@@ -3408,8 +3431,39 @@ def _train_resume(cfg, ref):
     if saved["checkpoint.saves"] != 2 or len(halted) != TRAIN_HALT:
         fail(f"training (c): the halted run saved {saved['checkpoint.saves']} times "
              f"and ran {len(halted)} steps")
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    return out
+    return out  # its step-6 checkpoint stays for phase 13 (b)
+
+
+# the params' change ||p_n - p_0|| is read after these step counts (phase
+# 12 (d) on one device; phase 13 (a), (c) and the controls on a mesh)
+MOVED_AFTER = (3, 6)
+
+
+def _host_copy(model) -> dict:
+    """The model's parameters (this rank's shards), copied to the host."""
+    return {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+
+
+def _moved_parts(model, start: dict) -> dict:
+    """Each leaf's ||param - start|| (this rank's shard), f32, one leaf at
+    a time; no collective, so that the step's counts hold none."""
+    import torch
+
+    params = dict(model.named_parameters())
+    return {n: torch.linalg.vector_norm(params[n].detach().float()
+                                        - s.to(params[n].device).float())
+            for n, s in start.items()}
+
+
+def _moved(parts: dict, cut: dict | None = None) -> float:
+    """||params - start|| over every leaf from :func:`_moved_parts`; on a
+    mesh (``cut``: each leaf's cut axes) each leaf's square summed over
+    the ranks it is cut over, a whole leaf counted once (collective)."""
+    from repro_torch.optim import adamw
+
+    names = list(parts)
+    return float(adamw.global_norm([parts[n] for n in names],
+                                   None if cut is None else [cut[n] for n in names]))
 
 
 def _train_measure(smi, cfg):
@@ -3436,16 +3490,21 @@ def _train_measure(smi, cfg):
     step = make_train_step(cfg, T.RunCfg(remat=cfg.remat), TrainCfg(adamw=acfg))
     pipe = Pipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                                global_batch=TRAIN_BATCH))
+    start = _host_copy(model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times = []
+    times, losses, gnorms, moved = [], [], [], {}
     for i in range(TRAIN_TIMED + 1):
         batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch_for_step(i).items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step(model, opt, batch)
+        _, metrics = step(model, opt, batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        if i + 1 in MOVED_AFTER:
+            moved[i + 1] = _moved(_moved_parts(model, start))
     peak = torch.cuda.max_memory_allocated()
     ms = statistics.median(times[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -3473,11 +3532,13 @@ def _train_measure(smi, cfg):
     torch.cuda.empty_cache()
     out = {"ms_per_step": ms, "step_ms": times, "first_step_ms": times[0],
            "tokens_per_s": tokens / (ms / 1e3), "peak_bytes": peak,
-           "breakdown": prof, "attention": attn}
+           "losses": losses, "gnorms": gnorms, "moved": moved, "breakdown": prof,
+           "attention": attn}
     say(f"[{smi}] training {TRAIN_ARCH} bf16 remat B={TRAIN_BATCH} S={TRAIN_SEQ}: "
         f"{ms:.3f} ms/step (median of {TRAIN_TIMED}; "
         f"{', '.join(f'{t:.3f}' for t in times[1:])}; first {times[0]:.3f}), "
-        f"{out['tokens_per_s']:.1f} tokens/s, peak {peak / 2**30:.3f} GiB")
+        f"{out['tokens_per_s']:.1f} tokens/s, peak {peak / 2**30:.3f} GiB; the params' "
+        f"change ||p_n - p_0|| after n steps {moved}")
     for line in prof["lines"]:
         say(line)
     say(f"[{smi}] training attention B={b} S={s} H={h} Hkv={hkv} D={d} bf16 causal, "
@@ -3528,6 +3589,457 @@ def training(smi):
     return out, counts["flash_attention"]
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the dense decoders sharded over 4 rank processes (FSDP x TP)
+# ---------------------------------------------------------------------------
+
+# (a) phase 12's model, seed and data on a 2x2 mesh, SHARD_STEPS steps
+# against phase 12 (d)'s 1x1 steps; (b) launch/train.py on 2x2: a run that
+# saves at steps 0 and 3 and halts after 4 (resumed on 1x1 here for steps
+# 4-5), and phase 12's step-6 checkpoint resumed on 2x2 for steps 7-8;
+# (c) (pod 2, data 1, model 2), SHARD_COMP_STEPS compressed steps;
+# (d) phase 8's serving on 2x2, teacher-forced with phase 8's tokens;
+# (e) two controls that the gates of (a) and (c) must refuse: (a) with the
+# update left out (lr 0, SHARD_COMP_STEPS steps) and (c) with the pod sync
+# left out (each pod steps on its own rows' gradients)
+SHARD_STEPS, SHARD_COMP_STEPS = 6, 3
+SHARD_MESH = {"data": 2, "model": 2}
+SHARD_COMP_MESH = {"pod": 2, "data": 1, "model": 2}
+SHARD_DIR = os.path.join(HERE, "build", "chip_smoke_sharded")
+# The gates, relative to the run compared with, each set between the sound
+# readings and the controls' of (e) on the H100 (PERF.md, phase 13):
+# a step's loss and gnorm on 2x2 against 1x1 in bf16 (the row-parallel sums
+# and the FSDP reduce-scatter add bf16 activations and f32 gradients in
+# another order than one device's GEMMs; sound at most 2.6e-5 and 3.6e-4,
+# the run that leaves the params unchanged 1.2e-4 and 1.8e-3), also the
+# loss after a resume across grids
+SHARD_LOSS_TOL, SHARD_GNORM_TOL = 6e-5, 1e-3
+# the params' change ||p_n - p_0|| after MOVED_AFTER steps, 2x2 against 1x1
+# (sound 1.7e-6; unchanged params 1)
+SHARD_MOVED_TOL = 1e-4
+# (c) against (a)'s uncompressed steps: the int8 levels move the gnorm by
+# up to 3e-3, each pod's own gradient (no pod sync) by 0.36 to 0.47; the
+# loss of either stays within 2.1e-4 (no gate between them: the pods'
+# params must also agree bitwise)
+SHARD_COMP_LOSS_TOL, SHARD_COMP_GNORM_TOL = 2e-3, 3e-2
+LM_ONLY = "--lm-only"
+
+
+def _shard_counts():
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels import attention, ring_rdma
+
+    return {"flash_attention": attention.launches,
+            "flash_attention_plain": attention.plain_calls,
+            "pad_copies": attention.pad_copies, "ring_send": ring_rdma.send_launches,
+            "ring_land": ring_rdma.land_launches, "wire_bytes": C.wire_bytes,
+            **{f"collectives.{k}": n for k, n in C.calls.items()}}
+
+
+def _zero_shard_counts():
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels import attention, ring_rdma
+
+    attention.launches = attention.plain_calls = attention.pad_copies = 0
+    ring_rdma.send_launches = ring_rdma.land_launches = 0
+    C.wire_bytes = 0
+    for k in C.calls:
+        C.calls[k] = 0
+
+
+def _shard_steps(ctx, cfg, steps, *, lr=None, compressed=False, profile=False):
+    """``steps`` steps of phase 12's model on this rank's mesh (the
+    compressed step with ``compressed``), each synchronised and timed,
+    from counts set to 0; the counts, the peak, the params' change after
+    MOVED_AFTER steps; with ``profile`` one more step under
+    ``torch.profiler`` on rank 0.  ``lr`` overrides the learning rate (0:
+    the update left out)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.distributed import compression as comp
+    from repro_torch.launch import mesh as M
+    from repro_torch.optim import adamw
+    from repro_torch.training.train_loop import TrainCfg, cut_axes, make_train_step
+
+    run, model, _ = M.rank_setup(cfg, ctx, None, remat=cfg.remat)
+    acfg = adamw.AdamWConfig(total_steps=TRAIN_STEPS,
+                             warmup_steps=max(TRAIN_STEPS // 20, 5),
+                             moment_dtype=cfg.opt_state_dtype)
+    if lr is not None:
+        acfg = dataclasses.replace(acfg, lr=lr)
+    opt = adamw.init(acfg, dict(model.named_parameters()))
+    step = make_train_step(cfg, run, TrainCfg(adamw=acfg, grad_compression=compressed))
+    res = comp.init_residuals(dict(model.named_parameters())) if compressed else None
+    cut = cut_axes(cfg, run)
+    pipe = Pipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH))
+    start = _host_copy(model)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_shard_counts()
+    times, losses, gnorms, moved = [], [], [], {}
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch_for_step(i).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if compressed:
+            _, metrics, res = step(model, opt, res, batch)
+        else:
+            _, metrics = step(model, opt, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        if i + 1 in MOVED_AFTER:
+            moved[i + 1] = _moved_parts(model, start)
+    out = {"step_ms": times, "losses": losses, "gnorms": gnorms,
+           "counts": _shard_counts(), "peak_bytes": torch.cuda.max_memory_allocated(),
+           "breakdown": None}
+    out["moved"] = {n: _moved(parts, cut) for n, parts in moved.items()}
+    if compressed:
+        out["max_residual"] = _mesh_max(run, [r.abs().max() for r in res.values()])
+        out["pods_apart"] = _pods_apart(model)
+    if profile:
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in pipe.batch_for_step(steps).items()}
+        if ctx.rank == 0:
+            out["breakdown"] = _profile(
+                lambda: step(model, opt, batch),
+                f"sharded training step 2x2 rank 0 B={TRAIN_BATCH} S={TRAIN_SEQ}", top=10)
+        else:
+            step(model, opt, batch)
+    torch.cuda.synchronize()
+    del model, opt, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_max(run, xs) -> float:
+    """The largest of ``xs`` (scalars on the card) over every rank."""
+    import torch
+
+    from repro_torch.distributed import collectives as C
+
+    mx = torch.stack(xs).max()
+    return float(C.all_reduce(mx, tuple(run.mesh.shape), "max"))
+
+
+def _pods_apart(model) -> float:
+    """How far the two pods' parameters lie apart: the largest gap, over
+    the mesh, between the pods' per-leaf f64 sums and sums of squares (0
+    when each rank holds the same bits as its peer in the other pod)."""
+    import torch
+
+    from repro_torch.distributed import collectives as C
+
+    fp = torch.stack([torch.stack([p.detach().double().sum(),
+                                   p.detach().double().square().sum()])
+                      for p in model.parameters()]).flatten()
+    both = C.all_gather(fp[None], "pod", 0)
+    gap = (both[0] - both[1]).abs().max()
+    return float(C.all_reduce(gap, ("pod", "data", "model"), "max"))
+
+
+def _shard_launch(ctx, argv):
+    """launch/train.py's run of ``argv`` as this rank; (losses, wall s)."""
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    losses = train.train(train.parse_args(argv), ctx)
+    return {"losses": losses, "wall_s": time.perf_counter() - t0}
+
+
+def _shard_compressed_unsynced(ctx, cfg):
+    """(e)'s control of (c): the compressed step with the pod sync left
+    out, so that each pod steps on the gradients of its own rows."""
+    from repro_torch.distributed import compression as comp
+
+    synced = comp.pod_sync_compressed
+    comp.pod_sync_compressed = lambda grads, residuals, *a, **k: (grads, residuals)
+    try:
+        return _shard_steps(ctx, cfg, SHARD_COMP_STEPS, compressed=True)
+    finally:
+        comp.pod_sync_compressed = synced
+
+
+def _shard_serve(ctx, cfg, forced):
+    """(d): phase 8's prompts on 2x2, teacher-forced with phase 8's
+    tokens; rank 0 keeps the gathered logits."""
+    import torch
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve
+
+    run, model, _ = M.rank_setup(cfg, ctx, None)
+    tokens = serve.prompt_tokens(cfg, LM_BATCH, LM_PROMPT, ctx.device)
+    serve.generate(cfg, run, model, tokens[:, :64], 2)  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_shard_counts()
+    r = serve.generate(cfg, run, model, tokens, LM_GEN,
+                       forced=torch.from_numpy(forced).to(ctx.device), keep_logits=True)
+    counts = _shard_counts()
+    out = {"prefill_ms": r["prefill_ms"], "decode_ms": r["decode_ms"],
+           "counts": counts, "peak_bytes": torch.cuda.max_memory_allocated(),
+           "cache_shape": list(r["cache"]["k"].shape)}
+    if ctx.rank == 0:  # numpy: a rank's result crosses to the parent pickled
+        out["tokens"] = r["tokens"].cpu().numpy()
+        out["logits"] = [x.float().cpu().numpy() for x in r["logits"]]
+    del model, r
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_ranks(ctx, forced):
+    """Everything phase 13's 4 rank processes do, (a) to (e)."""
+    import torch.distributed as tdist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ring_rdma
+    from repro_torch.launch import mesh as M
+
+    cfg = get_config(TRAIN_ARCH)
+    out = {"rank": ctx.rank, "train": _shard_steps(ctx, cfg, SHARD_STEPS, profile=True)}
+    ck = ["--ckpt-dir"]
+    _zero_shard_counts()
+    out["writes"] = _shard_launch(ctx, _train_argv(
+        "--mesh", "2x2", *ck, os.path.join(SHARD_DIR, "2x2"), "--ckpt-every", "3",
+        "--halt-after", "4"))
+    out["from_1x1"] = _shard_launch(ctx, _train_argv(
+        "--mesh", "2x2", *ck, os.path.join(SHARD_DIR, "1x1"), "--halt-after",
+        str(TRAIN_CKPT_EVERY + 3)))
+    out["launch_counts"] = _shard_counts()
+    out["control_update"] = _shard_steps(ctx, cfg, SHARD_COMP_STEPS, lr=0.0)
+    wires = dict(ctx.wires())
+    ctx = M.regrid_mesh(SHARD_COMP_MESH)
+    out["compressed"] = _shard_steps(ctx, cfg, SHARD_COMP_STEPS, compressed=True)
+    out["control_sync"] = _shard_compressed_unsynced(ctx, cfg)
+    wires.update({("pod2",) + k: w for k, w in ctx.wires().items()})
+    ctx = M.regrid_mesh(SHARD_MESH)
+    out["serve"] = _shard_serve(ctx, cfg, forced)
+    wires.update({("serve",) + k: w for k, w in ctx.wires().items()})
+    out["wires"] = sorted(f"{k}: {type(w).__name__}" for k, w in wires.items())
+    out["wires_ipc"] = all(isinstance(w, ring_rdma.IpcWire) for w in wires.values())
+    out["backend"] = tdist.get_backend()
+    return out
+
+
+def _gaps(got, want):
+    return [abs(a - b) / abs(b) for a, b in zip(got, want)]
+
+
+def _moved_gaps(got: dict, want: dict) -> dict:
+    """The params' change against another run's, relative, after each
+    step count both read."""
+    return {n: abs(got[n] - want[n]) / want[n] for n in got if n in want}
+
+
+def _step_faults(label, run, ref, loss_tol, gnorm_tol, moved_tol=None) -> list:
+    """What the gates of a run of steps refuse against ``ref``'s steps:
+    each step's loss and gnorm within their tolerances (relative), and the
+    params' change within ``moved_tol`` (None: not gated)."""
+    import math
+
+    n = len(run["losses"])
+    loss = _gaps(run["losses"], ref["losses"][:n])
+    gnorm = _gaps(run["gnorms"], ref["gnorms"][:n])
+    moved = _moved_gaps(run["moved"], ref["moved"])
+    bad = []
+    if not all(math.isfinite(x) for x in run["losses"] + run["gnorms"]):
+        bad.append(f"{label}: a loss or gnorm not finite")
+    if max(loss) > loss_tol:
+        bad.append(f"{label}: loss gaps {[f'{g:.2e}' for g in loss]} > {loss_tol:g}")
+    if max(gnorm) > gnorm_tol:
+        bad.append(f"{label}: gnorm gaps {[f'{g:.2e}' for g in gnorm]} > {gnorm_tol:g}")
+    if moved_tol is not None and (not moved or max(moved.values()) > moved_tol):
+        bad.append(f"{label}: params' change gaps {moved} > {moved_tol:g}")
+    return bad
+
+
+def _steps_line(label, run, ref, ref_label) -> str:
+    loss = _gaps(run["losses"], ref["losses"])
+    gnorm = _gaps(run["gnorms"], ref["gnorms"])
+    moved = _moved_gaps(run["moved"], ref["moved"])
+    return (f"{label}: losses {[round(x, 6) for x in run['losses']]} against {ref_label} "
+            f"{[round(x, 6) for x in ref['losses'][:len(loss)]]}: gaps "
+            f"{[f'{g:.2e}' for g in loss]}; gnorm gaps {[f'{g:.2e}' for g in gnorm]}; "
+            f"the params' change after n steps "
+            f"{ {n: f'{v:.6e}' for n, v in run['moved'].items()} } against "
+            f"{ {n: f'{v:.6e}' for n, v in ref['moved'].items()} }: gaps "
+            f"{ {n: f'{g:.2e}' for n, g in moved.items()} }")
+
+
+def sharded_lm(smi, trained, served):
+    """Phase 13: smollm-360m at full width sharded over a 2x2 mesh of rank
+    processes on the one card (one spawn, re-cut between meshes), against
+    phases 12 and 8; returns the results and the kernels' launches summed
+    over the ranks.  Every reading is printed before the gates fail."""
+    import torch
+
+    from repro_torch import dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    ref = trained["measure"]
+    full_losses = dict(enumerate(trained["train"]["losses"]))
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    # phase 12's step-6 checkpoint, alone in a directory of its own
+    one = os.path.join(SHARD_DIR, "1x1")
+    os.makedirs(one)
+    step6 = f"step_{TRAIN_CKPT_EVERY:08d}"
+    os.symlink(os.path.join(TRAIN_DIR, step6), os.path.join(one, step6))
+    with open(os.path.join(one, "LATEST"), "w") as f:
+        f.write(step6)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = dist.run_ranks(_sharded_ranks, 2, 2, device="cuda",
+                           args=(served["tokens"].numpy(),), timeout=1200)
+    spawn_s = time.perf_counter() - t0
+    # (b) the 2x2 run's step-3 checkpoint resumed on one device, steps 4-5
+    t0 = time.perf_counter()
+    resumed = train.main(_train_argv("--ckpt-dir", os.path.join(SHARD_DIR, "2x2"),
+                                     "--halt-after", "6"))
+    resume_1x1_s = time.perf_counter() - t0
+    out = {"spawn_s": spawn_s, "ranks": ranks, "resume_1x1": resumed,
+           "resume_1x1_s": resume_1x1_s}
+    bad = []
+    r0 = ranks[0]
+    a = r0["train"]
+    loss_gaps, gnorm_gaps = _gaps(a["losses"], ref["losses"]), _gaps(a["gnorms"], ref["gnorms"])
+    ms = sorted(a["step_ms"][1:])[len(a["step_ms"][1:]) // 2]
+    per_step = {k: v / SHARD_STEPS for k, v in a["counts"].items()}
+    limit = ref["peak_bytes"]
+    peaks = [r["train"]["peak_bytes"] for r in ranks]
+    say(f"[{smi}] sharded LM (a) {TRAIN_ARCH} 2x2 (4 ranks on one card) bf16 remat "
+        f"B={TRAIN_BATCH} S={TRAIN_SEQ}: {ms:.3f} ms/step on rank 0 (median of "
+        f"{SHARD_STEPS - 1}; {', '.join(f'{t:.3f}' for t in a['step_ms'])}); "
+        + _steps_line("against 1x1", a, ref, "1x1")
+        + f" (tol loss {SHARD_LOSS_TOL:g}, gnorm {SHARD_GNORM_TOL:g}, change "
+        f"{SHARD_MOVED_TOL:g}); peak GiB by rank {[round(p / 2**30, 3) for p in peaks]} "
+        f"against 1x1's {limit / 2**30:.3f}")
+    say(f"[{smi}] sharded LM (a) a step on rank 0: flash_attention "
+        f"{per_step['flash_attention']:g} launches ({per_step['flash_attention_plain']:g} "
+        f"plain, {per_step['pad_copies']:g} pad copies), ring_send "
+        f"{per_step['ring_send']:g}, ring_land {per_step['ring_land']:g}, wire bytes "
+        f"{per_step['wire_bytes']:.0f}, collectives "
+        f"{ {k: v for k, v in per_step.items() if k.startswith('collectives.')} }")
+    if a["breakdown"]:
+        for line in a["breakdown"]["lines"]:
+            say(line)
+    cfg = get_config(TRAIN_ARCH)
+    want_flash = T.block_forwards(cfg, T.RunCfg(remat=cfg.remat))
+    for r in ranks:
+        c = r["train"]["counts"]
+        if c["flash_attention"] != SHARD_STEPS * want_flash or c["flash_attention_plain"] \
+                or c["pad_copies"]:
+            bad.append(f"(a) rank {r['rank']}: counts {c}, want {SHARD_STEPS * want_flash} "
+                       "flash launches, no plain call, no pad copy")
+        if not (c["ring_send"] > 0 and c["ring_land"] > 0):
+            bad.append(f"(a) rank {r['rank']}: the collectives made no wire copy: {c}")
+        if not r["wires_ipc"] or r["backend"] != "gloo":
+            bad.append(f"rank {r['rank']}: wires {r['wires']}, default group "
+                       f"{r['backend']}: a CUDA tensor's collective off the peer-mapped wire")
+    if max(peaks) >= limit:
+        bad.append(f"(a): a rank peaked at {max(peaks) / 2**30:.3f} GiB, not below 1x1's "
+                   f"{limit / 2**30:.3f}")
+    bad += _step_faults("(a)", a, ref, SHARD_LOSS_TOL, SHARD_GNORM_TOL, SHARD_MOVED_TOL)
+    # (b)
+    w, f1 = r0["writes"], r0["from_1x1"]
+    b_gaps = {"2x2 steps 0-3": _gaps(w["losses"], [full_losses[s] for s in range(4)]),
+              "1x1 from the 2x2 checkpoint, steps 4-5": _gaps(
+                  resumed, [full_losses[s] for s in (4, 5)]),
+              "2x2 from the 1x1 checkpoint, steps 7-8": _gaps(
+                  f1["losses"], [full_losses[s] for s in (7, 8)])}
+    say(f"[{smi}] sharded LM (b) checkpoints across grids: 2x2 run with saves at 0 "
+        f"and 3 in {w['wall_s']:.3f} s; phase 12's step-6 checkpoint resumed on 2x2 "
+        f"in {f1['wall_s']:.3f} s (steps 7-8); the 2x2 step-3 checkpoint resumed on "
+        f"1x1 in {resume_1x1_s:.3f} s (steps 4-5); loss gaps against phase 12's "
+        f"uninterrupted 1x1 run: "
+        f"{ {k: [f'{g:.2e}' for g in v] for k, v in b_gaps.items()} } "
+        f"(tol {SHARD_LOSS_TOL:g}; PR 22's bf16 kernel-vs-plain loss gap 1.031e-05)")
+    if len(resumed) != 2 or len(f1["losses"]) != 2 or len(w["losses"]) != 4 or \
+            max(max(v) for v in b_gaps.values()) > SHARD_LOSS_TOL:
+        bad.append(f"(b): {b_gaps}")
+    # (c) against (a)'s uncompressed steps
+    c = r0["compressed"]
+    c_gaps = _gaps(c["losses"], a["losses"][:SHARD_COMP_STEPS])
+    say(f"[{smi}] sharded LM (c) (pod 2, data 1, model 2) int8 pod sync: "
+        f"{', '.join(f'{t:.3f}' for t in c['step_ms'])} ms/step on rank 0; "
+        + _steps_line("against 2x2 uncompressed", c, a, "2x2")
+        + f" (tol loss {SHARD_COMP_LOSS_TOL:g}, gnorm {SHARD_COMP_GNORM_TOL:g}); the pods' "
+        f"params apart by {c['pods_apart']:.3e} (tol 0); largest residual "
+        f"{c['max_residual']:.3e}; peak GiB by rank "
+        f"{[round(r['compressed']['peak_bytes'] / 2**30, 3) for r in ranks]}")
+    bad += _step_faults("(c)", c, a, SHARD_COMP_LOSS_TOL, SHARD_COMP_GNORM_TOL)
+    if c["pods_apart"] != 0 or not c["max_residual"] > 0:
+        bad.append(f"(c): the pods' params apart by {c['pods_apart']}, largest residual "
+                   f"{c['max_residual']}")
+    # (d)
+    d = r0["serve"]
+    d["logits"] = [torch.from_numpy(x) for x in d["logits"]]
+    gaps = _logit_gaps(served["logits"], d["logits"])
+    agree = float(sum((x[:, -1].argmax(-1) == y[:, -1].argmax(-1)).float().mean()
+                      for x, y in zip(d["logits"], served["logits"])) / len(gaps))
+    steps = LM_GEN - 1
+    say(f"[{smi}] sharded LM (d) serving 2x2 B={LM_BATCH} prompt={LM_PROMPT} "
+        f"gen={LM_GEN}, teacher-forced with phase 8's tokens: prefill "
+        f"{d['prefill_ms']:.3f} ms, decode {d['decode_ms'] / steps:.3f} ms/step on rank "
+        f"0; logits against phase 8's 1x1: prefill {gaps[0]:.3e}, decode max "
+        f"{max(gaps[1:]):.3e} of max|logit| (tol {LM_TOL_BF16:g}); greedy choices "
+        f"agree on {agree:.1%}; cache a rank {d['cache_shape']}; counts {d['counts']}")
+    for r in ranks:
+        cd = r["serve"]["counts"]
+        if cd["flash_attention"] != cfg.n_layers or cd["flash_attention_plain"]:
+            bad.append(f"(d) rank {r['rank']}: counts {cd}")
+    if max(gaps) > LM_TOL_BF16 or tuple(d["tokens"].shape) != (LM_BATCH, LM_GEN):
+        bad.append(f"(d): logits gap {max(gaps):.3e} > {LM_TOL_BF16}")
+    # (e) the controls: the gates above must refuse each
+    cu, cs = r0["control_update"], r0["control_sync"]
+    refused_update = _step_faults("control", cu, a, SHARD_LOSS_TOL, SHARD_GNORM_TOL,
+                                  SHARD_MOVED_TOL)
+    refused_sync = _step_faults("control", cs, a, SHARD_COMP_LOSS_TOL,
+                                SHARD_COMP_GNORM_TOL) + (
+        ["the pods apart"] if cs["pods_apart"] != 0 else [])
+    say(f"[{smi}] sharded LM (e) control, (a) with the update left out (lr 0): "
+        + _steps_line("against (a)", cu, a, "(a)")
+        + f"; {'refused: ' + '; '.join(refused_update) if refused_update else 'PASSED'}")
+    say(f"[{smi}] sharded LM (e) control, (c) with the pod sync left out: "
+        + _steps_line("against (a)", cs, a, "(a)")
+        + f"; the pods' params apart by {cs['pods_apart']:.3e}; "
+        f"{'refused: ' + '; '.join(refused_sync) if refused_sync else 'PASSED'}")
+    if not refused_update:
+        bad.append("(e): the gates of (a) pass a run that leaves the params unchanged")
+    if not refused_sync:
+        bad.append("(e): the gates of (c) pass a run without the pod sync")
+    launches = {"flash_attention": 0, "ring_send": 0, "ring_land": 0}
+    for r in ranks:
+        for part in (r["train"]["counts"], r["launch_counts"], r["compressed"]["counts"],
+                     r["serve"]["counts"]):
+            for k in launches:
+                launches[k] += part[k]
+    out.update(loss_gaps=loss_gaps, gnorm_gaps=gnorm_gaps, ms_per_step=ms,
+               per_step=per_step, peaks=peaks, peak_1x1=limit, resume_gaps=b_gaps,
+               compressed_gaps=c_gaps, logit_gaps=gaps, greedy_agree=agree,
+               launches=launches, refused={"update": refused_update, "sync": refused_sync})
+    for r in ranks:
+        r["serve"].pop("logits", None)
+        r["serve"].pop("tokens", None)
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"[{smi}] sharded LM: phase 13 in {out['phase_s']:.3f} s (spawn and ranks "
+        f"{spawn_s:.3f} s)")
+    if bad:
+        fail("sharded LM " + "; ".join(bad))
+    return out, launches
+
+
 REPLACES = {"flash_attention": "src/repro/kernels/attention.py:68",
             "fft_radix2": "src/repro/kernels/fft_radix2.py:90",
             "fft_mxu": "src/repro/kernels/fft_mxu.py:80",
@@ -3548,6 +4060,12 @@ def main(argv) -> int:
         return 0
     if argv == [TRAIN_ONLY]:
         training(smi)
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+        return 0
+    if argv == [LM_ONLY]:
+        lm, lm_kept = lm_serving(float("nan"))
+        trained, _ = training(smi)
+        sharded_lm(smi, trained, lm_kept)
         return 0
     flash_sass_counts, ptxas_build = build()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3567,7 +4085,7 @@ def main(argv) -> int:
     ranks, ring_launches = multi_rank(runs, tune_backends)
     staged_ranks, staged_launches = staged_mesh()
     launches.update({k: n + staged_launches[k] for k, n in ring_launches.items()})
-    lm = lm_serving(flash_rel)
+    lm, lm_kept = lm_serving(flash_rel)
     launches["flash_attention"] = lm["counts"]["flash_attention"]
     tuned = tuning(runs, ranks, tune_backends)
     served, serve_launches = serving(smi)
@@ -3578,6 +4096,9 @@ def main(argv) -> int:
         launches[k] += n
     trained, launches_trained = training(smi)
     launches["flash_attention"] += launches_trained
+    sharded, sharded_launches = sharded_lm(smi, trained, lm_kept)
+    for k, n in sharded_launches.items():
+        launches[k] += n
 
     kernels = []
     for k in KERNELS:
@@ -3614,7 +4135,7 @@ def main(argv) -> int:
                    "observability": observed, "multi_rank": ranks,
                    "staged": staged_ranks, "flash_bf16_gaps": flash_gaps, "lm": lm,
                    "tuning": tuned, "serving": served, "fleet": fleeted,
-                   "training": trained},
+                   "training": trained, "sharded_lm": sharded},
                   f, indent=1)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 ``torch.Generator``, and the norms.
 
 Port of ``repro.models.common``.  The JAX package records each leaf's
-logical axes for its sharding rules; the port runs on one device and keeps
-no axes (``shard_act`` has no counterpart: on one device it is the
-identity).
+logical axes in a mirror tree as it creates it; the port's modules declare
+theirs (``AXES``, read by :func:`repro_torch.models.transformer.model_axes`).
+``shard_act`` has no counterpart: the port places its collectives where
+GSPMD would, so it constrains no activation.
 """
 
 from __future__ import annotations

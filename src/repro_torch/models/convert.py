@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import Transformer, init_model
+from repro_torch.models.transformer import Transformer, init_model, shard_model
 
 
 def _flatten(tree, prefix=""):
@@ -67,6 +67,27 @@ def params_from_jax(cfg: ArchConfig, tree, device="cuda") -> Transformer:
     return model
 
 
+def params_from_jax_sharded(cfg: ArchConfig, tree, mesh, device="cuda") -> Transformer:
+    """:func:`params_from_jax`, then this rank's shards of it on ``mesh``
+    (:func:`repro_torch.models.transformer.shard_model`)."""
+    return shard_model(params_from_jax(cfg, tree, device=device), mesh)
+
+
+def axes_to_jax_tree(axes: dict) -> dict:
+    """The reference's logical-axes tree of the port's ``{name: axes}``
+    (:func:`repro_torch.models.transformer.model_axes`): a block's leaves
+    under ``blocks`` with the leading ``layers`` axis JAX stacks them on."""
+    tree: dict = {}
+    for name, ax in axes.items():
+        if name.startswith("blocks."):
+            _, i, rest = name.split(".", 2)
+            if i == "0":
+                put_path(tree, ["blocks"] + rest.split("."), ("layers",) + tuple(ax))
+            continue
+        put_path(tree, name.split("."), tuple(ax))
+    return tree
+
+
 def params_to_jax_tree(named) -> dict:
     """The JAX package's nested dict of a ``{port name: tensor}`` mapping
     (``model.named_parameters()``, or a moment keyed as they are): the
@@ -80,14 +101,15 @@ def params_to_jax_tree(named) -> dict:
             _, i, rest = name.split(".", 2)
             stacks.setdefault(rest, {})[int(i)] = leaf
             continue
-        _put(tree, name.split("."), leaf)
+        put_path(tree, name.split("."), leaf)
     for rest, layers in stacks.items():
-        _put(tree, ["blocks"] + rest.split("."),
-             torch.stack([layers[i] for i in sorted(layers)]))
+        put_path(tree, ["blocks"] + rest.split("."),
+                 torch.stack([layers[i] for i in sorted(layers)]))
     return tree
 
 
-def _put(tree: dict, path: list, leaf) -> None:
+def put_path(tree: dict, path: list, leaf) -> None:
+    """Set ``leaf`` at ``path`` (a list of keys) in nested dicts."""
     for key in path[:-1]:
         tree = tree.setdefault(key, {})
     tree[path[-1]] = leaf

@@ -12,9 +12,20 @@ the direct attention's gradient); the one-token decode attention stays
 plain PyTorch (:func:`_sdpa_direct`), as it never reached a Pallas kernel
 in JAX.
 
+On a mesh the layers run tensor-parallel where the model axes cut their
+weights (:class:`TP`, chosen by :mod:`repro_torch.models.transformer` from
+the specs): column-parallel ``wq``/``wk``/``wv``/``wi_*`` behind
+:func:`~repro_torch.distributed.collectives.copy_to`, row-parallel
+``attn.wo``/``ff.wo`` followed by
+:func:`~repro_torch.distributed.collectives.reduce_from`, where GSPMD
+places the same collectives in the reference.  A decode cache whose
+head_dim the model axes cut (kv heads that do not divide) takes partial
+q·k scores, all-reduced before the softmax, and gathers the output's
+head_dim before ``wo``.
+
 Not ported here: ``apply_cross_attention`` (Whisper) and
-``decode_attention_seqsharded`` (the multi-device ``long_500k`` decode),
-ROADMAP Queue 1 item 11.
+``decode_attention_seqsharded`` (the sequence-sharded ``long_500k``
+decode), ROADMAP Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -25,7 +36,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels.attention import flash_attention, flash_attention_plain
+
+
+@dataclasses.dataclass(frozen=True)
+class TP:
+    """How the model axes cut one layer on a mesh.  ``axes``: the model
+    axes of the column- and row-parallel collectives, ``()`` where the
+    layer's weights are whole on every rank (it then runs replicated).
+    Attention only: ``kv``, the kv heads the local query heads read among
+    those computed here (None: all of them, in order; a slice; or one
+    index a query head, the groups then of one head); ``cache_dim``, the
+    decode cache's dim the model axes cut (3: kv heads, 4: head_dim; None:
+    whole), with ``cache_axes`` and ``cache_block`` (start, stop) of it."""
+    axes: tuple = ()
+    kv: object = None
+    cache_dim: int | None = None
+    cache_axes: tuple = ()
+    cache_block: tuple | None = None
+
+
+NO_TP = TP()
 
 # ---------------------------------------------------------------------------
 # RoPE
@@ -64,6 +96,11 @@ def apply_rope(x, cos, sin):
 class MLP(nn.Module):
     """``init_mlp``: gated (swiglu, geglu) or plain gelu with biases."""
 
+    #: each parameter's logical axes (``init_mlp``)
+    AXES = {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"),
+            "wi": ("embed", "mlp"), "bi": ("mlp",), "bo": ("embed",),
+            "wo": ("mlp", "embed")}
+
     def __init__(self, ini, d_model: int, d_ff: int, mlp_type: str):
         super().__init__()
         if mlp_type in ("swiglu", "geglu"):
@@ -76,14 +113,17 @@ class MLP(nn.Module):
         self.wo = ini.param((d_ff, d_model))
 
 
-def apply_mlp(p, x, mlp_type: str):
+def apply_mlp(p, x, mlp_type: str, tp: TP = NO_TP):
+    """The MLP; with ``tp.axes`` its mlp dim is this rank's block:
+    column-parallel in, row-parallel out (the bias after the sum)."""
+    x = C.copy_to(x, tp.axes)
     if mlp_type == "swiglu":
         h = F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
     elif mlp_type == "geglu":
         h = F.gelu(x @ p["wi_gate"], approximate="tanh") * (x @ p["wi_up"])
     else:
         h = F.gelu(x @ p["wi"] + p["bi"].to(x.dtype), approximate="tanh")
-    out = h @ p["wo"]
+    out = C.reduce_from(h @ p["wo"], tp.axes)
     if "bo" in p:
         out = out + p["bo"].to(x.dtype)
     return out
@@ -108,6 +148,14 @@ class AttnDims:
 class Attention(nn.Module):
     """``init_attention``: the JAX layouts, so the einsums match term for
     term."""
+
+    #: each parameter's logical axes (``init_attention``)
+    AXES = {"wq": ("embed", "heads", "head_dim"),
+            "wk": ("embed", "kv_heads", "head_dim"),
+            "wv": ("embed", "kv_heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed"),
+            "bq": ("heads", "head_dim"), "bk": ("kv_heads", "head_dim"),
+            "bv": ("kv_heads", "head_dim")}
 
     def __init__(self, ini, a: AttnDims):
         super().__init__()
@@ -205,27 +253,81 @@ def _sdpa_chunked(q, k, v, a: AttnDims, causal: bool,
     return out.to(q.dtype)
 
 
-def apply_attention(p, a: AttnDims, x, positions, *, plain: bool = False):
-    """Full self-attention for prefill and training; returns (out, (k, v)).
+def _read_kv(k, kv):
+    """The kv heads (dim 2) the local query heads read (:class:`TP`)."""
+    if kv is None:
+        return k
+    if isinstance(kv, slice):
+        return k[:, :, kv]
+    return k.index_select(2, torch.tensor(kv, device=k.device))
+
+
+def apply_attention(p, a: AttnDims, x, positions, *, plain: bool = False,
+                    tp: TP = NO_TP):
+    """Full self-attention for prefill and training; returns (out, (k, v)),
+    k and v as computed here (all kv heads, or this rank's block of them).
     The attention itself is the flash-attention kernel (its plain version
-    for CPU tensors, or everywhere with ``plain=True``)."""
-    q, k, v = _qkv(p, a, x, positions)
+    for CPU tensors, or everywhere with ``plain=True``), on this rank's
+    query heads and rows."""
+    if tp.axes and tp.kv is not None:
+        # kv weights whole on every rank, each rank's query heads reading
+        # some of their heads: their gradients are summed over the ranks
+        p = dict(p, **{n: C.copy_to(p[n], tp.axes) for n in ("wk", "wv", "bk", "bv")
+                       if n in p})
+    q, k, v = _qkv(p, a, C.copy_to(x, tp.axes), positions)
     attend = flash_attention_plain if plain else flash_attention
-    o = attend(q, k, v, causal=a.causal)
-    return torch.einsum("bshd,hdm->bsm", o, p["wo"]), (k, v)
+    o = attend(q, _read_kv(k, tp.kv), _read_kv(v, tp.kv), causal=a.causal)
+    return C.reduce_from(torch.einsum("bshd,hdm->bsm", o, p["wo"]), tp.axes), (k, v)
+
+
+def cache_entry(k, tp: TP):
+    """The part of a computed k (or v) that this rank's cache holds."""
+    if tp.cache_dim != 4:  # whole, or kv heads already this rank's block
+        return k
+    lo, hi = tp.cache_block
+    return k[..., lo:hi]
+
+
+def _sdpa_head_dim_cut(q, k, v, axes, mask, d_full: int):
+    """:func:`_sdpa_direct` over a cache whose head_dim the ranks of
+    ``axes`` cut: q, k, v hold this rank's block of it (all heads); the
+    scores are partial sums, all-reduced (f32) before the softmax; the
+    output's head_dim is gathered."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, s, hkv, g, d).float()
+    logits = torch.einsum("bshgd,bthd->bhgst", qg, k.float())
+    logits = C.all_reduce(logits, axes, "sum")
+    logits = logits / torch.sqrt(torch.tensor(float(d_full), dtype=torch.float32))
+    logits = logits.masked_fill(~mask, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", w.to(v.dtype), v)
+    return C.all_gather(out.reshape(b, s, h, d), axes, dim=-1)
 
 
 def apply_attention_decode(p, a: AttnDims, x, cache_k, cache_v, cache_len: int,
-                           positions):
-    """One-token decode against a (B, T_max, Hkv, D) cache.  The new k and
-    v entries are written into ``cache_k``/``cache_v`` at ``cache_len`` in
-    place (JAX returns updated copies); returns the layer's output."""
-    q, k, v = _qkv(p, a, x, positions)  # s == 1
+                           positions, tp: TP = NO_TP):
+    """One-token decode against a (B, T_max, Hkv, D) cache (this rank's
+    part of it on a mesh, :func:`cache_entry`).  The new k and v entries
+    are written into ``cache_k``/``cache_v`` at ``cache_len`` in place (JAX
+    returns updated copies); returns the layer's output."""
+    q, k, v = _qkv(p, a, C.copy_to(x, tp.axes), positions)  # s == 1
     t = cache_k.shape[1]
     if not 0 <= cache_len < t:
         raise ValueError(f"cache position {cache_len} outside its {t} slots")
-    cache_k[:, cache_len:cache_len + 1] = k.to(cache_k.dtype)
-    cache_v[:, cache_len:cache_len + 1] = v.to(cache_v.dtype)
+    cache_k[:, cache_len:cache_len + 1] = cache_entry(k, tp).to(cache_k.dtype)
+    cache_v[:, cache_len:cache_len + 1] = cache_entry(v, tp).to(cache_v.dtype)
     valid = (torch.arange(t, device=x.device)[None, :] <= cache_len)[None, None, None]
-    o = _sdpa_direct(q, cache_k, cache_v, a, mask=valid)
-    return torch.einsum("bshd,hdm->bsm", o, p["wo"])
+    ck, cv = cache_k, cache_v
+    if tp.cache_dim == 4 and not tp.axes:
+        lo, hi = tp.cache_block
+        o = _sdpa_head_dim_cut(q[..., lo:hi], ck, cv, tp.cache_axes, valid,
+                               a.head_dim)
+    else:
+        if tp.cache_dim == 4:  # query heads cut too: the whole head_dim here
+            ck, cv = (C.all_gather(c[:, :cache_len + 1], tp.cache_axes, dim=-1)
+                      for c in (ck, cv))
+            valid = valid[..., :cache_len + 1]
+        o = _sdpa_direct(q, _read_kv(ck, tp.kv), _read_kv(cv, tp.kv), a, mask=valid)
+    return C.reduce_from(torch.einsum("bshd,hdm->bsm", o, p["wo"]), tp.axes)

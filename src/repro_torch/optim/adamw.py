@@ -13,6 +13,13 @@ The trees are flat ``{name: tensor}`` mappings (the model's
 ``named_parameters()``); :func:`update` changes the parameters and the
 moments in place under ``torch.no_grad()``, each step of the arithmetic a
 ``torch._foreach_*`` call over all the leaves.
+
+On a mesh the leaves are this rank's shards (the moments sharded like
+their parameters, the update elementwise on them) and :func:`global_norm`
+is the norm of the whole tree: given the mesh axes each leaf's spec cuts,
+the local sums of squares of the leaves cut over the same axes are
+all-reduced over those axes (one packed exchange an axis), so that a
+leaf whole on some axes is counted once, not once a rank.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ import dataclasses
 import math
 
 import torch
+
+from repro_torch.distributed import collectives as C
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,11 +81,24 @@ def init(c: AdamWConfig, params: dict) -> dict:
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(leaves) -> torch.Tensor:
+def global_norm(leaves, cut_axes=None) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's sum of squares, f32
-    (each leaf's through ``torch._foreach_norm``, squared)."""
+    (each leaf's through ``torch._foreach_norm``, squared).  ``cut_axes``
+    (one tuple of mesh axes a leaf, or None on one device) names the axes
+    each leaf is a shard over: those leaves' squares are summed over the
+    ranks of those axes before the total."""
     norms = torch._foreach_norm([g.to(torch.float32) for g in leaves])
-    return torch.stack(norms).square().sum().sqrt()
+    sq = torch.stack(norms).square()
+    if cut_axes is None:
+        return sq.sum().sqrt()
+    groups: dict = {}
+    for i, axes in enumerate(cut_axes):
+        groups.setdefault(tuple(axes), []).append(i)
+    parts = []
+    for axes, idx in groups.items():
+        sel = sq[torch.tensor(idx, device=sq.device)]
+        parts.append(C.all_reduce(sel, axes, "sum") if axes else sel)
+    return torch.cat(parts).sum().sqrt()
 
 
 def _f32(xs: list) -> list:
@@ -93,18 +115,21 @@ def _store(dst: list, src: list) -> None:
 
 
 @torch.no_grad()
-def update(c: AdamWConfig, grads: dict, state: dict, params: dict):
+def update(c: AdamWConfig, grads: dict, state: dict, params: dict,
+           cut_axes: dict | None = None):
     """One step in place: ``params`` and ``state["m"]``, ``state["v"]``
     are updated where they lie and ``state["count"]`` is replaced by the
     incremented count.  Returns ``(params, state, metrics)``, metrics
-    ``grad_norm`` and ``lr`` (0-dim f32 tensors), as the reference's."""
+    ``grad_norm`` and ``lr`` (0-dim f32 tensors), as the reference's.
+    ``cut_axes`` ({name: mesh axes}) makes the leaves shards
+    (:func:`global_norm`)."""
     names = list(params)
     ps = [params[n] for n in names]
     gs = [grads[n] for n in names]
     ms = [state["m"][n] for n in names]
     vs = [state["v"][n] for n in names]
     count = state["count"] + 1
-    gnorm = global_norm(gs)
+    gnorm = global_norm(gs, None if cut_axes is None else [cut_axes[n] for n in names])
     scale = torch.clamp(c.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = schedule(c, count)
     b1, b2 = c.b1, c.b2

@@ -1,1 +1,2 @@
-"""Training step factory of the port (one device)."""
+"""Training step factory of the port (one device, or sharded over a mesh of
+rank processes)."""

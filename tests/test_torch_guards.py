@@ -2,7 +2,8 @@
 JAX package, it never falls back to the CPU or to the plain version, and
 it refuses what it does not run (a grid of more than one rank, 3-axis
 meshes included, outside its rank processes; what is not ported yet,
-each naming its ROADMAP item)."""
+each naming its ROADMAP item).  The LM launchers' ``--mesh`` and
+``--grad-compression``, refused until the sharding slice, run."""
 
 import dataclasses
 import os
@@ -38,6 +39,8 @@ FLEET = tuple(f"repro_torch.fleet.{m}" for m in
               ("cli", "controller", "faults", "records", "worker"))
 TRAINING = ("repro_torch.data.pipeline", "repro_torch.optim.adamw",
             "repro_torch.training.train_loop", "repro_torch.launch.train")
+SHARDING = ("repro_torch.distributed.sharding", "repro_torch.distributed.collectives",
+            "repro_torch.distributed.compression", "repro_torch.launch.mesh")
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.MULTILINE)
 
 
@@ -62,7 +65,7 @@ def test_import_leaves_jax_and_repro_out():
                 "repro_torch.core.topology", "repro_torch.configs.fft_configs",
                 "repro_torch.tuning.autotune", "repro_torch.tuning.calibrate",
                 "repro_torch.tuning.cli", "repro_torch.tuning.solver",
-                *FLEET, *SERVING, *TRAINING):
+                *FLEET, *SERVING, *TRAINING, *SHARDING):
         assert f"'{mod}'" in out, out
 
 
@@ -73,7 +76,7 @@ def test_sources_import_neither_jax_nor_repro():
             PORT / "core" / "perfmodel.py", PORT / "core" / "topology.py",
             PORT / "configs" / "fft_configs.py"} <= set(files)
     assert {PORT.joinpath(*m.split(".")[1:]).with_suffix(".py")
-            for m in TRAINING} <= set(files)
+            for m in TRAINING + SHARDING} <= set(files)
     tuning = {f.name for f in files if f.parent == PORT / "tuning"}
     assert tuning == {"__init__.py", "autotune.py", "cache.py", "calibrate.py",
                       "cli.py", "solver.py", "space.py", "timing.py"}
@@ -268,7 +271,6 @@ def test_what_this_slice_leaves_out_names_its_roadmap_item():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--smoke", "--mesh", "2x1"], "Queue 1 item 11"),
     (["--arch", "qwen3-moe-30b-a3b"], "Queue 1 item 11"),        # MoE
     (["--arch", "deepseek-v2-lite-16b"], "Queue 1 item 11"),     # MLA + MoE
     (["--arch", "rwkv6-3b"], "Queue 1 item 11"),                 # RWKV
@@ -281,15 +283,31 @@ def test_serve_refuses_what_is_not_ported(argv, item):
         serve.main(argv + ["--smoke", "--device", "cpu"])
 
 
+def test_serve_runs_a_mesh():
+    # the arguments refused until the sharding slice: 2 rank processes
+    argv = ["--smoke", "--device", "cpu"]
+    assert torch.equal(serve.main(argv + ["--mesh", "2x1"]),
+                       serve.main(argv))
+
+
 @pytest.mark.parametrize("argv", [
-    ["--mesh", "2x1"],
-    ["--grad-compression"],
     ["--arch", "qwen3-moe-30b-a3b"],                             # MoE
     ["--arch", "rwkv6-3b"],                                      # RWKV
 ])
 def test_train_refuses_what_is_not_ported(argv):
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         train.main(argv + ["--smoke", "--device", "cpu", "--steps", "1"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mesh", "2x1"],
+    ["--grad-compression"],   # a DATAxMODEL mesh has no pod axis: the plain step
+])
+def test_train_runs_what_the_sharding_slice_ports(argv, capsys):
+    common = ["--smoke", "--device", "cpu", "--steps", "1"]
+    got = train.main(argv + common)
+    want = train.main(common)
+    assert len(got) == 1 and abs(got[0] - want[0]) <= 1e-5 * abs(want[0])
 
 
 def test_train_defaults_to_cuda_and_raises_without_a_card():
@@ -305,7 +323,8 @@ def test_lm_path_refuses_kv_quant_and_seq_sharded_decode():
         T.init_model(dataclasses.replace(cfg, kv_quant=True), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         T.init_cache(dataclasses.replace(cfg, kv_quant=True), 1, 4, device="cpu")
-    # one device: the run context has no mesh and no sequence-sharded decode
+    # the run context's mesh is a sharding.Mesh; the sequence-sharded
+    # decode is not ported
     for field in ("mesh", "seq_shard_kv"):
         with pytest.raises(TypeError, match=field):
             T.RunCfg(**{field: True})

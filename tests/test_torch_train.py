@@ -258,9 +258,18 @@ def test_six_step_trajectory_matches_jax(microbatches):
 
 
 def test_grad_compression_names_its_roadmap_item():
-    tc = train_loop.TrainCfg(grad_compression=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        train_loop.make_train_step(get_config(ARCH, smoke=True), T.RunCfg(), tc)
+    # ported (ROADMAP Queue 1 item 11.2): without a pod axis the flag keeps
+    # the plain step, as the reference's train_loop.py:65-67 does
+    cfg = get_config(ARCH, smoke=True)
+    batch = {"tokens": torch.from_numpy(_tokens(cfg, seed=4))}
+    out = []
+    for flag in (True, False):
+        model = T.init_model(cfg, seed=4, device="cpu")
+        tc = train_loop.TrainCfg(grad_compression=flag)
+        step = train_loop.make_train_step(cfg, T.RunCfg(), tc)
+        state = adamw.init(tc.adamw, dict(model.named_parameters()))
+        out.append([float(step(model, state, batch)[0]) for _ in range(2)])
+    assert out[0] == out[1]
 
 
 # --------------------------------------------------------------------------
