@@ -13,7 +13,8 @@ and ``ring_land`` (``csrc/ring_rdma.cu``, engines
 serving and training: ``flash_attention`` (``csrc/flash_attention.cu``),
 the attention of every layer of the prefill and of every forward of a
 training step; sharded over a mesh of rank processes, the LM's
-collectives run on ``ring_send`` and ``ring_land`` too.  Phases, each
+collectives run on ``ring_send`` and ``ring_land`` too, the MoE's
+expert-parallel all-to-alls among them.  Phases, each
 fatal on failure:
 
 1. card — ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
@@ -245,8 +246,35 @@ fatal on failure:
    residual.  (d) Re-cut to 2x2: phase 8's serving (B=8, prompt 2048, 32
    tokens), teacher-forced with phase 8's tokens, every step's logits
    within 3e-2·max|logit| of phase 8's, one launch a layer a rank; prefill
-   ms and decode ms/step on rank 0.  ``chip_smoke.py --lm-only`` runs
-   phases 1, 8, 12 and 13.
+   ms and decode ms/step on rank 0.
+14. the MoE — ``qwen3-moe-30b-a3b`` at full width (d 2048, 32 heads on 4
+   kv heads, head_dim 128, 128 experts top-8, expert d_ff 768, vocab
+   151936), cut to 4 of its 48 layers (``dataclasses.replace(CONFIG,
+   n_layers=4)``: 3.115 B params), bf16, seed 0.  Every correctness gate
+   runs at capacity factor 8.0, where nothing drops (the EP and dense
+   capacity rules drop different pairs at 1.25), and pins the expert
+   choices of the run compared to the reference run's
+   (``models.moe.routing``: the top-k of bf16 router logits flips under
+   one-unit changes); the timed runs take the config's 1.25 and print the
+   share of pairs dropped.  (a) 1x1 serving, B=8, prompt 2048, 32 tokens
+   through ``launch/serve.py``'s ``generate``: 4 ``flash_attention``
+   launches a prefill, no plain call; every step's logits within
+   3e-2·max|logit| of the plain attention's, teacher-forced; block 0's MoE
+   at T=512 by index against the one-hot plain version (2e-2 of max);
+   prefill ms, decode ms a step, tok/s, peak, a profiled prefill.  (c)
+   1x1 training, B=8, S=512, remat: step 0's gradients against the plain
+   attention's per leaf (5e-2, phase 12's gate), 6 steps (ms/step,
+   tokens/s, peak), 3 steps at 8.0.  (b) and (d): one spawn of 4 rank
+   processes on 2x2, expert-parallel (every all-to-all on the peer-mapped
+   wire: ``ring_send``/``ring_land``).  (b) serving at 8.0, teacher-forced
+   with (a)'s tokens there: logits within 3e-2·max|logit| of (a)'s; at
+   1.25 prefill and decode ms on rank 0, all-to-alls and wire bytes a
+   prefill and a decode step.  (d) 3 steps at 8.0 against (c)'s: loss,
+   gnorm and the params' change ‖p₃ − p₀‖, gates that must refuse the
+   same steps with the experts' gradients left out; at 1.25 ms/step on
+   rank 0, peak a rank, all-to-alls and wire bytes a step.
+   ``chip_smoke.py --moe-only`` runs phases 1 and 14; ``--lm-only`` runs
+   phases 1, 8, 12, 13 and 14.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Full results go to
@@ -3252,7 +3280,7 @@ def _train_grads(cfg, run, model, tokens):
     return loss.item(), dict(zip(names, grads))
 
 
-def _check_grads(label, got, want, loss, loss_want, tol):
+def _check_grads(label, got, want, loss, loss_want, tol, stage="training (a)"):
     """(a)'s gate on the gradients ``got`` against ``want``: every leaf
     finite and within ``tol`` (||d|| over ||want||), every wq/wk/wv
     gradient nonzero, the losses within TRAIN_LOSS_TOL relative.  Prints
@@ -3271,7 +3299,7 @@ def _check_grads(label, got, want, loss, loss_want, tol):
     loss_gap = abs(loss - loss_want) / abs(loss_want)
     ok = finite and gaps[worst][0] <= tol and not zero and loss_gap <= TRAIN_LOSS_TOL
     qkv_gap = max(gaps[n][0] for n in qkv)
-    say(f"training (a) {label}: loss {loss:.6f} against the plain attention's "
+    say(f"{stage} {label}: loss {loss:.6f} against the plain attention's "
         f"{loss_want:.6f} ({loss_gap:.3e} relative, tol {TRAIN_LOSS_TOL:g}); "
         f"gradient leaves ||d||/||g|| max {gaps[worst][0]:.3e} at {worst} "
         f"(max|d|/max|g| {gaps[worst][1]:.3e}), wq/wk/wv max {qkv_gap:.3e} "
@@ -3648,10 +3676,10 @@ def _zero_shard_counts():
 
 
 def _shard_steps(ctx, cfg, steps, *, lr=None, compressed=False, profile=False):
-    """``steps`` steps of phase 12's model on this rank's mesh (the
-    compressed step with ``compressed``), each synchronised and timed,
-    from counts set to 0; the counts, the peak, the params' change after
-    MOVED_AFTER steps; with ``profile`` one more step under
+    """``steps`` steps of ``cfg`` on this rank's mesh (``ctx`` None: on one
+    device; the compressed step with ``compressed``), each synchronised
+    and timed, from counts set to 0; the counts, the peak, the params'
+    change after MOVED_AFTER steps; with ``profile`` one more step under
     ``torch.profiler`` on rank 0.  ``lr`` overrides the learning rate (0:
     the update left out)."""
     import dataclasses
@@ -3664,7 +3692,7 @@ def _shard_steps(ctx, cfg, steps, *, lr=None, compressed=False, profile=False):
     from repro_torch.optim import adamw
     from repro_torch.training.train_loop import TrainCfg, cut_axes, make_train_step
 
-    run, model, _ = M.rank_setup(cfg, ctx, None, remat=cfg.remat)
+    run, model, _ = M.rank_setup(cfg, ctx, "cuda", remat=cfg.remat)
     acfg = adamw.AdamWConfig(total_steps=TRAIN_STEPS,
                              warmup_steps=max(TRAIN_STEPS // 20, 5),
                              moment_dtype=cfg.opt_state_dtype)
@@ -4040,6 +4068,470 @@ def sharded_lm(smi, trained, served):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the MoE (qwen3-moe-30b-a3b) served and trained on one card, and
+# expert-parallel over a 2x2 mesh of rank processes
+# ---------------------------------------------------------------------------
+
+# full width (d 2048, 32 heads on 4 kv heads, 128 experts top-8, expert
+# d_ff 768, vocab 151936); the one cut: 48 layers -> MOE_LAYERS (f32
+# params 12.46 GB, training state 49.8 GB on one 80 GB card)
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_LAYERS = 4
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 8, 2048, 32
+# every correctness gate runs at this capacity factor, where nothing
+# drops (the reference's EP test's), so that 2x2 and 1x1 compare: their
+# capacity rules differ; the timed runs take the config's 1.25
+MOE_GATE_CF = 8.0
+# (a) the index dispatch against the one-hot plain version on one layer,
+# bf16: max|d| <= MOE_DISPATCH_TOL · max|plain| (the same bf16 products
+# summed in another order; tests/test_torch_moe.py holds 2e-2)
+MOE_DISPATCH_T, MOE_DISPATCH_TOL = 512, 2e-2
+# (c) steps at 1.25 on one device (the first apart), and the gate's steps
+# at MOE_GATE_CF on 1x1 and 2x2; (d) steps at 1.25 on 2x2
+MOE_TIMED_STEPS, MOE_GATE_STEPS, MOE_MESH_STEPS = 6, 3, 4
+# (d) against (c) at MOE_GATE_CF, relative: each step's loss and gnorm and
+# the params' change after 3 steps.  The gnorm and change gates sit between
+# the sound reading and the control's (2x2 with the experts' gradients left
+# out) on the H100 (PERF.md, phase 14): gnorm sound at most 1.60e-3, the
+# control's at least 7.70e-3; change sound 1.45e-5, the control's 0.637.
+# The loss cannot tell them apart (sound 3.80e-4, 2.07e-4, 1.16e-4; the
+# control's 3.80e-4, 1.64e-4, 2.01e-4: step 0 is before any update, and a
+# tenth of the tokens route to other experts on 2x2 than on one device,
+# unpinned), so its gate is a bound on the sound reading only
+MOE_LOSS_TOL, MOE_GNORM_TOL, MOE_MOVED_TOL = 1e-3, 4e-3, 1e-3
+MOE_ONLY = "--moe-only"
+
+
+def _moe_cfg(cf=None):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    if cf is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+    return cfg
+
+
+def _record(fn):
+    """``fn()`` on one device with its expert choices recorded: (its
+    result, the choices of each MoE call in order)."""
+    from repro_torch.models import moe as MOE
+
+    MOE.routing = {"record": []}
+    try:
+        return fn(), MOE.routing["record"]
+    finally:
+        MOE.routing = None
+
+
+def _replay(fn, record):
+    """``fn()`` with each MoE call's expert choices pinned to ``record``'s:
+    (its result, the share of tokens whose own choice differed)."""
+    from repro_torch.models import moe as MOE
+
+    MOE.routing = {"replay": record, "at": 0, "flips": 0, "tokens": 0}
+    try:
+        out = fn()
+        if MOE.routing["at"] != len(record):
+            fail(f"MoE: a replay took {MOE.routing['at']} of {len(record)} recorded "
+                 "routings")
+        return out, float(MOE.routing["flips"]) / max(MOE.routing["tokens"], 1)
+    finally:
+        MOE.routing = None
+
+
+def _moe_dispatch_check(cfg, model, tokens):
+    """(a): block 0's MoE on MOE_DISPATCH_T tokens (their normed
+    embeddings), bf16: the index dispatch against the one-hot plain
+    version, and both timed."""
+    import torch
+
+    from repro_torch.models import common as cm
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+
+    p = T._cast_f(model.blocks[0].ff, torch.bfloat16)
+    m = T.moe_dims(cfg)
+    x = cm.rms_norm(model.embed[tokens[:1, :MOE_DISPATCH_T].long()].bfloat16(),
+                    model.blocks[0].ln2.w)
+    got, dropped = MOE.count_drops(lambda: MOE.apply_moe(p, m, x))
+    want = MOE.apply_moe_plain(p, m, x)
+    err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+    out = {"tokens": MOE_DISPATCH_T, "err": err, "tol": MOE_DISPATCH_TOL,
+           "dropped": dropped,
+           "index_ms": _time_ms(lambda: MOE.apply_moe(p, m, x), 10, 2),
+           "plain_ms": _time_ms(lambda: MOE.apply_moe_plain(p, m, x), 5, 1)}
+    say(f"MoE (a) one layer at T={MOE_DISPATCH_T} bf16: the index dispatch against the "
+        f"one-hot plain version max|d| {err:.3e} of max|plain| (tol {MOE_DISPATCH_TOL:g}), "
+        f"{out['dropped']:.2%} of the pairs dropped; index {out['index_ms']:.4f} ms, "
+        f"one-hot {out['plain_ms']:.4f} ms")
+    if not err <= MOE_DISPATCH_TOL or not bool(torch.isfinite(got).all()):
+        fail(f"MoE (a): the index dispatch is {err:.3e} of max|plain| from the one-hot one")
+    return out
+
+
+def _moe_serve_1x1(smi, cfg):
+    """(a): qwen3-moe cut to MOE_LAYERS layers, bf16, B=8, prompt 2048, 32
+    tokens through ``launch/serve.py``'s ``generate`` at capacity factor
+    1.25: one ``flash_attention`` launch a layer, no plain call; logits
+    within LM_TOL_BF16 · max|logit| of the plain attention's, teacher-
+    forced; the one-layer dispatch check; a profiled prefill.  Then the
+    same prompts at MOE_GATE_CF: (b)'s tokens and logits."""
+    import torch
+
+    from repro_torch.kernels import attention
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+
+    run, plain_run = T.RunCfg(), T.RunCfg(plain_attention=True)
+    model = T.init_model(cfg, seed=0, device="cuda")
+    tokens = serve.prompt_tokens(cfg, MOE_BATCH, MOE_PROMPT, "cuda")
+    serve.generate(cfg, run, model, tokens[:, :64], 2)  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention.launches = attention.plain_calls = attention.pad_copies = 0
+    (r, record), dropped = MOE.count_drops(lambda: _record(lambda: serve.generate(
+        cfg, run, model, tokens, MOE_GEN, keep_logits=True)))
+    counts = {"flash_attention": attention.launches,
+              "flash_attention_plain": attention.plain_calls,
+              "pad_copies": attention.pad_copies}
+    peak = torch.cuda.max_memory_allocated()
+    steps = MOE_GEN - 1
+    out = {"arch": MOE_ARCH, "layers": MOE_LAYERS, "counts": counts,
+           "prefill_ms": r["prefill_ms"], "decode_ms_per_step": r["decode_ms"] / steps,
+           "tok_per_s": steps * MOE_BATCH / (r["decode_ms"] / 1e3), "peak_bytes": peak,
+           "dropped": dropped}
+    say(f"[{smi}] MoE (a) {MOE_ARCH} ({MOE_LAYERS} layers) 1x1 bf16 B={MOE_BATCH} "
+        f"prompt={MOE_PROMPT} gen={MOE_GEN}, capacity factor {cfg.moe.capacity_factor}: "
+        f"prefill {r['prefill_ms']:.3f} ms, decode {out['decode_ms_per_step']:.3f} ms/step "
+        f"({out['tok_per_s']:.1f} tok/s), peak {peak / 2**30:.3f} GiB, {dropped:.4%} of "
+        f"the pairs dropped; counts {counts}")
+    if counts != {"flash_attention": cfg.n_layers, "flash_attention_plain": 0,
+                  "pad_copies": 0}:
+        fail(f"MoE (a): counts {counts}, want {cfg.n_layers} launches, no plain call")
+    if tuple(r["tokens"].shape) != (MOE_BATCH, MOE_GEN) or not all(
+            bool(torch.isfinite(x).all()) for x in r["logits"]) or \
+            tuple(r["logits"][0].shape) != (MOE_BATCH, 1, cfg.vocab):
+        fail(f"MoE (a): tokens {tuple(r['tokens'].shape)}, logits "
+             f"{tuple(r['logits'][0].shape)} or not finite")
+    # the plain attention's run, teacher-forced: its own routing, then
+    # pinned to the kernel run's (the gate: the same discrete choices)
+    free = serve.generate(cfg, plain_run, model, tokens, MOE_GEN, forced=r["tokens"],
+                          keep_logits=True)
+    free_gaps = _logit_gaps(r["logits"], free["logits"])
+    del free
+    p, flips = _replay(lambda: serve.generate(cfg, plain_run, model, tokens, MOE_GEN,
+                                              forced=r["tokens"], keep_logits=True), record)
+    gaps = _logit_gaps(r["logits"], p["logits"])
+    out.update(gap_prefill=gaps[0], gap_decode_max=max(gaps[1:]), tol=LM_TOL_BF16,
+               flips=flips, free_gap_prefill=free_gaps[0],
+               free_gap_decode_max=max(free_gaps[1:]))
+    say(f"MoE (a) kernel vs plain attention (bf16, teacher-forced), the plain run's "
+        f"expert choices pinned to the kernel run's: logits gap prefill {gaps[0]:.3e}, "
+        f"decode steps max {max(gaps[1:]):.3e} of max|logit| (tol {LM_TOL_BF16:g}); "
+        f"its own top-8 differed for {flips:.3%} of the tokens a layer; unpinned the "
+        f"gaps are {free_gaps[0]:.3e}, {max(free_gaps[1:]):.3e}")
+    if max(gaps) > LM_TOL_BF16:
+        fail(f"MoE (a): kernel and plain attention logits differ by {max(gaps):.3e}")
+    del p, record
+    out["dispatch"] = _moe_dispatch_check(cfg, model, tokens)
+    prof = _profile(lambda: T.prefill(cfg, run, model, {"tokens": tokens},
+                                      t_max=MOE_PROMPT + MOE_GEN),
+                    f"MoE prefill {MOE_ARCH} ({MOE_LAYERS} layers) B={MOE_BATCH} "
+                    f"S={MOE_PROMPT}", top=10)
+    for line in prof["lines"]:
+        say(line)
+    out["breakdown"] = prof
+    del r
+    torch.cuda.empty_cache()
+    cfg8 = _moe_cfg(MOE_GATE_CF)
+    r8, record8 = _record(lambda: serve.generate(cfg8, run, model, tokens, MOE_GEN,
+                                                 keep_logits=True))
+    kept = {"tokens": r8["tokens"].cpu(), "logits": [x.float().cpu() for x in r8["logits"]],
+            "routing": [t.cpu().numpy() for t in record8]}
+    out["gate_cf"] = {"prefill_ms": r8["prefill_ms"],
+                      "decode_ms_per_step": r8["decode_ms"] / steps}
+    del model, r8
+    torch.cuda.empty_cache()
+    return out, kept, counts["flash_attention"]
+
+
+def _moe_train_1x1(smi, cfg):
+    """(c): step 0's gradients through the kernel path against the plain
+    attention's (phase 12's gate), MOE_TIMED_STEPS steps at 1.25 (ms/step,
+    tokens/s, peak, the share dropped), and MOE_GATE_STEPS steps at
+    MOE_GATE_CF: (d)'s reference."""
+    import statistics
+
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.kernels import attention
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+
+    # no remat here: a replay pins each MoE call once, in order
+    run = T.RunCfg(remat=False)
+    model = T.init_model(cfg, seed=0, device="cuda")
+    pipe = Pipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+    tokens = torch.from_numpy(pipe.batch_for_step(0)["tokens"]).cuda()
+    attention.launches = attention.plain_calls = 0
+    (loss, got), record = _record(lambda: _train_grads(cfg, run, model, tokens))
+    counts = [attention.launches, attention.plain_calls]
+    (loss_p, want), flips = _replay(lambda: _train_grads(
+        cfg, T.RunCfg(plain_attention=True, remat=False), model, tokens), record)
+    ok, grads = _check_grads("bfloat16, the plain run's expert choices pinned to the "
+                             "kernel run's", got, want, loss, loss_p,
+                             TRAIN_GRAD_TOL["bfloat16"], stage="MoE (c)")
+    say(f"MoE (c): the plain run's own top-8 differed for {flips:.3%} of the tokens a layer")
+    grads.update(counts=counts, flips=flips)
+    del got, want, model
+    torch.cuda.empty_cache()
+    if counts != [cfg.n_layers, 0]:
+        fail(f"MoE (c): the kernel path made {counts} launches and plain calls, "
+             f"want [{cfg.n_layers}, 0]")
+    per_step = T.block_forwards(cfg, T.RunCfg(remat=cfg.remat))
+    if not ok:
+        fail("MoE (c): the kernel path's gradients fail the gate")
+    timed, dropped = MOE.count_drops(lambda: _shard_steps(None, cfg, MOE_TIMED_STEPS))
+    timed["dropped"] = dropped
+    ms = statistics.median(timed["step_ms"][1:])
+    launches = counts[0] + timed["counts"]["flash_attention"]
+    gate = _shard_steps(None, _moe_cfg(MOE_GATE_CF), MOE_GATE_STEPS)
+    launches += gate["counts"]["flash_attention"]
+    out = {"grads": grads, "timed": timed, "gate": gate, "ms_per_step": ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+           "launches_per_step": per_step}
+    say(f"[{smi}] MoE (c) training 1x1 bf16 remat B={TRAIN_BATCH} S={TRAIN_SEQ}, capacity "
+        f"factor {cfg.moe.capacity_factor}: {ms:.3f} ms/step (median of "
+        f"{MOE_TIMED_STEPS - 1}; {', '.join(f'{t:.3f}' for t in timed['step_ms'])}), "
+        f"{out['tokens_per_s']:.1f} tokens/s, peak {timed['peak_bytes'] / 2**30:.3f} GiB, "
+        f"{timed['dropped']:.4%} of the pairs dropped, losses "
+        f"{[round(x, 4) for x in timed['losses']]}; flash_attention "
+        f"{timed['counts']['flash_attention'] / MOE_TIMED_STEPS:g} launches a step")
+    say(f"MoE (c) at capacity factor {MOE_GATE_CF:g}: losses {gate['losses']}, gnorms "
+        f"{gate['gnorms']}, the params' change {gate['moved']}")
+    bad = [x for x in timed["losses"] + gate["losses"] if not x == x or abs(x) == float("inf")]
+    if bad or timed["counts"]["flash_attention"] != MOE_TIMED_STEPS * per_step or \
+            timed["counts"]["flash_attention_plain"]:
+        fail(f"MoE (c): losses {timed['losses']}, counts {timed['counts']}")
+    return out, launches
+
+
+def _moe_experts_left_out(ctx, cfg, steps):
+    """(d)'s control: the steps with the experts' gradients set to zero
+    before the update."""
+    import torch
+
+    from repro_torch.optim import adamw
+
+    update = adamw.update
+
+    def without(c, grads, *args, **kw):
+        grads = {n: torch.zeros_like(g) if ".ff.experts." in n else g
+                 for n, g in grads.items()}
+        return update(c, grads, *args, **kw)
+
+    adamw.update = without
+    try:
+        return _shard_steps(ctx, cfg, steps)
+    finally:
+        adamw.update = update
+
+
+def _moe_counts_of(fn):
+    """The shard counts of one call of ``fn``, from 0."""
+    import torch
+
+    torch.cuda.synchronize()
+    _zero_shard_counts()
+    fn()
+    torch.cuda.synchronize()
+    return _shard_counts()
+
+
+def _moe_ranks(ctx, forced8, routing8):
+    """Everything phase 14's 4 rank processes do: (b) serving on 2x2 at
+    MOE_GATE_CF (teacher-forced with (a)'s tokens there) and at 1.25;
+    (d) training at MOE_GATE_CF, its control, and at 1.25."""
+    import statistics
+
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.kernels import ring_rdma
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+
+    cfg, cfg8 = _moe_cfg(), _moe_cfg(MOE_GATE_CF)
+    out = {"rank": ctx.rank}
+    run, model, _ = M.rank_setup(cfg, ctx, None)
+    tokens = serve.prompt_tokens(cfg, MOE_BATCH, MOE_PROMPT, ctx.device)
+    serve.generate(cfg, run, model, tokens[:, :64], 2)  # warm-up, not counted
+    _zero_shard_counts()
+    r8, flips = _replay(lambda: serve.generate(
+        cfg8, run, model, tokens, MOE_GEN, forced=torch.from_numpy(forced8).to(ctx.device),
+        keep_logits=True), [torch.from_numpy(a) for a in routing8])
+    out["serve8"] = {"counts": _shard_counts(), "flips": flips}
+    if ctx.rank == 0:  # numpy: a rank's result crosses to the parent pickled
+        out["serve8"]["logits"] = [x.float().cpu().numpy() for x in r8["logits"]]
+    del r8
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_shard_counts()
+    r, dropped = MOE.count_drops(lambda: serve.generate(cfg, run, model, tokens, MOE_GEN))
+    counts = _shard_counts()
+    local = T.local_rows(tokens, run)
+    pre = {}
+    c_pre = _moe_counts_of(lambda: pre.update(zip(("logits", "cache"), T.prefill(
+        cfg, run, model, {"tokens": local}, t_max=MOE_PROMPT + MOE_GEN))))
+    c_dec = _moe_counts_of(lambda: T.decode_step(cfg, run, model, pre["cache"],
+                                                 pre["logits"][:, -1].argmax(-1)[:, None]))
+    out["serve"] = {"prefill_ms": r["prefill_ms"], "decode_ms_per_step":
+                    r["decode_ms"] / (MOE_GEN - 1), "counts": counts, "dropped": dropped,
+                    "prefill_counts": c_pre, "decode_counts": c_dec,
+                    "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "tokens_shape": list(r["tokens"].shape)}
+    del model, r, pre
+    torch.cuda.empty_cache()
+    out["free_before_train"] = torch.cuda.mem_get_info()[0]
+    out["train8"] = _shard_steps(ctx, cfg8, MOE_GATE_STEPS)
+    out["control"] = _moe_experts_left_out(ctx, cfg8, MOE_GATE_STEPS)
+    out["train"], dropped = MOE.count_drops(lambda: _shard_steps(ctx, cfg, MOE_MESH_STEPS))
+    out["train"]["dropped"] = dropped
+    out["train"]["ms_per_step"] = statistics.median(out["train"]["step_ms"][1:])
+    wires = dict(ctx.wires())
+    out["wires"] = sorted(f"{k}: {type(w).__name__}" for k, w in wires.items())
+    out["wires_ipc"] = all(isinstance(w, ring_rdma.IpcWire) for w in wires.values())
+    out["backend"] = tdist.get_backend()
+    return out
+
+
+def moe_lm(smi):
+    """Phase 14: qwen3-moe at full width (cut to MOE_LAYERS layers), (a)
+    served and (c) trained on one card, (b) served and (d) trained
+    expert-parallel on 2x2 (one spawn of 4 rank processes on the card;
+    every all-to-all on the peer-mapped wire); returns the results and the
+    kernels' launches (flash_attention, ring_send, ring_land).  Every
+    reading is printed before the gates fail."""
+    import torch
+
+    from repro_torch import dist
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    cfg = _moe_cfg()
+    served, kept8, flash_a = _moe_serve_1x1(smi, cfg)
+    trained, flash_c = _moe_train_1x1(smi, cfg)
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    say(f"MoE: before the 2x2 spawn this process holds {torch.cuda.memory_reserved() / 2**30:.3f}"
+        f" GiB reserved; the card has {free / 2**30:.3f} of {total / 2**30:.3f} GiB free")
+    # four ranks hold 49.8 GB of training state on the one card: the
+    # allocator's expandable segments keep their fragmentation down
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        ranks = dist.run_ranks(_moe_ranks, 2, 2, device="cuda",
+                               args=(kept8["tokens"].numpy(), kept8["routing"]),
+                               timeout=1200)
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    spawn_s = time.perf_counter() - t0
+    bad = []
+    r0 = ranks[0]
+    # (b) serving on 2x2
+    got8 = [torch.from_numpy(x) for x in r0["serve8"]["logits"]]
+    gaps8 = _logit_gaps(kept8["logits"], got8)
+    sv = r0["serve"]
+    steps = MOE_GEN - 1
+    per = {k: sv["decode_counts"][k] for k in ("collectives.all_to_all", "wire_bytes",
+                                                "ring_send", "ring_land")}
+    say(f"[{smi}] MoE (b) serving 2x2 (EP, 4 ranks on one card) at capacity factor "
+        f"{MOE_GATE_CF:g}, teacher-forced with (a)'s tokens there and its expert choices "
+        f"pinned to (a)'s: logits gap prefill {gaps8[0]:.3e}, decode max "
+        f"{max(gaps8[1:]):.3e} of max|logit| (tol {LM_TOL_BF16:g}); rank 0's own top-8 "
+        f"differed for {r0['serve8']['flips']:.3%} of its tokens a layer")
+    say(f"[{smi}] MoE (b) serving 2x2 at {cfg.moe.capacity_factor}: prefill "
+        f"{sv['prefill_ms']:.3f} ms, decode {sv['decode_ms_per_step']:.3f} ms/step on rank 0 "
+        f"(1x1: {served['prefill_ms']:.3f}, {served['decode_ms_per_step']:.3f}); "
+        f"{sv['dropped']:.4%} of the pairs dropped; a prefill: all_to_all "
+        f"{sv['prefill_counts']['collectives.all_to_all']}, wire bytes "
+        f"{sv['prefill_counts']['wire_bytes']}; a decode step: {per}; peak GiB by rank "
+        f"{[round(r['serve']['peak_bytes'] / 2**30, 3) for r in ranks]}")
+    if max(gaps8) > LM_TOL_BF16:
+        bad.append(f"(b): logits gap {max(gaps8):.3e} > {LM_TOL_BF16}")
+    for r in ranks:
+        for key in ("serve8", "serve"):
+            c = r[key]["counts"]
+            if c["flash_attention"] != cfg.n_layers or c["flash_attention_plain"] or \
+                    c["pad_copies"] or not c["collectives.all_to_all"] or \
+                    not (c["ring_send"] > 0 and c["ring_land"] > 0):
+                bad.append(f"(b) {key} rank {r['rank']}: counts {c}")
+        if not r["wires_ipc"] or r["backend"] != "gloo":
+            bad.append(f"rank {r['rank']}: wires {r['wires']}, default group "
+                       f"{r['backend']}: a CUDA tensor's collective off the peer-mapped wire")
+    if r0["serve"]["tokens_shape"] != [MOE_BATCH, MOE_GEN]:
+        bad.append(f"(b): tokens {r0['serve']['tokens_shape']}")
+    # (d) training on 2x2 against (c), at MOE_GATE_CF, and the control
+    ref = trained["gate"]
+    d8, ctl, d = r0["train8"], r0["control"], r0["train"]
+    say(f"[{smi}] MoE (d) training 2x2 at capacity factor {MOE_GATE_CF:g}: "
+        + _steps_line("against 1x1", d8, ref, "1x1")
+        + f" (tol loss {MOE_LOSS_TOL:g}, gnorm {MOE_GNORM_TOL:g}, change {MOE_MOVED_TOL:g})")
+    refused = _step_faults("control", ctl, ref, MOE_LOSS_TOL, MOE_GNORM_TOL, MOE_MOVED_TOL)
+    say(f"[{smi}] MoE (d) control, the experts' gradients left out: "
+        + _steps_line("against 1x1", ctl, ref, "1x1")
+        + f"; {'refused: ' + '; '.join(refused) if refused else 'PASSED'}")
+    bad += _step_faults("(d)", d8, ref, MOE_LOSS_TOL, MOE_GNORM_TOL, MOE_MOVED_TOL)
+    if not refused:
+        bad.append("(d): the gates pass the run without the experts' gradients")
+    dper = {k: v / MOE_MESH_STEPS for k, v in d["counts"].items()}
+    say(f"[{smi}] MoE (d) training 2x2 at {cfg.moe.capacity_factor}: "
+        f"{d['ms_per_step']:.3f} ms/step on rank 0 (median of {MOE_MESH_STEPS - 1}; "
+        f"{', '.join(f'{t:.3f}' for t in d['step_ms'])}; 1x1 {trained['ms_per_step']:.3f}); "
+        f"losses {[round(x, 4) for x in d['losses']]}; {d['dropped']:.4%} of the pairs "
+        f"dropped; peak GiB by rank {[round(r['train']['peak_bytes'] / 2**30, 3) for r in ranks]}"
+        f" (1x1 {trained['timed']['peak_bytes'] / 2**30:.3f}; the card's free GiB as each "
+        f"rank began training {[round(r['free_before_train'] / 2**30, 3) for r in ranks]}); "
+        f"a step on rank 0: "
+        f"all_to_all {dper['collectives.all_to_all']:g}, wire bytes {dper['wire_bytes']:.0f}, "
+        f"ring_send {dper['ring_send']:g}, ring_land {dper['ring_land']:g}, flash "
+        f"{dper['flash_attention']:g}")
+    want_flash = T.block_forwards(cfg, T.RunCfg(remat=cfg.remat))
+    for r in ranks:
+        for key, n in (("train8", MOE_GATE_STEPS), ("train", MOE_MESH_STEPS)):
+            c = r[key]["counts"]
+            if c["flash_attention"] != n * want_flash or c["flash_attention_plain"] or \
+                    not c["collectives.all_to_all"] or not c["ring_land"]:
+                bad.append(f"(d) {key} rank {r['rank']}: counts {c}")
+    launches = {"flash_attention": flash_a + flash_c, "ring_send": 0, "ring_land": 0}
+    for r in ranks:
+        for part in (r["serve8"]["counts"], r["serve"]["counts"], r["train8"]["counts"],
+                     r["control"]["counts"], r["train"]["counts"]):
+            for k in launches:
+                launches[k] += part[k]
+    out = {"serve_1x1": served, "train_1x1": trained, "ranks": ranks, "spawn_s": spawn_s,
+           "serve_gaps_gate_cf": gaps8, "refused": refused, "launches": launches}
+    for r in ranks:
+        r["serve8"].pop("logits", None)
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"[{smi}] MoE: phase 14 in {out['phase_s']:.3f} s (spawn and ranks {spawn_s:.3f} s)")
+    if bad:
+        fail("MoE " + "; ".join(bad))
+    return out, launches
+
+
 REPLACES = {"flash_attention": "src/repro/kernels/attention.py:68",
             "fft_radix2": "src/repro/kernels/fft_radix2.py:90",
             "fft_mxu": "src/repro/kernels/fft_mxu.py:80",
@@ -4066,6 +4558,10 @@ def main(argv) -> int:
         lm, lm_kept = lm_serving(float("nan"))
         trained, _ = training(smi)
         sharded_lm(smi, trained, lm_kept)
+        moe_lm(smi)
+        return 0
+    if argv == [MOE_ONLY]:
+        moe_lm(smi)
         return 0
     flash_sass_counts, ptxas_build = build()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -4098,6 +4594,9 @@ def main(argv) -> int:
     launches["flash_attention"] += launches_trained
     sharded, sharded_launches = sharded_lm(smi, trained, lm_kept)
     for k, n in sharded_launches.items():
+        launches[k] += n
+    moe, moe_launches = moe_lm(smi)
+    for k, n in moe_launches.items():
         launches[k] += n
 
     kernels = []
@@ -4135,7 +4634,7 @@ def main(argv) -> int:
                    "observability": observed, "multi_rank": ranks,
                    "staged": staged_ranks, "flash_bf16_gaps": flash_gaps, "lm": lm,
                    "tuning": tuned, "serving": served, "fleet": fleeted,
-                   "training": trained, "sharded_lm": sharded},
+                   "training": trained, "sharded_lm": sharded, "moe": moe},
                   f, indent=1)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """The collectives GSPMD inserts in the reference, over the ranks of the
 current :class:`repro_torch.dist.RankContext`.
 
-``all_gather``, ``reduce_scatter`` and ``all_reduce`` (``op="sum"`` or
-``"max"``) act over one mesh axis, or several (applied one axis after the
-other: a gather innermost axis first, so that blocks land row-major over
-the axes as :func:`repro_torch.distributed.sharding.shard_of` cuts them).
+``all_gather``, ``reduce_scatter``, ``all_reduce`` (``op="sum"`` or
+``"max"``) and ``all_to_all`` act over one mesh axis, or several (applied
+one axis after the other: a gather innermost axis first, so that blocks
+land row-major over the axes as
+:func:`repro_torch.distributed.sharding.shard_of` cuts them).
 Each moves its tensor as one all-to-all over the axis' wire
 (:meth:`repro_torch.dist.RankContext.wire`): on CUDA tensors the
 peer-mapped :class:`repro_torch.kernels.ring_rdma.IpcWire`, whose blocks
@@ -14,7 +15,10 @@ axis' gloo wire.  No NCCL, and no gloo for a CUDA tensor.
 * a gather sends every peer the same block (an expanded view: no copy);
 * a reduction exchanges blocks and sums (or maxes) the received ones in
   rank order, so every rank of the axis gets the same bits.  An
-  all-reduce is a gather and that ordered reduction.
+  all-reduce is a gather and that ordered reduction;
+* an all-to-all (``lax.all_to_all(x, axes, 0, 0, tiled=True)``, the
+  expert-parallel MoE's dispatch and combine) sends block j of ``x``'s
+  leading dim to rank j and stacks the blocks received in rank order.
 
 The wire carries 4- and 8-byte words (its copies move 16-, 8- or 4-byte
 units).  A tensor of another type (bf16 activations, int64 tokens) travels
@@ -31,7 +35,9 @@ Under autograd (``torch.autograd.Function``\\ s):
   as its backward;
 * :func:`copy_to` — the column-parallel input's identity — has an
   all-reduce as its backward (:func:`copy_to_packed` for several
-  tensors in one exchange).
+  tensors in one exchange);
+* :func:`all_to_all` has the reverse all-to-all (the same exchange) as
+  its backward.
 
 ``calls`` counts the collectives by kind and ``wire_bytes`` the bytes this
 rank sent; nothing else adds to them.
@@ -44,7 +50,7 @@ import torch
 from repro_torch import dist
 from repro_torch.distributed import sharding as SH
 
-calls = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
+calls = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0, "all_to_all": 0}
 wire_bytes = 0
 
 _WORD = torch.float32
@@ -96,16 +102,16 @@ def _wire(axis: str, device):
                      f"{grid.mesh_label} mesh ({grid.u_axes + grid.v_axes})")
 
 
-def _words(flat: torch.Tensor) -> torch.Tensor:
-    """A 1-D contiguous tensor as 4-byte words (a view where it is f32;
-    otherwise its bytes, zero-padded to a whole word)."""
-    if flat.dtype == _WORD:
-        return flat
-    raw = flat.view(torch.uint8)
-    pad = -raw.numel() % 4
-    if pad:
-        raw = torch.cat([raw, raw.new_zeros(pad)])
-    return raw.view(_WORD)
+def _into(words: torch.Tensor, t: torch.Tensor) -> None:
+    """Copy ``t`` (any layout) into the 1-D words ``words``: its elements
+    where it is f32, otherwise its bytes, zero-padded to a whole word."""
+    if t.dtype == _WORD:
+        words.view(t.shape).copy_(t)
+        return
+    raw = words.view(torch.uint8)
+    n = t.numel() * t.element_size()
+    raw[n:].zero_()
+    raw[:n].view(t.dtype).view(t.shape).copy_(t)
 
 
 def _unwords(words: torch.Tensor, dtype: torch.dtype, numel: int) -> torch.Tensor:
@@ -144,14 +150,13 @@ def exchange_packed(parts: list, axis: str, *, same: bool) -> list:
     for t in mine:
         offs.append(offs[-1] + -(-t.numel() * t.element_size() // 4))
 
-    def pack(ts):
-        return torch.cat([_words(t.contiguous().reshape(-1)) for t in ts])
-
+    # each tensor copied once, straight into its row's words
+    rows = torch.empty((1 if same else p, offs[-1]), dtype=_WORD, device=mine[0].device)
+    for j, ts in enumerate([parts] if same else parts):
+        for i, t in enumerate(ts):
+            _into(rows[j, offs[i]:offs[i + 1]], t)
     if same:
-        buf = pack(parts)
-        rows = buf.unsqueeze(0).expand(p, buf.numel())
-    else:
-        rows = torch.stack([pack(ts) for ts in parts])
+        rows = rows.expand(p, offs[-1])
     got = _exchange(rows, axis)
     return [[_unwords(got[j, offs[i]:offs[i + 1]], dt, n).reshape(sh)
              for i, (sh, dt, n) in enumerate(metas)] for j in range(p)]
@@ -198,6 +203,25 @@ def all_reduce_packed(xs: list, axes, op: str = "sum") -> list:
             got = exchange_packed(list(xs), axis, same=True)
             xs = [_ordered([g[i] for g in got], op) for i in range(len(xs))]
     return list(xs)
+
+
+def _all_to_all(x: torch.Tensor, axes: tuple) -> torch.Tensor:
+    calls["all_to_all"] += 1
+    live = [a for a in axes if axis_size(a) > 1]
+    # blocks indexed row-major over the axes: (P_1, ..., P_k, n, ...)
+    y = x.reshape(*[axis_size(a) for a in live], -1, *x.shape[1:])
+    for i in reversed(range(len(live))):
+        # axis i's index to the front, each block copied once into its
+        # rank's row of words, the rows received viewed back in place
+        y = y.movedim(i, 0)
+        p, block = y.shape[0], y.shape[1:]
+        rows = torch.empty((p, -(-block.numel() * y.element_size() // 4)), dtype=_WORD,
+                           device=y.device)
+        for j in range(p):
+            _into(rows[j], y[j])
+        got = _exchange(rows, live[i])
+        y = _unwords(got, y.dtype, block.numel()).reshape(p, *block).movedim(0, i)
+    return y.reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +297,29 @@ class _CopyTo(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *gs):
         return (None, *all_reduce_packed([g.contiguous() for g in gs], ctx.axes, "sum"))
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.axes = axes
+        return _all_to_all(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g.contiguous(), ctx.axes), None
+
+
+def all_to_all(x: torch.Tensor, axes) -> torch.Tensor:
+    """The tiled all-to-all over ``axes`` along dim 0 (split and concat):
+    ``x``'s leading dim cut into one block a rank of the axes (row-major
+    over several), block j sent to rank j; returns the blocks received,
+    stacked in rank order.  Under autograd its backward is the reverse
+    all-to-all of the gradient."""
+    axes = _axes(axes)
+    if not _live(axes):
+        return x
+    return _AllToAll.apply(x.contiguous(), axes)
 
 
 def reduce_from(x, axes, op: str = "sum"):

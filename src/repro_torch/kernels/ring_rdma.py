@@ -418,6 +418,7 @@ class IpcWire:
         self.send_stream = torch.cuda.Stream(self.device)
         self._flags = self._share(4 * 2 * self.p)
         self.slot_bytes = 0
+        self.slot_arrays = 0
         self._landing = None
 
     def _call(self, entry: str, *args) -> None:
@@ -456,16 +457,19 @@ class IpcWire:
         tdist.barrier(group=self.group)
         self._call("wire_free", _P(ptrs[self.me]))
 
-    def reserve(self, slot_bytes: int) -> None:
-        """Make every landing slot hold ``slot_bytes`` (collective over the
-        dimension's ranks, which reach it with the same sizes)."""
-        if slot_bytes <= self.slot_bytes:
+    def reserve(self, slot_bytes: int, arrays: int = 2) -> None:
+        """Make every landing slot hold ``slot_bytes``, for ``arrays``
+        arrays an exchange (collective over the dimension's ranks, which
+        reach it with the same sizes).  The buffer grows to the largest of
+        each seen, and holds a slot an array and a source."""
+        if slot_bytes <= self.slot_bytes and arrays <= self.slot_arrays:
             return
-        slot_bytes = -(-slot_bytes // _ALIGN) * _ALIGN
+        slot_bytes = max(-(-slot_bytes // _ALIGN) * _ALIGN, self.slot_bytes)
+        arrays = max(arrays, self.slot_arrays)
         if self._landing is not None:
             self._release(self._landing)
-        self._landing = self._share(2 * self.p * slot_bytes)
-        self.slot_bytes = slot_bytes
+        self._landing = self._share(arrays * self.p * slot_bytes)
+        self.slot_bytes, self.slot_arrays = slot_bytes, arrays
 
     def close(self) -> None:
         """Release the landing buffers and flags (collective)."""
@@ -509,7 +513,7 @@ class IpcWire:
         dtype = arrs[0].dtype
         if len(arrs) > 2:
             raise ValueError(f"the wire carries 1 or 2 arrays, got {len(arrs)}")
-        self.reserve(math.prod(shape) * arrs[0].element_size())
+        self.reserve(math.prod(shape) * arrs[0].element_size(), len(arrs))
         self.exchanges += 1
         self.rounds += len(schedule)
         self.epoch += 1

@@ -19,7 +19,7 @@ import torch
 from repro_torch import dist
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import Mesh, mesh_axes, mesh_coords  # noqa: F401
-from repro_torch.models.transformer import RunCfg, init_model, shard_model
+from repro_torch.models.transformer import RunCfg, init_model
 
 
 def parse_mesh_arg(text: str) -> tuple[int, int]:
@@ -86,10 +86,9 @@ def rank_setup(cfg, ctx, device, *, seed: int = 0, remat: bool = True):
     """``(run, model, device)`` of a launcher's run: on one device
     (``ctx`` None; ``device`` as given, :func:`resolve_device`), or as the
     rank ``ctx`` of its mesh (its device; the model's parameters this
-    rank's shards).  The parameters are ``init_model``'s from ``seed``."""
+    rank's shards, each cut as its block is made).  The parameters are
+    ``init_model``'s from ``seed``."""
     mesh = mesh_of(ctx) if ctx is not None else None
     dev = ctx.device if ctx is not None else resolve_device(device)
-    model = init_model(cfg, seed=seed, device=dev)
-    if mesh is not None:
-        shard_model(model, mesh)
+    model = init_model(cfg, seed=seed, device=dev, mesh=mesh)
     return RunCfg(mesh=mesh, remat=remat), model, dev

@@ -19,9 +19,14 @@ prefill time, the decode time and rate, and a sample; returns the
 device of the mesh (:func:`repro_torch.launch.mesh.run_on_mesh`): the
 parameters sharded by the reference's specs, the batch's rows over
 ``data``, the decode cache laid out by ``cache_specs`` (its kv heads, or
-else its head_dim, over ``model``); rank 0 prints::
+else its head_dim, over ``model``); rank 0 prints.  qwen3-moe's experts
+lie over ``model``, its dispatch and combine all-to-alls over it
+(:mod:`repro_torch.models.moe`); a batch whose rows do not divide over
+``data`` lies whole on every rank::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --smoke --device cpu --mesh 2x2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
         --smoke --device cpu --mesh 2x2
 
 ``--sim`` serves spectral simulations instead: every other argument goes
@@ -43,9 +48,9 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.launch import mesh as M
-from repro_torch.models.transformer import (RunCfg, check_supported, decode_step,
-                                            full_vocab, gather_rows, local_rows,
-                                            prefill)
+from repro_torch.models.transformer import (RunCfg, batch_run, check_supported,
+                                            decode_step, full_vocab, gather_rows,
+                                            local_rows, prefill)
 
 
 def _sync(device: torch.device) -> None:
@@ -69,9 +74,11 @@ def generate(cfg, run: RunCfg, model, tokens: torch.Tensor, gen: int, *,
     the host clock, synchronised with the device.  On a mesh (collective)
     ``tokens`` and ``forced`` are the global batch, each rank serves its
     rows (its cache holds them), and the results are the global batch's on
-    every rank; ``cache`` is this rank's."""
+    every rank; ``cache`` is this rank's.  A batch whose rows do not
+    divide over the data axes lies whole on every rank (``batch_run``)."""
     dev = tokens.device
     s = tokens.shape[1]
+    run = batch_run(run, tokens.shape[0])
     tokens = local_rows(tokens, run)
     if forced is not None:
         forced = local_rows(forced, run)

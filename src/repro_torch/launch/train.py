@@ -26,9 +26,13 @@ ranks may share one card): FSDP over ``data``, tensor parallelism over
 rows of the global batch, rank 0 prints, gathers and writes the
 checkpoints, and every rank restores its shards.  ``--grad-compression``
 does what the reference's does on such a mesh: nothing (it has no
-``pod`` axis, so the step is the plain one).  The architectures other
-than the dense uniform decoders are not ported yet (ROADMAP Queue 1 item
-11).
+``pod`` axis, so the step is the plain one).  qwen3-moe trains as the
+dense decoders do, its experts over ``model`` (expert-parallel on a mesh:
+:mod:`repro_torch.models.moe`); the architectures other than the uniform
+decoders are not ported yet (ROADMAP Queue 1 item 11)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b \
+        --smoke --device cpu --steps 4 --batch 4 --seq 32 --mesh 2x2
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
-"""The dense uniform decoder of the port: init, full-sequence forward,
-the training loss, prefill and one-token greedy decode over a KV cache.
+"""The uniform decoder of the port: init, full-sequence forward, the
+training loss, prefill and one-token greedy decode over a KV cache.
 
 Port of the uniform path of ``repro.models.transformer`` (smollm,
 deepseek, qwen, gemma: GQA/MQA, SwiGLU/GeGLU, optional QKV bias, RoPE,
-RMSNorm or RMSNorm(1 + w), optional embedding scale, tied or untied head).
+RMSNorm or RMSNorm(1 + w), optional embedding scale, tied or untied head;
+qwen3-moe: a Mixture of Experts as every block's feed-forward,
+:mod:`repro_torch.models.moe`).
 Layers run as a Python loop over an ``nn.ModuleList`` where JAX scans over
 layer-stacked params; each block's params are cast to the compute dtype
 where JAX's ``_cast_f`` casts them, at the top of every block.  The
@@ -20,12 +22,20 @@ remat region, so the recompute gathers again, their gradients
 reduce-scattered back; tensor parallelism over ``model`` where the specs
 cut heads, mlp or vocab (:class:`repro_torch.models.layers.TP`): a
 vocab-parallel embedding, tied logits on this rank's vocab block and a
-distributed log-softmax in :func:`lm_loss`.
+distributed log-softmax in :func:`lm_loss`.  A MoE block's experts lie
+over ``model``: the expert-parallel path (``impl="ep"``, the batch's rows
+cut over the data axes) dispatches over it in all-to-alls
+(:func:`repro_torch.models.moe.apply_moe_ep`); otherwise each rank
+computes its experts' share of the reference's dense MoE over the whole
+batch and the shares are summed over ``model`` (:func:`_ff_apply`).  A
+batch whose rows do not divide over the data axes (B=1 decode on 2x2)
+lies whole on every rank (``RunCfg.split_batch``), as GSPMD replicates it.
 
 Configs outside this path raise ``NotImplementedError`` naming ROADMAP
-Queue 1 item 11: MoE, MLA, RWKV, the Jamba hybrid, Whisper's
-encoder–decoder, the VLM ``embeds`` input, the int8 KV cache
-(``kv_quant``) and the sequence-sharded decode (``seq_shard_kv``).
+Queue 1 item 11: MLA (and with it deepseek-v2's leading dense blocks),
+RWKV, the Jamba hybrid, Whisper's encoder–decoder, the VLM ``embeds``
+input, the int8 KV cache (``kv_quant``) and the sequence-sharded decode
+(``seq_shard_kv``).
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding as SH
 from repro_torch.models import common as cm
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 LM_ITEM = "ROADMAP Queue 1 item 11"
 
@@ -60,13 +71,17 @@ class RunCfg:
     ``remat`` rematerialises the blocks in the backward where the config's
     ``remat`` is on too, as JAX's.  ``plain_attention`` sends the
     forward's attention through the kernel's plain version on any device;
-    it is off on the main path and exists to compare the two.  The
-    reference's ``seq_shard_kv`` (the sequence-sharded decode) is not
-    ported."""
+    it is off on the main path and exists to compare the two.
+    ``split_batch`` (on a mesh): the batch's rows are cut over the data
+    axes; off, every rank holds the whole batch (serving a batch that does
+    not divide over them, :func:`batch_run`; :func:`local_rows` and
+    :func:`gather_rows` then keep it whole).  The reference's ``seq_shard_kv`` (the
+    sequence-sharded decode) is not ported."""
     mesh: SH.Mesh | None = None
     per_pod: bool = False
     plain_attention: bool = False
     remat: bool = True
+    split_batch: bool = True
 
     def __post_init__(self):
         if self.mesh is not None and not isinstance(self.mesh, SH.Mesh):
@@ -91,10 +106,10 @@ class RunCfg:
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for what this slice does not run."""
     left = []
-    if cfg.moe is not None:
-        left.append("MoE")
     if cfg.attn_kind == "mla":
         left.append("MLA attention")
+    if cfg.moe is not None and (cfg.moe.first_dense or cfg.moe.every != 1):
+        left.append("MoE with dense blocks among its layers")
     if cfg.mixer != "attn":
         left.append(f"mixer {cfg.mixer!r}")
     if cfg.encdec:
@@ -106,7 +121,7 @@ def check_supported(cfg: ArchConfig) -> None:
     if left:
         raise NotImplementedError(
             f"{cfg.arch_id}: {', '.join(left)} not ported yet ({LM_ITEM}); the "
-            "port runs the dense uniform decoder")
+            "port runs the uniform decoder, dense or MoE")
 
 
 def _dt(cfg: ArchConfig) -> torch.dtype:
@@ -130,6 +145,16 @@ def attn_dims(cfg: ArchConfig) -> L.AttnDims:
     return L.AttnDims(d_model=cfg.d_model, n_heads=cfg.n_heads,
                       n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
                       qkv_bias=cfg.qkv_bias, rope_base=cfg.rope_base)
+
+
+def moe_dims(cfg: ArchConfig) -> MOE.MoEDims:
+    m = cfg.moe
+    return MOE.MoEDims(d_model=cfg.d_model, n_experts=m.n_experts,
+                       top_k=m.top_k, d_ff_expert=m.d_ff_expert,
+                       n_shared=m.n_shared, d_ff_shared=m.d_ff_shared,
+                       capacity_factor=m.capacity_factor,
+                       router_norm_topk=m.router_norm_topk,
+                       mlp_type=cfg.mlp_type)
 
 
 # ---------------------------------------------------------------------------
@@ -160,42 +185,59 @@ def _apply_norm(p, x, cfg: ArchConfig):
 
 
 class Block(nn.Module):
-    """``_init_uniform_block`` without MLA or MoE."""
+    """``_init_uniform_block`` without MLA: the MoE as ``ff`` where the
+    config has one."""
 
     def __init__(self, ini, cfg: ArchConfig):
         super().__init__()
         self.ln1 = Norm(ini, cfg)
         self.ln2 = Norm(ini, cfg)
         self.attn = L.Attention(ini, attn_dims(cfg))
-        self.ff = L.MLP(ini, cfg.d_model, cfg.d_ff, cfg.mlp_type)
+        if cfg.moe is not None:
+            self.ff = MOE.MoE(ini, moe_dims(cfg))
+        else:
+            self.ff = L.MLP(ini, cfg.d_model, cfg.d_ff, cfg.mlp_type)
 
 
 class Transformer(nn.Module):
     """``init_model``'s uniform branch: ``embed`` (vocab, d), ``final_norm``,
     ``head`` (d, vocab) unless tied, and ``blocks`` (one :class:`Block` a
-    layer where JAX stacks them on a leading axis)."""
+    layer where JAX stacks them on a leading axis).  With ``mesh`` each
+    parameter is cut to this rank's shard (:func:`shard_model`) as soon as
+    its block (or the top-level leaves) is made, so that no more than a
+    block's whole parameters are ever held."""
 
     AXES = {"embed": ("vocab", "embed"), "head": ("embed", "vocab")}
 
-    def __init__(self, cfg: ArchConfig, ini):
+    def __init__(self, cfg: ArchConfig, ini, mesh: SH.Mesh | None = None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         d = cfg.d_model
+        specs = None if mesh is None else param_specs(cfg, mesh)
         self.embed = ini.param((cfg.vocab, d), scale=1.0 / d ** 0.5)
         self.final_norm = Norm(ini, cfg)
         if not cfg.tie_embeddings:
             self.head = ini.param((d, cfg.vocab))
-        self.blocks = nn.ModuleList(Block(ini, cfg) for _ in range(cfg.n_layers))
+        if specs is not None:
+            _shard_params(self, "", specs, mesh)
+        self.blocks = nn.ModuleList()
+        for i in range(cfg.n_layers):
+            self.blocks.append(Block(ini, cfg))
+            if specs is not None:
+                _shard_params(self.blocks[i], f"blocks.{i}.", specs, mesh)
 
 
-def init_model(cfg: ArchConfig, seed: int = 0, device="cuda") -> Transformer:
+def init_model(cfg: ArchConfig, seed: int = 0, device="cuda",
+               mesh: SH.Mesh | None = None) -> Transformer:
     """Random parameters from ``seed`` on ``device`` (``"meta"`` for shapes
-    only), in ``cfg.param_dtype``."""
+    only), in ``cfg.param_dtype``; with ``mesh``, this rank's shards of
+    them (the same values as :func:`shard_model` of the whole model)."""
     dev = torch.device(device)
     gen = None if dev.type == "meta" else torch.Generator(
         device=resolve_device(dev)).manual_seed(seed)
-    return Transformer(cfg, cm.Initializer(gen, cm.dtype_of(cfg.param_dtype), dev))
+    return Transformer(cfg, cm.Initializer(gen, cm.dtype_of(cfg.param_dtype), dev),
+                       mesh=mesh)
 
 
 def model_axes(cfg: ArchConfig) -> dict:
@@ -238,26 +280,59 @@ def _block_specs(cfg: ArchConfig, mesh_shape: tuple) -> dict:
 
 
 @torch.no_grad()
+def _shard_params(module: nn.Module, prefix: str, specs: dict, mesh: SH.Mesh) -> None:
+    """Replace each parameter of ``module`` (``prefix`` + its name in
+    ``specs``) not yet cut by this rank's shard of it (a contiguous copy;
+    the full tensor is let go leaf by leaf)."""
+    for name, p in list(module.named_parameters()):
+        full = prefix + name
+        if full.startswith("blocks.") and not prefix:
+            continue  # a block cuts its own
+        *path, leaf = name.split(".")
+        owner = module.get_submodule(".".join(path))
+        shard = SH.shard_of(p.data, specs[full], mesh).contiguous()
+        setattr(owner, leaf, nn.Parameter(shard, requires_grad=p.requires_grad))
+
+
 def shard_model(model: Transformer, mesh: SH.Mesh) -> Transformer:
     """Replace each parameter of ``model`` (full logical shapes) by this
     rank's shard of it on ``mesh`` (a contiguous copy; the full tensor is
     let go leaf by leaf); returns the model."""
     specs = param_specs(model.cfg, mesh)
-    for name, p in list(model.named_parameters()):
-        *path, leaf = name.split(".")
-        owner = model.get_submodule(".".join(path))
-        shard = SH.shard_of(p.data, specs[name], mesh).contiguous()
-        setattr(owner, leaf, nn.Parameter(shard, requires_grad=p.requires_grad))
+    _shard_params(model, "", specs, mesh)
+    for i, block in enumerate(model.blocks):
+        _shard_params(block, f"blocks.{i}.", specs, mesh)
     return model
+
+
+#: the bytes of this rank's shards that one packed FSDP gather carries (a
+#: larger leaf is a pack of its own): it bounds the gather's buffers and
+#: its gradient's reduce-scatter, and the wire's landing slots
+PACK_BYTES = 1 << 28
+
+
+def _packs(leaves: list, named: dict) -> list:
+    """``leaves`` ((name, dim) pairs) in order, cut into runs of at most
+    :data:`PACK_BYTES` of their shards."""
+    out, size = [[]], 0
+    for name, dim in leaves:
+        nbytes = named[name].numel() * named[name].element_size()
+        if out[-1] and size + nbytes > PACK_BYTES:
+            out.append([])
+            size = 0
+        out[-1].append((name, dim))
+        size += nbytes
+    return out
 
 
 def _fsdp_gather(named: dict, specs: dict, run: RunCfg) -> dict:
     """``named`` ({name: shard}) with each leaf gathered over the axes of
     its spec other than the model axes (FSDP), one packed exchange an axis
-    for leaves cut over the same axes; the model axes' cut stays.  A leaf
-    whole on a batch axis is shared over it (:func:`C.copy_to_packed`:
-    its gradient, from this rank's rows only, summed there), so that every
-    leaf's gradient is the global batch's."""
+    for leaves cut over the same axes (a pack at most :data:`PACK_BYTES`
+    of shards); the model axes' cut stays.  A leaf whole on a batch axis
+    is shared over it (:func:`C.copy_to_packed`: its gradient, from this
+    rank's rows only, summed there), so that every leaf's gradient is the
+    global batch's."""
     out = dict(named)
     groups: dict = {}
     shared: dict = {}
@@ -271,9 +346,9 @@ def _fsdp_gather(named: dict, specs: dict, run: RunCfg) -> dict:
         if left:
             shared.setdefault(left, []).append(name)
     for axes, leaves in groups.items():
-        got = C.gather_packed([named[n] for n, _ in leaves], [d for _, d in leaves],
-                              axes)
-        out.update({n: g for (n, _), g in zip(leaves, got)})
+        for pack in _packs(leaves, named):
+            got = C.gather_packed([named[n] for n, _ in pack], [d for _, d in pack], axes)
+            out.update({n: g for (n, _), g in zip(pack, got)})
     for axes, names in shared.items():
         out.update(zip(names, C.copy_to_packed([out[n] for n in names], axes)))
     return out
@@ -377,12 +452,30 @@ def attn_tp(cfg: ArchConfig, run: RunCfg, *, cache: bool = False) -> L.TP:
 
 
 @functools.lru_cache(maxsize=None)
-def mlp_tp(cfg: ArchConfig, run: RunCfg) -> L.TP:
+def mlp_tp(cfg: ArchConfig, run: RunCfg, prefix: str = "ff.") -> L.TP:
+    """How the model axes cut the MLP at ``prefix`` (a dense block's
+    ``ff``, a MoE block's shared MLP ``ff.shared``)."""
     if run.mesh is None:
         return L.NO_TP
     bs = block_specs(cfg, run.mesh)
-    name = "ff.wi_gate" if "ff.wi_gate" in bs else "ff.wi"
+    name = prefix + ("wi_gate" if prefix + "wi_gate" in bs else "wi")
     return L.TP(axes=_tp_axes(run, bs[name][1]))
+
+
+@functools.lru_cache(maxsize=None)
+def expert_block(cfg: ArchConfig, run: RunCfg) -> tuple:
+    """(model axes, first expert) of this rank's block of a MoE block's
+    experts on ``run.mesh``, and the router's model axes; ``((), 0, ())``
+    where they are whole (one device, or experts that do not divide)."""
+    if run.mesh is None:
+        return (), 0, ()
+    bs = block_specs(cfg, run.mesh)
+    axes = _tp_axes(run, bs["ff.experts.wi_gate"][0])
+    first = 0
+    if axes:
+        idx, count = SH.shard_index(axes, run.mesh)
+        first = idx * (cfg.moe.n_experts // count)
+    return axes, first, _tp_axes(run, bs["ff.router"][1])
 
 
 def cache_layout(cfg: ArchConfig, run: RunCfg, b: int) -> dict:
@@ -398,13 +491,59 @@ def cache_layout(cfg: ArchConfig, run: RunCfg, b: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _live_data_axes(run: RunCfg) -> tuple:
+    return tuple(a for a in run.data_axes if run.mesh.shape.get(a, 1) > 1)
+
+
+def _ff_apply(p, cfg: ArchConfig, run: RunCfg, x):
+    """The block's feed-forward (``transformer.py:233``): the MLP, or the
+    MoE.  On a mesh, a MoE's router is gathered whole over the model axes
+    (its gradient, a share on each rank, summed back by the gather's
+    backward).  The expert-parallel path where the config's ``impl`` is
+    ``"ep"``, the experts are cut over the model axes and the batch's rows
+    over the data axes; else the reference's dense MoE over the whole
+    batch (the rows gathered over the data axes where they are cut), each
+    rank its experts' share, summed over the model axes.  Where
+    ``moe.routing`` replays a recorded run, its next expert choices (the
+    global batch's) are cut to the rows this rank routes."""
+    if cfg.moe is None:
+        return L.apply_mlp(p, x, cfg.mlp_type, tp=mlp_tp(cfg, run))
+    m = moe_dims(cfg)
+    pinned = MOE.next_pinned()  # the global batch's (B, S, k), or None
+    if pinned is not None:
+        pinned = pinned.to(x.device)
+    if run.mesh is None:
+        return MOE.apply_moe(p, m, x, pinned=_flat_rows(pinned))
+    axes, first, raxes = expert_block(cfg, run)
+    if raxes:
+        p = dict(p, router=C.gather_packed([p["router"]], [1], raxes)[0])
+    stp = mlp_tp(cfg, run, "ff.shared.") if "shared" in p else L.NO_TP
+    if cfg.moe.impl == "ep" and axes and run.split_batch:
+        mine = None if pinned is None else _flat_rows(local_rows(pinned, run))
+        return MOE.apply_moe_ep(p, m, x, model_axes=axes, chunks=cfg.moe.chunks,
+                                shared_tp=stp, pinned=mine)
+    rows = _live_data_axes(run) if run.split_batch else ()
+    xg = C.gather_packed([x], [0], rows)[0] if rows else x
+    out = C.reduce_from(MOE.apply_moe(p, m, C.copy_to(xg, axes), first=first,
+                                      shared=False, pinned=_flat_rows(pinned)), axes)
+    if rows:
+        out = local_rows(out, run)
+    if "shared" in p:
+        out = out + L.apply_mlp(p["shared"], x, m.mlp_type, tp=stp)
+    return out
+
+
+def _flat_rows(t):
+    return None if t is None else t.reshape(-1, t.shape[-1])
+
+
 def _uniform_block_fwd(p, cfg: ArchConfig, run: RunCfg, x, positions):
     h = _apply_norm(p["ln1"], x, cfg)
     a, kv = L.apply_attention(p["attn"], attn_dims(cfg), h, positions,
                               plain=run.plain_attention, tp=attn_tp(cfg, run))
     x = x + a
     h = _apply_norm(p["ln2"], x, cfg)
-    x = x + L.apply_mlp(p["ff"], h, cfg.mlp_type, tp=mlp_tp(cfg, run))
+    x = x + _ff_apply(p["ff"], cfg, run, h)
     return x, kv
 
 
@@ -444,16 +583,27 @@ def full_vocab(cfg: ArchConfig, run: RunCfg, logits):
 
 def gather_rows(x, run: RunCfg):
     """The global batch of a tensor of this rank's rows: gathered over the
-    data axes (no autograd)."""
-    if run.mesh is None:
+    data axes (no autograd; whole already unless ``run.split_batch``)."""
+    if run.mesh is None or not run.split_batch:
         return x
     return C.all_gather(x, tuple(a for a in run.data_axes if a in run.mesh.shape), dim=0)
 
 
+def batch_run(run: RunCfg, b: int) -> RunCfg:
+    """``run`` for a batch of ``b`` rows: with ``split_batch`` off where
+    they do not divide over the data axes (every rank then holds them
+    all)."""
+    if run.mesh is None:
+        return run
+    count = math.prod(run.mesh.shape[a] for a in run.data_axes if a in run.mesh.shape)
+    return run if b % count == 0 else dataclasses.replace(run, split_batch=False)
+
+
 def local_rows(x, run: RunCfg, axes=None):
     """This rank's rows (dim 0) of a global batch tensor: cut over the
-    data axes (``batch_spec``), row-major."""
-    if run.mesh is None:
+    data axes (``batch_spec``), row-major (whole unless
+    ``run.split_batch``)."""
+    if run.mesh is None or not run.split_batch:
         return x
     axes = tuple(a for a in (run.data_axes if axes is None else axes)
                  if a in run.mesh.shape)
@@ -645,14 +795,14 @@ def decode_step(cfg: ArchConfig, run: RunCfg, params: Transformer, cache, tokens
     top = _top_params(params, cfg, run)
     y = _embed_tokens(top, cfg, run, tokens)
     a_dims = attn_dims(cfg)
-    atp, ftp = attn_tp(cfg, run, cache=True), mlp_tp(cfg, run)
+    atp = attn_tp(cfg, run, cache=True)
     for i, block in enumerate(params.blocks):
         bp = _block_params(block, cfg, run, cd)
         h = _apply_norm(bp["ln1"], y, cfg)
         y = y + L.apply_attention_decode(bp["attn"], a_dims, h, cache["k"][i],
                                          cache["v"][i], clen, positions, tp=atp)
         h = _apply_norm(bp["ln2"], y, cfg)
-        y = y + L.apply_mlp(bp["ff"], h, cfg.mlp_type, tp=ftp)
+        y = y + _ff_apply(bp["ff"], cfg, run, h)
     y = _apply_norm(top["final_norm"], y, cfg)
     return _head_out(top, cfg, run, y), {"k": cache["k"], "v": cache["v"],
                                          "len": clen + 1}

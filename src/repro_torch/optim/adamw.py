@@ -12,7 +12,10 @@ differ.
 The trees are flat ``{name: tensor}`` mappings (the model's
 ``named_parameters()``); :func:`update` changes the parameters and the
 moments in place under ``torch.no_grad()``, each step of the arithmetic a
-``torch._foreach_*`` call over all the leaves.
+``torch._foreach_*`` call over a group of leaves of at most
+:data:`GROUP_BYTES` (the arithmetic is elementwise, so the grouping
+changes no bit; it bounds the temporaries to a few groups' size, where
+over all the leaves at once they would be several times the model's).
 
 On a mesh the leaves are this rank's shards (the moments sharded like
 their parameters, the update elementwise on them) and :func:`global_norm`
@@ -47,6 +50,9 @@ class AdamWConfig:
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: the f32 bytes of the leaves one group of :func:`update`'s arithmetic
+#: takes at once (a larger leaf is a group of its own)
+GROUP_BYTES = 1 << 30
 
 
 def _moment_dtype(c: AdamWConfig) -> torch.dtype:
@@ -124,19 +130,39 @@ def update(c: AdamWConfig, grads: dict, state: dict, params: dict,
     ``cut_axes`` ({name: mesh axes}) makes the leaves shards
     (:func:`global_norm`)."""
     names = list(params)
-    ps = [params[n] for n in names]
-    gs = [grads[n] for n in names]
-    ms = [state["m"][n] for n in names]
-    vs = [state["v"][n] for n in names]
     count = state["count"] + 1
-    gnorm = global_norm(gs, None if cut_axes is None else [cut_axes[n] for n in names])
+    gnorm = global_norm([grads[n] for n in names],
+                        None if cut_axes is None else [cut_axes[n] for n in names])
     scale = torch.clamp(c.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = schedule(c, count)
-    b1, b2 = c.b1, c.b2
     cf = count.to(torch.float32)
-    bc1 = 1 - torch.pow(b1, cf)
-    bc2 = 1 - torch.pow(b2, cf)
+    bc = (1 - torch.pow(c.b1, cf), 1 - torch.pow(c.b2, cf))
+    for group in _groups(names, params):
+        _update_group(c, [params[n] for n in group], [grads[n] for n in group],
+                      [state["m"][n] for n in group], [state["v"][n] for n in group],
+                      scale, lr, bc)
+    new_state = dict(state, count=count)
+    return params, new_state, {"grad_norm": gnorm, "lr": lr}
 
+
+def _groups(names: list, params: dict) -> list:
+    """``names`` in order, cut into runs of at most :data:`GROUP_BYTES` of
+    f32 leaves."""
+    out, size = [[]], 0
+    for n in names:
+        nbytes = params[n].numel() * 4
+        if out[-1] and size + nbytes > GROUP_BYTES:
+            out.append([])
+            size = 0
+        out[-1].append(n)
+        size += nbytes
+    return out
+
+
+def _update_group(c: AdamWConfig, ps, gs, ms, vs, scale, lr, bc) -> None:
+    """One step of the leaves ``ps`` in place (their gradients, moments)."""
+    b1, b2 = c.b1, c.b2
+    bc1, bc2 = bc
     g32 = torch._foreach_mul(_f32(gs), scale)
     m32 = _f32(ms)                         # m ← b1·m + (1 − b1)·g
     torch._foreach_mul_(m32, b1)
@@ -160,5 +186,3 @@ def update(c: AdamWConfig, grads: dict, state: dict, params: dict,
     _store(ps, p32)
     _store(ms, m32)
     _store(vs, v32)
-    new_state = dict(state, count=count)
-    return params, new_state, {"grad_norm": gnorm, "lr": lr}

@@ -495,3 +495,42 @@ def test_train_step_on_card_launches_the_kernel_and_matches_cpu(cuda, no_tf32):
         if dev != "cpu":
             assert attention.launches == launches + 3 * T.block_forwards(cfg, T.RunCfg())
     assert losses["cpu"] == pytest.approx(losses["cuda"], abs=1e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_moe_index_dispatch_matches_the_one_hot_version_on_card(cuda, no_tf32, dtype, tol):
+    # qwen3-moe's widths (128 experts, top-8, d 2048, expert d_ff 768) at
+    # 512 tokens and capacity factor 1.25; the routing skewed so that pairs drop
+    from repro_torch.models import moe as MOE
+
+    m = MOE.MoEDims(d_model=2048, n_experts=128, top_k=8, d_ff_expert=768)
+    g = torch.Generator(device=cuda).manual_seed(14)
+    p = {"router": 0.02 * torch.randn(2048, 128, device=cuda, generator=g),
+         "experts": {k: torch.randn(*s, device=cuda, generator=g) / s[1] ** 0.5
+                     for k, s in (("wi_gate", (128, 2048, 768)),
+                                  ("wi_up", (128, 2048, 768)),
+                                  ("wo", (128, 768, 2048)))}}
+    p = {"router": p["router"].to(dtype),
+         "experts": {k: v.to(dtype) for k, v in p["experts"].items()}}
+    x = (torch.randn(2, 256, 2048, device=cuda, generator=g) + 0.5).to(dtype)
+    got, share = MOE.count_drops(lambda: MOE.apply_moe(p, m, x))
+    want = MOE.apply_moe_plain(p, m, x)
+    assert share > 0
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert float(err) <= tol
+
+
+def test_moe_top_k_on_card_takes_the_lower_index_first(cuda):
+    # bf16-rounded router logits tie often among 128 experts: the card's
+    # order must be the CPU's (jax.lax.top_k's, checked there)
+    from repro_torch.models import moe as MOE
+
+    g = torch.Generator().manual_seed(15)
+    probs = torch.softmax((torch.randn(4096, 128, generator=g) * 0.05)
+                          .bfloat16().float(), dim=-1)
+    v_cpu, i_cpu = MOE.top_k(probs, 8)
+    v, i = MOE.top_k(probs.to(cuda), 8)
+    assert (probs[:, :, None] == probs[:, None, :]).sum() > probs.numel()  # ties
+    assert torch.equal(i.cpu(), i_cpu) and torch.equal(v.cpu(), v_cpu)
+    e = torch.randint(0, 128, (4096 * 8,), generator=g)
+    assert torch.equal(MOE.arrival(e.to(cuda), 128).cpu(), MOE.arrival(e, 128))

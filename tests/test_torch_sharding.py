@@ -110,6 +110,40 @@ def test_cache_specs_equal_the_references(arch, mesh, monkeypatch):
         assert got == want, (mesh, seq_shard)
 
 
+MOE_MESHES = {"2x2": {"data": 2, "model": 2}, "1x4": {"data": 1, "model": 4},
+              "4x1": {"data": 4, "model": 1},
+              "pod2x1x2": {"pod": 2, "data": 1, "model": 2}}
+
+
+@pytest.fixture(scope="module")
+def moe_arch():
+    jcfg, cfg = jax_config("qwen3-moe-30b-a3b"), get_config("qwen3-moe-30b-a3b")
+    shapes = jax.eval_shape(lambda k: jax_init(jcfg, k)[0], jax.random.PRNGKey(0))
+    return cfg, jax_model_axes(jcfg), shapes
+
+
+@pytest.mark.parametrize("mesh", list(MOE_MESHES))
+def test_moe_specs_equal_the_references(moe_arch, mesh):
+    # qwen3-moe at full width: the router cut over data (FSDP) and model
+    # (its experts axis), the experts over model, their embed dim over data
+    cfg, jaxes, shapes = moe_arch
+    assert axes_to_jax_tree(T.model_axes(cfg)) == jaxes
+    m = MOE_MESHES[mesh]
+    want = _tuples(jax_sharding.tree_specs(_stand_in(m), jaxes, shapes))
+    port_shapes = params_to_jax_tree(dict(T.init_model(cfg, device="meta")
+                                          .named_parameters()))
+    assert SH.tree_specs(m, axes_to_jax_tree(T.model_axes(cfg)), port_shapes) == want
+    specs = T.param_specs(cfg, m)
+    ff = want["blocks"]["ff"]
+    assert specs["blocks.0.ff.router"] == ff["router"][1:]
+    for k in ("wi_gate", "wi_up", "wo"):
+        assert specs[f"blocks.0.ff.experts.{k}"] == ff["experts"][k][1:]
+    if mesh == "2x2":
+        assert specs["blocks.0.ff.router"] == ("data", "model")
+        assert specs["blocks.0.ff.experts.wi_gate"] == ("model", "data", None)
+        assert specs["blocks.0.ff.experts.wo"] == ("model", None, "data")
+
+
 def test_smollm_specs_on_2x2_are_the_issue_of_heads_that_do_not_divide():
     specs = T.param_specs(get_config("smollm-360m"), MESHES["2x2"])
     assert specs["embed"] == ("model", "data")
