@@ -12,7 +12,8 @@ and ``ring_land`` (``csrc/ring_rdma.cu``, engines
 ``pallas_ring``/``bidi_ring`` on a grid of more than one rank).  LM
 serving and training: ``flash_attention`` (``csrc/flash_attention.cu``),
 the attention of every layer of the prefill and of every forward of a
-training step; sharded over a mesh of rank processes, the LM's
+training step (deepseek-v2-lite's MLA in its decompressed form, at
+D=192); sharded over a mesh of rank processes, the LM's
 collectives run on ``ring_send`` and ``ring_land`` too, the MoE's
 expert-parallel all-to-alls among them.  Phases, each
 fatal on failure:
@@ -263,7 +264,7 @@ fatal on failure:
    at T=512 by index against the one-hot plain version (2e-2 of max);
    prefill ms, decode ms a step, tok/s, peak, a profiled prefill.  (c)
    1x1 training, B=8, S=512, remat: step 0's gradients against the plain
-   attention's per leaf (5e-2, phase 12's gate), 6 steps (ms/step,
+   attention's per leaf (5e-2, phase 12's gate), 4 steps (ms/step,
    tokens/s, peak), 3 steps at 8.0.  (b) and (d): one spawn of 4 rank
    processes on 2x2, expert-parallel (every all-to-all on the peer-mapped
    wire: ``ring_send``/``ring_land``).  (b) serving at 8.0, teacher-forced
@@ -273,8 +274,44 @@ fatal on failure:
    gnorm and the params' change ‖p₃ − p₀‖, gates that must refuse the
    same steps with the experts' gradients left out; at 1.25 ms/step on
    rank 0, peak a rank, all-to-alls and wire bytes a step.
-   ``chip_smoke.py --moe-only`` runs phases 1 and 14; ``--lm-only`` runs
-   phases 1, 8, 12, 13 and 14.
+   ``chip_smoke.py --moe-only`` runs phases 1 and 14;
+15. MLA — ``deepseek-v2-lite-16b`` at full width (d 2048, 16 heads, MLA
+   kv_lora 512, nope 128, rope 64, v 128; 64 experts top-6, expert d_ff
+   1408, 2 shared experts; the first block dense at d_ff 10944; vocab
+   102400), bf16, seed 0; its prefill's attention the flash kernel at
+   D=192 (the decompressed form: 16 heads on 16, v zero-padded to 192).
+   (a) 1x1 serving at full depth (27 layers, 15.706 B params, 62.83 GB of
+   f32 params on the card), B=8, prompt 2048, 32 tokens through
+   ``generate``: 27 ``flash_attention`` launches a prefill, no plain call,
+   no pad copy; the plain attention's run, teacher-forced and its expert
+   choices pinned: the kernel's gates are every layer's kernel output on
+   the plain run's q, k, v within phase 3's bf16 rule and the same runs in
+   f32 (prompt 512, 8 tokens) within 1e-4; the bf16 logits are shown
+   beside those of a control attention (unblocked f32, rounded once) and
+   bounded by max(3e-2, 2 × the control's gap), a bound that a key tile
+   dropped in every layer must exceed (p rounded to bf16 passes it and is
+   shown); one MLA layer at
+   B=8, S=2048, the decompressed form on the kernel within 2e-2·max|out|
+   of the plain latent form; prefill ms, decode ms a step, tok/s, peak,
+   the share of pairs dropped at 1.25 and the compressed cache's bytes.
+   (b) 1x1 training cut to 4 layers (1 dense + 3 MoE), B=8, S=512, remat:
+   step 0's gradients against the plain attention's per leaf (5e-2), 8
+   launches a step; 4 steps at 1.25 (ms/step, tokens/s, peak); then (c)'s
+   references at capacity factor 11 (64 experts / top-6 rounded up: no
+   pair drops under either capacity rule): serving in bf16 and f32 (tokens,
+   logits, expert choices) and 3 steps in bf16 and in f32.  (c) Inside
+   phase 14's spawn,
+   after its runs: the 4-layer model on 2x2 (heads over ``model``, the
+   latents and the cache whole there, the experts expert-parallel),
+   serving at 11 teacher-forced and pinned, logits within 3e-2·max|logit|
+   of (b)'s (f32: 1e-4); 3 training steps at 11 against (b)'s: in bf16
+   the loss and ‖p₃ − p₀‖ under phase 14's (d) gates (1e-3, 1e-3), the
+   gnorm shown; in f32 the loss, gnorm and change under all three (1e-3,
+   4e-3, 1e-3), which must refuse a control with MLA's latent weights'
+   gradients left unsummed over ``model``; rank 0's ms/step, peak a rank,
+   all-to-alls and wire bytes a step.
+   ``chip_smoke.py --mla-only`` runs phases 1 and 15, (c) in a spawn of
+   its own; ``--lm-only`` runs phases 1, 8, 12, 13, 14 and 15.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Full results go to
@@ -388,13 +425,22 @@ SERVE_BACKENDS = ("pallas", "mxu")
 FLASH_MAIN = (8, 2048, 2048, 15, 5, 64, True)
 # phase 4 also times the training step's shape (phase 12: B=8, S=512)
 FLASH_TRAIN = (8, 512, 512, 15, 5, 64, True)
+# deepseek-v2-lite's MLA prefill (phase 15) in its decompressed form: 16
+# heads on 16 at D = 192 (nope 128 + rope 64, v zero-padded to 192)
+FLASH_MLA = (8, 2048, 2048, 16, 16, 192, True)
+# the MLA path's value width (v_head_dim): v goes to the kernel zero-padded
+# to D and the output is cut back, so phase 4 times the kernel on the
+# padded v, and takes the function's bound and SDPA's time with v and the
+# output at this width
+FLASH_MLA_DV = 128
 FLASH_CHECKS = {
     "bfloat16": (FLASH_MAIN, (1, 1, 1, 8, 1, 256, True), (1, 17, 17, 6, 2, 20, True),
                  (2, 64, 77, 24, 3, 128, False), (1, 2048, 2048, 6, 2, 256, True),
-                 (1, 17, 30, 3, 3, 64, False), (2, 129, 142, 8, 1, 256, False)),
+                 (1, 17, 30, 3, 3, 64, False), (2, 129, 142, 8, 1, 256, False),
+                 FLASH_MLA),
     "float32": ((8, 512, 512, 15, 5, 64, True), (1, 1, 1, 8, 1, 256, True),
                 (1, 17, 17, 6, 2, 20, True), (2, 64, 77, 24, 3, 128, False),
-                (1, 2048, 2048, 6, 2, 256, True)),
+                (1, 2048, 2048, 6, 2, 256, True), (2, 512, 512, 16, 16, 192, True)),
 }
 # f32: |kernel - plain| <= tol + tol·|plain| (the JAX kernel test's f32
 # tolerance, tests/test_flash_kernel.py); bf16: attention.bf16_gap, each
@@ -731,13 +777,17 @@ def flash_timing(gen):
     """Phase 4, flash attention, bf16 and causal at B=8, S=T=2048: at the
     prefill shape (smollm-360m's heads) and with the heads of
     ``FLASH_ARCHS`` (head dimensions 128 and 256); then the f32 kernel at
-    phase 3's f32 prefill shape, and bf16 at the training step's shape
-    (B=8, S=T=512).  Each against ``scaled_dot_product_attention`` on (B,
-    H, S, D) views with ``enable_gqa`` (a yardstick the port never calls;
-    f32 with TF32 off, as ``main`` sets), CUDA events; the plain version at
-    the prefill and training shapes only.  The bound is the larger of q, k, v
-    and o's bytes over 3.35 TB/s and the kept pairs' flops over the peak of
-    the units the kernel runs on (bf16 tensor cores; f32 CUDA cores).
+    phase 3's f32 prefill shape, bf16 at the training step's shape (B=8,
+    S=T=512) and at deepseek-v2-lite's MLA prefill (``FLASH_MLA``: 16 heads
+    at D=192, v at FLASH_MLA_DV zero-padded to 192 as the MLA path gives
+    it).  Each against ``scaled_dot_product_attention`` on (B, H, S, D)
+    views with ``enable_gqa`` (a yardstick the port never calls; f32 with
+    TF32 off, as ``main`` sets; at the MLA shape v unpadded), CUDA events;
+    the plain version at the prefill, training and MLA shapes only.  The
+    bound is the larger of q, k, v and o's bytes over 3.35 TB/s and the
+    kept pairs' flops (Q·Kᵀ at D, P·V at v's width: the function's, not
+    the padding's) over the peak of the units the kernel runs on (bf16
+    tensor cores; f32 CUDA cores).
     Returns one record a shape, the prefill shape's first."""
     import torch
     import torch.nn.functional as F
@@ -753,37 +803,45 @@ def flash_timing(gen):
     shapes.append(("smollm-360m f32", FLASH_CHECKS["float32"][0], torch.float32,
                    FP32_FLOPS))
     shapes.append(("smollm-360m training", FLASH_TRAIN, torch.bfloat16, BF16_TC_FLOPS))
+    shapes.append(("deepseek-v2-lite-16b MLA prefill", FLASH_MLA, torch.bfloat16,
+                   BF16_TC_FLOPS))
     out = []
     for label, shape, dtype, peak in shapes:
         b, s, t, h, hkv, d, causal = shape
+        dv = FLASH_MLA_DV if shape == FLASH_MLA else d
         q = _rand((b, s, h, d), torch.float32, gen).to(dtype)
         k = _rand((b, t, hkv, d), torch.float32, gen).to(dtype)
-        v = _rand((b, t, hkv, d), torch.float32, gen).to(dtype)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        v0 = _rand((b, t, hkv, dv), torch.float32, gen).to(dtype)
+        v = F.pad(v0, (0, d - dv)).contiguous() if dv != d else v0
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v0))
         ms = _time_ms(lambda: attention.flash_attention(q, k, v, causal=causal), 20, 3)
         plain_ms = (_time_ms(lambda: attention.flash_attention_plain(
-            q, k, v, causal=causal), 3, 1) if shape in (FLASH_MAIN, FLASH_TRAIN)
+            q, k, v, causal=causal), 3, 1) if shape in (FLASH_MAIN, FLASH_TRAIN, FLASH_MLA)
             else None)
         library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True), 20, 3)
-        moved = q.element_size() * (2 * b * s * h * d + 2 * b * t * hkv * d)
-        flops = attention.attention_flops(b, s, t, h, d, causal)
+        moved = q.element_size() * (b * s * h * (d + dv) + b * t * hkv * (d + dv))
+        flops = attention.attention_flops(b, s, t, h, d, causal) * (d + dv) / (2 * d)
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / peak * 1e3
         r = {"kernel": "flash_attention", "label": label, "shape": list(shape),
              "dtype": str(dtype).removeprefix("torch."), "ms": ms,
              "plain_ms": plain_ms, "library_ms": library_ms, "bytes": moved,
              "flops": flops, "bound_ms": max(bytes_ms, ops_ms),
-             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "dv": dv}
         plain = f"plain {plain_ms:.3f} ms, " if plain_ms is not None else ""
+        padded = (f"; at the padded width {attention.attention_flops(b, s, t, h, d, causal):.4g}"
+                  f" flop {attention.attention_flops(b, s, t, h, d, causal) / peak * 1e3:.4f} ms"
+                  if dv != d else "")
         say(f"timing flash_attention ({label}) B={b} S={s} H={h} Hkv={hkv} D={d} "
-            f"{r['dtype']} {'causal' if causal else 'full'}: kernel {ms:.4f} ms "
+            + (f"(v at {dv}, padded to {d} for the kernel) " if dv != d else "")
+            + f"{r['dtype']} {'causal' if causal else 'full'}: kernel {ms:.4f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s), {plain}sdpa {library_ms:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {moved} B "
-            f"{bytes_ms:.4f} ms, {flops:.4g} flop {ops_ms:.4f} ms), "
+            f"{bytes_ms:.4f} ms, {flops:.4g} flop {ops_ms:.4f} ms{padded}), "
             f"{r['bound_ms'] / ms:.1%} of the bound")
         out.append(r)
-        del q, k, v, qt, kt, vt
+        del q, k, v, v0, qt, kt, vt
         torch.cuda.empty_cache()
     return out
 
@@ -4089,7 +4147,7 @@ MOE_GATE_CF = 8.0
 MOE_DISPATCH_T, MOE_DISPATCH_TOL = 512, 2e-2
 # (c) steps at 1.25 on one device (the first apart), and the gate's steps
 # at MOE_GATE_CF on 1x1 and 2x2; (d) steps at 1.25 on 2x2
-MOE_TIMED_STEPS, MOE_GATE_STEPS, MOE_MESH_STEPS = 6, 3, 4
+MOE_TIMED_STEPS, MOE_GATE_STEPS, MOE_MESH_STEPS = 4, 3, 3
 # (d) against (c) at MOE_GATE_CF, relative: each step's loss and gnorm and
 # the params' change after 3 steps.  The gnorm and change gates sit between
 # the sound reading and the control's (2x2 with the experts' gradients left
@@ -4353,10 +4411,12 @@ def _moe_counts_of(fn):
     return _shard_counts()
 
 
-def _moe_ranks(ctx, forced8, routing8):
+def _moe_ranks(ctx, forced8, routing8, mla=None):
     """Everything phase 14's 4 rank processes do: (b) serving on 2x2 at
     MOE_GATE_CF (teacher-forced with (a)'s tokens there) and at 1.25;
-    (d) training at MOE_GATE_CF, its control, and at 1.25."""
+    (d) training at MOE_GATE_CF, its control, and at 1.25; then, with
+    ``mla`` (phase 15 (c)'s forced tokens and expert choices), phase 15
+    (c) with the qwen3-moe runs' memory freed."""
     import statistics
 
     import torch
@@ -4406,6 +4466,9 @@ def _moe_ranks(ctx, forced8, routing8):
     out["train"], dropped = MOE.count_drops(lambda: _shard_steps(ctx, cfg, MOE_MESH_STEPS))
     out["train"]["dropped"] = dropped
     out["train"]["ms_per_step"] = statistics.median(out["train"]["step_ms"][1:])
+    if mla is not None:
+        torch.cuda.empty_cache()
+        out["mla"] = _mla_ranks_part(ctx, *mla)
     wires = dict(ctx.wires())
     out["wires"] = sorted(f"{k}: {type(w).__name__}" for k, w in wires.items())
     out["wires_ipc"] = all(isinstance(w, ring_rdma.IpcWire) for w in wires.values())
@@ -4413,13 +4476,15 @@ def _moe_ranks(ctx, forced8, routing8):
     return out
 
 
-def moe_lm(smi):
+def moe_lm(smi, mla_kept=None):
     """Phase 14: qwen3-moe at full width (cut to MOE_LAYERS layers), (a)
     served and (c) trained on one card, (b) served and (d) trained
     expert-parallel on 2x2 (one spawn of 4 rank processes on the card;
     every all-to-all on the peer-mapped wire); returns the results and the
-    kernels' launches (flash_attention, ring_send, ring_land).  Every
-    reading is printed before the gates fail."""
+    kernels' launches (flash_attention, ring_send, ring_land).  With
+    ``mla_kept`` (:func:`mla_lm`'s) the spawn's ranks then run phase 15
+    (c), whose results go to ``out["mla_ranks"]`` for :func:`mla_mesh`.
+    Every reading is printed before the gates fail."""
     import torch
 
     from repro_torch import dist
@@ -4439,8 +4504,9 @@ def moe_lm(smi):
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     t0 = time.perf_counter()
     try:
+        mla = None if mla_kept is None else _mla_rank_args(mla_kept)
         ranks = dist.run_ranks(_moe_ranks, 2, 2, device="cuda",
-                               args=(kept8["tokens"].numpy(), kept8["routing"]),
+                               args=(kept8["tokens"].numpy(), kept8["routing"], mla),
                                timeout=1200)
     finally:
         if alloc is None:
@@ -4521,8 +4587,12 @@ def moe_lm(smi):
                      r["control"]["counts"], r["train"]["counts"]):
             for k in launches:
                 launches[k] += part[k]
+    mla_ranks = [{"rank": r["rank"], "mla": r.pop("mla"), "wires": r["wires"],
+                  "wires_ipc": r["wires_ipc"], "backend": r["backend"]}
+                 for r in ranks if "mla" in r]
     out = {"serve_1x1": served, "train_1x1": trained, "ranks": ranks, "spawn_s": spawn_s,
-           "serve_gaps_gate_cf": gaps8, "refused": refused, "launches": launches}
+           "serve_gaps_gate_cf": gaps8, "refused": refused, "launches": launches,
+           "mla_ranks": mla_ranks}
     for r in ranks:
         r["serve8"].pop("logits", None)
     out["phase_s"] = time.perf_counter() - t_phase
@@ -4530,6 +4600,623 @@ def moe_lm(smi):
     if bad:
         fail("MoE " + "; ".join(bad))
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: MLA (deepseek-v2-lite-16b) served at full depth and trained on
+# one card, and sharded over 2x2 inside phase 14's spawn
+# ---------------------------------------------------------------------------
+
+# full width (d 2048, 16 heads, MLA kv_lora 512, nope 128, rope 64, v 128;
+# 64 experts top-6, expert d_ff 1408, 2 shared at d_ff 2816; the first
+# block dense at d_ff 10944; vocab 102400, untied): (a) at full depth, 27
+# layers (15.706 B params, 62.83 GB in f32); (b) and (c) cut to
+# MLA_TRAIN_LAYERS (1 dense + 3 MoE: 2.255 B params, 36.1 GB of training
+# state with gradients and both moments)
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_TRAIN_LAYERS = 4
+MLA_BATCH, MLA_PROMPT, MLA_GEN = 8, 2048, 32
+# (a) one MLA layer at B=8, S=2048, bf16: the decompressed form on the
+# kernel against the plain latent form, max|d| <= MLA_LAYER_TOL·max|latent|
+# (two bf16 roundings of one function: the scores through c_kv·W_uk or
+# through q_nope·W_ukᵀ)
+MLA_LAYER_TOL = 2e-2
+# (a) the bf16 logits through 27 layers part from the plain attention's by
+# far more than phase 8's 32 dense layers do (the drift of bf16 roundings
+# through 26 MoE layers with random routers), so the end-to-end bf16 gate
+# is calibrated on a control that is a correct attention of the same
+# arithmetic (``attention.bf16_control``: unblocked f32 scores and P·V,
+# rounded once; phase 3 accepts it): the kernel run's gap to the plain
+# run at most MLA_DRIFT_RATIO times the control's, or LM_TOL_BF16.  Every
+# layer's kernel output is held to the plain one's on the plain run's own
+# q, k, v by phase 3's bf16 rule, and the f32 run of the whole depth
+# (prompt MLA_F32_PROMPT, MLA_F32_GEN tokens) to LM_TOL_F32
+MLA_DRIFT_RATIO = 2.0
+# (a) broken attentions (``attention.bf16_control``'s, in every layer of
+# the plain run), each with whether that bound must refuse it: a key tile
+# dropped must be (0.567 against 0.215 on the H100, PERF.md); p rounded to
+# bf16 before P·V passes it (0.104), a fault that only the per-layer check
+# (phase 3's rule refuses it) and the f32 run can see
+MLA_BROKEN = (("key tile dropped", {"drop_tile": True}, True),
+              ("p rounded to bf16", {"round_p": True}, False))
+MLA_F32_PROMPT, MLA_F32_GEN = 512, 8
+# (b) steps at the config's capacity factor 1.25 (the first apart); (c)
+# steps at MLA_GATE_CF on 1x1 and on 2x2 (bf16 and f32), and the f32
+# control's steps on 2x2
+MLA_TIMED_STEPS, MLA_GATE_STEPS, MLA_CONTROL_STEPS = 4, 3, 3
+# (c) compares 2x2 with 1x1 at a capacity factor where neither capacity
+# rule drops a pair: E / k rounded up (64 / 6 -> 11), so that every
+# expert's buffer holds every token of its slab.  Phase 14's 8.0 is not
+# enough here: deepseek's random routers send most tokens of a slab to the
+# same few experts (at 1.25 the dense rule drops 15 % of (b)'s pairs), and
+# at 8.0 the expert-parallel rule (a capacity a chunk of tokens) and the
+# dense rule (one capacity over the batch) still drop, different pairs: the
+# f32 serving of 2x2 then parts from 1x1's by a whole max|logit| on the
+# H100 (PERF.md, phase 15).  Beside the bf16 serving, its f32 run (the
+# same params, no cast; prompt MLA_F32_PROMPT, MLA_F32_GEN tokens) is held
+# to LM_TOL_F32 of 1x1's.  The training steps cannot be pinned (a replay
+# pins no call under autograd).  In bf16 a twentieth of the tokens route
+# elsewhere on 2x2, and the gnorm parts from 1x1's by up to 1.3e-2 on the
+# H100 (PERF.md): its loss and params' change are gated, its gnorm shown.
+# The same steps in f32 (the same params, no cast) are held to 1x1's f32
+# steps by loss, gnorm and change (MLA_F32_TOLS), and so is a control that
+# those gates must refuse: MLA's latent weights (w_dkv, w_kr, kv_norm,
+# whole over ``model``) with their gradients left unsummed there, each
+# rank's share from its own heads only.  On the H100 (PERF.md) the sound
+# f32 steps part from 1x1's by at most 7.9e-5 (loss), 1.9e-3 (gnorm) and
+# 6.2e-5 (change); the control by 1.1e-1 (gnorm) and 1.6e-3 (change)
+MLA_GATE_CF = 11.0
+MLA_F32_TOLS = (MOE_LOSS_TOL, MOE_GNORM_TOL, MOE_MOVED_TOL)
+MLA_ONLY = "--mla-only"
+
+
+def _mla_cfg(layers=None, cf=None):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MLA_ARCH)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if cf is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+    return cfg
+
+
+def _mla_layer_check(cfg, p, x):
+    """(a): one MLA layer (block 0's weights ``p`` in bf16, its normed
+    input ``x``, B=8, S=2048): the decompressed form on the kernel against
+    the plain latent form, and both timed."""
+    import torch
+
+    from repro_torch.models import mla as MLA
+    from repro_torch.models import transformer as T
+
+    m = T.mla_dims(cfg)
+    b, s = x.shape[:2]
+    pos = torch.arange(s, device=x.device)[None].expand(b, s)
+    got = MLA.apply_mla(p, m, x, pos)[0]
+    want = MLA.apply_mla_latent(p, m, x, pos)[0]
+    err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+    finite = bool(torch.isfinite(got).all())
+    out = {"err": err, "tol": MLA_LAYER_TOL, "finite": finite,
+           "ok": finite and err <= MLA_LAYER_TOL,
+           "kernel_form_ms": _time_ms(lambda: MLA.apply_mla(p, m, x, pos), 10, 2),
+           "latent_form_ms": _time_ms(lambda: MLA.apply_mla_latent(p, m, x, pos), 5, 1)}
+    say(f"MLA (a) one layer at B={b} S={s} bf16: the decompressed form on the kernel "
+        f"(D={m.qk_nope_dim + m.qk_rope_dim}) against the plain latent form max|d| "
+        f"{err:.3e} of max|latent| (tol {MLA_LAYER_TOL:g}); the layer "
+        f"{out['kernel_form_ms']:.4f} ms against {out['latent_form_ms']:.4f} ms")
+    return out
+
+
+def _mla_probe(gaps):
+    """``flash_attention_plain`` with the kernel run beside it on the same
+    q, k and v, their bf16 gap (phase 3's rule) appended to ``gaps``; it
+    returns the plain output, so the run stays the plain one."""
+    from repro_torch.kernels import attention
+
+    plain = attention.flash_attention_plain
+
+    def probe(q, k, v, *, causal=True, **kw):
+        want = plain(q, k, v, causal=causal, **kw)
+        gaps.append(attention.bf16_gap(attention.flash_attention(q, k, v, causal=causal),
+                                       want))
+        return want
+    return probe
+
+
+def _mla_control(q, k, v, *, causal=True, **kw):
+    """The control attention of (a): unblocked f32 scores and P·V, rounded
+    once (``attention.bf16_control``, causal)."""
+    from repro_torch.kernels import attention
+
+    return attention.bf16_control(q, k, v)
+
+
+def _mla_attend_as(fn, run):
+    """``run()`` with MLA's plain attention replaced by ``fn``."""
+    from repro_torch.models import mla as MLA
+
+    plain = MLA.flash_attention_plain
+    MLA.flash_attention_plain = fn
+    try:
+        return run()
+    finally:
+        MLA.flash_attention_plain = plain
+
+
+def _mla_f32(cfg, model, tokens):
+    """(a) in f32 (the same f32 params, no cast), prompt MLA_F32_PROMPT,
+    MLA_F32_GEN tokens: the kernel's run against the plain attention's,
+    teacher-forced and pinned, every step's logits gap."""
+    import dataclasses
+
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    prompt = tokens[:, :MLA_F32_PROMPT]
+    r, record = _record(lambda: serve.generate(cfg32, T.RunCfg(), model, prompt,
+                                               MLA_F32_GEN, keep_logits=True))
+    p, flips = _replay(lambda: serve.generate(
+        cfg32, T.RunCfg(plain_attention=True), model, prompt, MLA_F32_GEN,
+        forced=r["tokens"], keep_logits=True), record)
+    gaps = _logit_gaps(r["logits"], p["logits"])
+    return {"gaps": gaps, "flips": flips, "tol": LM_TOL_F32,
+            "prefill_ms": r["prefill_ms"]}
+
+
+def _mla_serve_1x1(smi):
+    """(a): deepseek-v2-lite at full width and depth, bf16, B=8, prompt
+    2048, 32 tokens through ``launch/serve.py``'s ``generate`` at capacity
+    factor 1.25: one ``flash_attention`` launch a layer (D=192), no plain
+    call, no pad copy.  Then the plain attention's run, teacher-forced and
+    its expert choices pinned, every layer's kernel output beside the
+    plain one on the same q, k, v (phase 3's bf16 rule), and the
+    control's run (:func:`_mla_control`) the same way: the kernel run's
+    logits gap to the plain run within MLA_DRIFT_RATIO times the
+    control's (or LM_TOL_BF16), a bound the broken attentions of
+    MLA_BROKEN are held to; the f32 runs (:func:`_mla_f32`) within
+    LM_TOL_F32; then the one-layer check.  Returns the results and the
+    kernel's launches."""
+    import torch
+
+    from repro_torch.kernels import attention
+    from repro_torch.launch import serve
+    from repro_torch.models import common as cm
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+
+    cfg = _mla_cfg()
+    run, plain_run = T.RunCfg(), T.RunCfg(plain_attention=True)
+    model = T.init_model(cfg, seed=0, device="cuda")
+    params = sum(p.numel() for p in model.parameters())
+    tokens = serve.prompt_tokens(cfg, MLA_BATCH, MLA_PROMPT, "cuda")
+    serve.generate(cfg, run, model, tokens[:, :64], 2)  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention.launches = attention.plain_calls = attention.pad_copies = 0
+    (r, record), dropped = MOE.count_drops(lambda: _record(lambda: serve.generate(
+        cfg, run, model, tokens, MLA_GEN, keep_logits=True)))
+    counts = {"flash_attention": attention.launches,
+              "flash_attention_plain": attention.plain_calls,
+              "pad_copies": attention.pad_copies}
+    peak = torch.cuda.max_memory_allocated()
+    steps = MLA_GEN - 1
+    m = cfg.mla
+    t = MLA_PROMPT + MLA_GEN
+    cache_bytes = sum(r["cache"][k].numel() * r["cache"][k].element_size()
+                      for k in ("k", "v"))
+    full_kv = cfg.n_layers * MLA_BATCH * t * cfg.n_heads * (
+        m.qk_nope_dim + m.qk_rope_dim + m.v_head_dim) * 2
+    out = {"arch": MLA_ARCH, "layers": cfg.n_layers, "params": params, "counts": counts,
+           "prefill_ms": r["prefill_ms"], "decode_ms_per_step": r["decode_ms"] / steps,
+           "tok_per_s": steps * MLA_BATCH / (r["decode_ms"] / 1e3), "peak_bytes": peak,
+           "dropped": dropped, "cache_bytes": cache_bytes,
+           "decompressed_cache_bytes": full_kv}
+    say(f"[{smi}] MLA (a) {MLA_ARCH} ({cfg.n_layers} layers, {params / 1e9:.3f} B params, "
+        f"f32) 1x1 bf16 B={MLA_BATCH} prompt={MLA_PROMPT} gen={MLA_GEN}, capacity factor "
+        f"{cfg.moe.capacity_factor}: prefill {r['prefill_ms']:.3f} ms, decode "
+        f"{out['decode_ms_per_step']:.3f} ms/step ({out['tok_per_s']:.1f} tok/s), peak "
+        f"{peak / 2**30:.3f} GiB, {dropped:.4%} of the pairs dropped; the compressed cache "
+        f"{cache_bytes} B at T={t} (a decompressed {cfg.n_heads}-head K at D="
+        f"{m.qk_nope_dim + m.qk_rope_dim} and V at D={m.v_head_dim}: {full_kv} B); "
+        f"counts {counts}")
+    if counts != {"flash_attention": cfg.n_layers, "flash_attention_plain": 0,
+                  "pad_copies": 0}:
+        fail(f"MLA (a): counts {counts}, want {cfg.n_layers} launches, no plain call")
+    if tuple(r["tokens"].shape) != (MLA_BATCH, MLA_GEN) or not all(
+            bool(torch.isfinite(x).all()) for x in r["logits"]) or \
+            tuple(r["logits"][0].shape) != (MLA_BATCH, 1, cfg.vocab):
+        fail(f"MLA (a): tokens {tuple(r['tokens'].shape)}, logits "
+             f"{tuple(r['logits'][0].shape)} or not finite")
+    def plain_run_of():
+        return serve.generate(cfg, plain_run, model, tokens, MLA_GEN, forced=r["tokens"],
+                              keep_logits=True)
+
+    layer_gaps = []
+    p, flips = _mla_attend_as(_mla_probe(layer_gaps), lambda: _replay(plain_run_of, record))
+    gaps = _logit_gaps(r["logits"], p["logits"])
+    c, c_flips = _mla_attend_as(_mla_control, lambda: _replay(plain_run_of, record))
+    c_gaps = _logit_gaps(c["logits"], p["logits"])
+    del c
+    bound = max(LM_TOL_BF16, MLA_DRIFT_RATIO * max(c_gaps))
+    broken = {}
+    for label, kw, _ in MLA_BROKEN:
+        def attend(q, k, v, *, causal=True, kw=kw, **_):
+            return attention.bf16_control(q, k, v, **kw)
+        b_run, _ = _mla_attend_as(attend, lambda: _replay(plain_run_of, record))
+        broken[label] = max(_logit_gaps(b_run["logits"], p["logits"]))
+        del b_run
+    worst = max(layer_gaps, key=lambda g: g["worst"])
+    out.update(gap_prefill=gaps[0], gap_decode_max=max(gaps[1:]), flips=flips,
+               control_gap_prefill=c_gaps[0], control_gap_decode_max=max(c_gaps[1:]),
+               control_flips=c_flips, bound=bound, drift_ratio=MLA_DRIFT_RATIO,
+               layer_gaps=layer_gaps, broken=broken)
+    say(f"MLA (a) kernel vs plain attention (bf16, teacher-forced), the plain run's "
+        f"expert choices pinned to the kernel run's: logits gap prefill {gaps[0]:.3e}, "
+        f"decode steps max {max(gaps[1:]):.3e} of max|logit|; its own top-6 differed for "
+        f"{flips:.3%} of the tokens a layer.  The control (unblocked f32 attention, "
+        f"rounded once) vs plain the same way: prefill {c_gaps[0]:.3e}, decode max "
+        f"{max(c_gaps[1:]):.3e} ({c_flips:.3%} flips); the bound max({LM_TOL_BF16:g}, "
+        f"{MLA_DRIFT_RATIO:g} x control) = {bound:.3e}; broken attentions (every "
+        f"layer's) against it: "
+        + ", ".join(f"{k} {g:.3e} ({'refused' if g > bound else 'accepted'})"
+                    for k, g in broken.items())
+        + "; the kernel's own gates: every layer's output (below) and the f32 run")
+    say(f"MLA (a) every layer's kernel output on the plain run's q, k, v "
+        f"({len(layer_gaps)} calls): worst {worst['worst']:.3f} of the element bound, "
+        f"mismatch up to {max(g['mismatch'] for g in layer_gaps):.3%}; "
+        f"{sum(g['ok'] for g in layer_gaps)} pass phase 3's bf16 rule")
+    f32 = _mla_f32(cfg, model, tokens)
+    out["f32"] = f32
+    say(f"MLA (a) f32 (prompt {MLA_F32_PROMPT}, {MLA_F32_GEN} tokens, the same params): "
+        f"kernel vs plain logits gap prefill {f32['gaps'][0]:.3e}, decode max "
+        f"{max(f32['gaps'][1:]):.3e} of max|logit| (tol {LM_TOL_F32:g}); the plain run's "
+        f"own top-6 differed for {f32['flips']:.3%}; kernel prefill {f32['prefill_ms']:.3f} ms")
+    bad = []
+    if max(gaps) > bound:
+        bad.append(f"bf16 logits gap {max(gaps):.3e} > {bound:.3e}")
+    for label, _, refuse in MLA_BROKEN:
+        if refuse and not broken[label] > bound:
+            bad.append(f"the bf16 bound {bound:.3e} accepts the broken attention ({label}: "
+                       f"{broken[label]:.3e})")
+    if len(layer_gaps) != cfg.n_layers or not all(g["ok"] for g in layer_gaps):
+        bad.append(f"{len(layer_gaps)} layer checks, {sum(g['ok'] for g in layer_gaps)} pass")
+    if max(f32["gaps"]) > LM_TOL_F32:
+        bad.append(f"f32 logits gap {max(f32['gaps']):.3e} > {LM_TOL_F32:g}")
+    block = model.first_blocks[0]
+    p0 = {n: w.detach().bfloat16() for n, w in block.attn.named_parameters()}
+    x = cm.rms_norm(model.embed[tokens.long()].bfloat16(), block.ln1.w)
+    del model, r, p, record
+    torch.cuda.empty_cache()
+    out["layer"] = _mla_layer_check(cfg, p0, x)
+    if not out["layer"]["ok"]:
+        bad.append(f"one layer's forms {out['layer']['err']:.3e} apart")
+    del p0, x
+    torch.cuda.empty_cache()
+    out["faults"] = [f"(a) {b}" for b in bad]
+    return out, counts["flash_attention"]
+
+
+def _mla_train_1x1(smi):
+    """(b): deepseek-v2-lite cut to MLA_TRAIN_LAYERS, B=8, S=512, remat:
+    step 0's gradients through the kernel path against the plain
+    attention's (phase 12's gate; the expert choices pinned),
+    MLA_TIMED_STEPS steps at 1.25 (ms/step, tokens/s, peak, the share
+    dropped); then (c)'s references at MLA_GATE_CF, where no pair drops:
+    serving in bf16 and in f32 (tokens, logits, expert choices) and
+    MLA_GATE_STEPS bf16 steps."""
+    import dataclasses
+    import math
+    import statistics
+
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.kernels import attention
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+
+    cfg, cfg8 = _mla_cfg(MLA_TRAIN_LAYERS), _mla_cfg(MLA_TRAIN_LAYERS, MLA_GATE_CF)
+    run = T.RunCfg(remat=False)  # a replay pins each MoE call once, in order
+    model = T.init_model(cfg, seed=0, device="cuda")
+    pipe = Pipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+    tokens = torch.from_numpy(pipe.batch_for_step(0)["tokens"]).cuda()
+    attention.launches = attention.plain_calls = 0
+    (loss, got), record = _record(lambda: _train_grads(cfg, run, model, tokens))
+    counts = [attention.launches, attention.plain_calls]
+    (loss_p, want), flips = _replay(lambda: _train_grads(
+        cfg, T.RunCfg(plain_attention=True, remat=False), model, tokens), record)
+    ok, grads = _check_grads("bfloat16, the plain run's expert choices pinned to the "
+                             "kernel run's", got, want, loss, loss_p,
+                             TRAIN_GRAD_TOL["bfloat16"], stage="MLA (b)")
+    grads.update(counts=counts, flips=flips)
+    del got, want
+    model.requires_grad_(False)
+    # (c)'s serving references (bf16; f32 at MLA_F32_PROMPT), their expert
+    # choices recorded for the ranks; the 4 layers' own bf16 drift: the
+    # plain attention's run against the kernel's, pinned
+    prompt = serve.prompt_tokens(cfg, MLA_BATCH, MLA_PROMPT, "cuda")
+    (r8, record8), dropped8 = MOE.count_drops(lambda: _record(lambda: serve.generate(
+        cfg8, T.RunCfg(), model, prompt, MLA_GEN, keep_logits=True)))
+    p8, flips8 = _replay(lambda: serve.generate(
+        cfg8, T.RunCfg(plain_attention=True), model, prompt, MLA_GEN, forced=r8["tokens"],
+        keep_logits=True), record8)
+    gaps8 = _logit_gaps(r8["logits"], p8["logits"])
+    say(f"MLA (b) serving {MLA_TRAIN_LAYERS} layers 1x1 at capacity factor {MLA_GATE_CF:g} "
+        f"(bf16; {dropped8:.4%} of the pairs dropped), kernel vs plain attention pinned: "
+        f"logits gap prefill {gaps8[0]:.3e}, decode max {max(gaps8[1:]):.3e}; {flips8:.3%} of "
+        f"the plain run's own top-6 differ")
+    kept = {"tokens": r8["tokens"].cpu(), "logits": [x.float().cpu() for x in r8["logits"]],
+            "routing": [t.cpu().numpy() for t in record8], "plain_gaps": gaps8,
+            "dropped": dropped8}
+    del r8, p8, record8
+    cfg32 = dataclasses.replace(cfg8, compute_dtype="float32")
+    r32, record32 = _record(lambda: serve.generate(
+        cfg32, T.RunCfg(), model, prompt[:, :MLA_F32_PROMPT], MLA_F32_GEN, keep_logits=True))
+    kept["f32"] = {"tokens": r32["tokens"].cpu(), "logits": [x.cpu() for x in r32["logits"]],
+                   "routing": [t.cpu().numpy() for t in record32]}
+    del model, r32, record32
+    torch.cuda.empty_cache()
+    bad = []
+    if counts != [cfg.n_layers, 0]:
+        bad.append(f"the kernel path made {counts} launches and plain calls, "
+                   f"want [{cfg.n_layers}, 0]")
+    if not ok:
+        bad.append("the kernel path's gradients fail the gate")
+    per_step = T.block_forwards(cfg, T.RunCfg(remat=cfg.remat))
+    timed, dropped = MOE.count_drops(lambda: _shard_steps(None, cfg, MLA_TIMED_STEPS))
+    timed["dropped"] = dropped
+    ms = statistics.median(timed["step_ms"][1:])
+    gate, gate_dropped = MOE.count_drops(lambda: _shard_steps(None, cfg8, MLA_GATE_STEPS))
+    gate["dropped"] = gate_dropped
+    gate32, gate32_dropped = MOE.count_drops(lambda: _shard_steps(None, cfg32, MLA_GATE_STEPS))
+    gate32["dropped"] = gate32_dropped
+    launches = counts[0] + sum(part["counts"]["flash_attention"]
+                               for part in (timed, gate, gate32))
+    out = {"grads": grads, "timed": timed, "gate": gate, "gate32": gate32, "ms_per_step": ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+           "launches_per_step": per_step}
+    say(f"[{smi}] MLA (b) training 1x1 ({MLA_TRAIN_LAYERS} layers) bf16 remat "
+        f"B={TRAIN_BATCH} S={TRAIN_SEQ}, capacity factor {cfg.moe.capacity_factor}: "
+        f"{ms:.3f} ms/step (median of {MLA_TIMED_STEPS - 1}; "
+        f"{', '.join(f'{t:.3f}' for t in timed['step_ms'])}), "
+        f"{out['tokens_per_s']:.1f} tokens/s, peak {timed['peak_bytes'] / 2**30:.3f} GiB, "
+        f"{timed['dropped']:.4%} of the pairs dropped, losses "
+        f"{[round(x, 4) for x in timed['losses']]}; flash_attention "
+        f"{timed['counts']['flash_attention'] / MLA_TIMED_STEPS:g} launches a step "
+        f"(want {per_step}); the plain run's own top-6 differed for {flips:.3%} of the "
+        f"tokens a layer")
+    for label, part in (("bf16", gate), ("f32", gate32)):
+        say(f"MLA (b) at capacity factor {MLA_GATE_CF:g}, {label}: losses {part['losses']}, "
+            f"gnorms {part['gnorms']}, the params' change {part['moved']}, "
+            f"{part['dropped']:.4%} of the pairs dropped; "
+            f"{', '.join(f'{t:.3f}' for t in part['step_ms'])} ms a step")
+    if not all(math.isfinite(x) for x in timed["losses"] + gate["losses"] + gate32["losses"]):
+        bad.append(f"losses {timed['losses']}, {gate['losses']}, {gate32['losses']}")
+    if dropped8 or gate_dropped or gate32_dropped:
+        bad.append(f"pairs dropped at capacity factor {MLA_GATE_CF:g}: {dropped8:.4%}, "
+                   f"{gate_dropped:.4%}, {gate32_dropped:.4%}")
+    for part, n in ((timed, MLA_TIMED_STEPS), (gate, MLA_GATE_STEPS),
+                    (gate32, MLA_GATE_STEPS)):
+        if part["counts"]["flash_attention"] != n * per_step or \
+                part["counts"]["flash_attention_plain"]:
+            bad.append(f"counts {part['counts']}")
+    out["faults"] = [f"(b) {b}" for b in bad]
+    return out, kept, launches
+
+
+def mla_lm(smi):
+    """Phase 15's runs on one card: (a) serving at full depth, (b)
+    training cut to MLA_TRAIN_LAYERS and (c)'s 1x1 references.  Returns
+    the results, what (c) compares with, and the kernel's launches."""
+    t0 = time.perf_counter()
+    served, flash_a = _mla_serve_1x1(smi)
+    trained, kept, flash_b = _mla_train_1x1(smi)
+    out = {"serve_1x1": served, "train_1x1": trained,
+           "one_card_s": time.perf_counter() - t0}
+    say(f"[{smi}] MLA: (a) and (b) on one card in {out['one_card_s']:.3f} s")
+    kept["train_gate"], kept["train_gate32"] = trained["gate"], trained["gate32"]
+    return out, kept, flash_a + flash_b
+
+
+def _mla_ranks_part(ctx, forced8, routing8, f32):
+    """(c) on one rank of the 2x2 spawn: serving at MLA_GATE_CF,
+    teacher-forced with (b)'s 1x1 tokens and its expert choices pinned,
+    in bf16 and (``f32``: the 1x1 f32 run's tokens and choices) in f32;
+    then MLA_GATE_STEPS training steps at MLA_GATE_CF in bf16 and in f32,
+    and the f32 control's MLA_CONTROL_STEPS."""
+    from repro_torch.models import moe as MOE
+
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve
+
+    cfg8 = _mla_cfg(MLA_TRAIN_LAYERS, MLA_GATE_CF)
+    cfg32 = dataclasses.replace(cfg8, compute_dtype="float32")
+    out = {"free_at_start": torch.cuda.mem_get_info()[0]}
+    run, model, _ = M.rank_setup(cfg8, ctx, None)
+    tokens = serve.prompt_tokens(cfg8, MLA_BATCH, MLA_PROMPT, ctx.device)
+    serve.generate(cfg8, run, model, tokens[:, :64], 2)  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_shard_counts()
+    (r8, flips), dropped = MOE.count_drops(lambda: _replay(lambda: serve.generate(
+        cfg8, run, model, tokens, MLA_GEN, forced=torch.from_numpy(forced8).to(ctx.device),
+        keep_logits=True), [torch.from_numpy(a) for a in routing8]))
+    out["serve8"] = {"counts": _shard_counts(), "flips": flips, "dropped": dropped,
+                     "prefill_ms": r8["prefill_ms"],
+                     "decode_ms_per_step": r8["decode_ms"] / (MLA_GEN - 1),
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+    r32, flips32 = _replay(lambda: serve.generate(
+        cfg32, run, model, tokens[:, :MLA_F32_PROMPT], MLA_F32_GEN,
+        forced=torch.from_numpy(f32[0]).to(ctx.device), keep_logits=True),
+        [torch.from_numpy(a) for a in f32[1]])
+    out["serve32"] = {"flips": flips32}
+    if ctx.rank == 0:  # numpy: a rank's result crosses to the parent pickled
+        out["serve8"]["logits"] = [x.float().cpu().numpy() for x in r8["logits"]]
+        out["serve32"]["logits"] = [x.cpu().numpy() for x in r32["logits"]]
+    del model, r8, r32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["train8"], out["train_dropped"] = MOE.count_drops(
+        lambda: _shard_steps(ctx, cfg8, MLA_GATE_STEPS))
+    out["train32"], out["train32_dropped"] = MOE.count_drops(
+        lambda: _shard_steps(ctx, cfg32, MLA_GATE_STEPS))
+    out["control32"] = _mla_latents_unsummed(ctx, cfg32, MLA_CONTROL_STEPS)
+    return out
+
+
+def _mla_latents_unsummed(ctx, cfg, steps):
+    """(c)'s control: the steps with MLA's latent weights' gradients left
+    unsummed over ``model`` (``mla._shared`` left out: each rank's share
+    from its own heads only)."""
+    from repro_torch.models import mla as MLA
+
+    shared = MLA._shared
+    MLA._shared = lambda p, tp: p
+    try:
+        return _shard_steps(ctx, cfg, steps)
+    finally:
+        MLA._shared = shared
+
+
+def _mla_rank_args(kept):
+    """The ranks' inputs of (c) from :func:`mla_lm`'s ``kept``: the 1x1
+    runs' forced tokens and expert choices, bf16 and f32 (numpy: they
+    cross to the ranks pickled)."""
+    return (kept["tokens"].numpy(), kept["routing"],
+            (kept["f32"]["tokens"].numpy(), kept["f32"]["routing"]))
+
+
+def _mla_ranks(ctx, forced8, routing8, f32):
+    """``--mla-only``'s spawn: (c) alone."""
+    import torch.distributed as tdist
+
+    from repro_torch.kernels import ring_rdma
+
+    part = _mla_ranks_part(ctx, forced8, routing8, f32)
+    wires = dict(ctx.wires())
+    return {"rank": ctx.rank, "mla": part,
+            "wires": sorted(f"{k}: {type(w).__name__}" for k, w in wires.items()),
+            "wires_ipc": all(isinstance(w, ring_rdma.IpcWire) for w in wires.values()),
+            "backend": tdist.get_backend()}
+
+
+def mla_mesh(smi, out, kept, ranks):
+    """Phase 15 (c)'s gates on the ranks' results (``ranks``, each with
+    its ``mla`` part), at MLA_GATE_CF with no pair dropped: the serving
+    within LM_TOL_BF16 · max|logit| of the 1x1 run (bf16) and within
+    LM_TOL_F32 (f32), teacher-forced and pinned; the training steps'
+    loss and params' change under phase 14's (d) gates against the 1x1
+    steps, their gnorm shown (MLA_GATE_CF's comment); the counts.
+    Then fails with any fault of phase 15, (a) and (b)'s included: every
+    reading is printed before the gates fail.  Returns the kernels'
+    launches (flash_attention, ring_send, ring_land)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    cfg = _mla_cfg(MLA_TRAIN_LAYERS)
+    r0 = ranks[0]["mla"]
+    bad = []
+    sv = r0["serve8"]
+    got8 = [torch.from_numpy(x) for x in sv["logits"]]
+    gaps8 = _logit_gaps(kept["logits"], got8)
+    first = kept["logits"][0]  # the prefill's, by row
+    rows = ((first[:, -1] - got8[0][:, -1].float()).abs().amax(-1)
+            / first.abs().max()).tolist()
+    gaps32 = _logit_gaps(kept["f32"]["logits"],
+                         [torch.from_numpy(x) for x in r0["serve32"]["logits"]])
+    say(f"[{smi}] MLA (c) serving 2x2 ({MLA_TRAIN_LAYERS} layers, EP, 4 ranks on one "
+        f"card) at capacity factor {MLA_GATE_CF:g}, teacher-forced with the 1x1 run's "
+        f"tokens and its expert choices pinned.  bf16: logits gap prefill {gaps8[0]:.3e} "
+        f"(by row {[f'{g:.2e}' for g in rows]}), decode max {max(gaps8[1:]):.3e} of "
+        f"max|logit| (1x1 kernel vs plain attention: {kept['plain_gaps'][0]:.3e}, "
+        f"{max(kept['plain_gaps'][1:]):.3e}); rank 0's own top-6 differed for "
+        f"{sv['flips']:.3%} of its tokens a layer; prefill {sv['prefill_ms']:.3f} ms, "
+        f"decode {sv['decode_ms_per_step']:.3f} ms/step on rank 0; peak GiB by rank "
+        f"{[round(r['mla']['serve8']['peak_bytes'] / 2**30, 3) for r in ranks]}.  f32 "
+        f"(prompt {MLA_F32_PROMPT}, {MLA_F32_GEN} tokens): gap prefill {gaps32[0]:.3e}, "
+        f"decode max {max(gaps32[1:]):.3e} (tol {LM_TOL_F32:g}); "
+        f"{r0['serve32']['flips']:.3%} flips")
+    if not max(gaps8) <= LM_TOL_BF16:
+        bad.append(f"bf16 serving logits gap {max(gaps8):.3e} > {LM_TOL_BF16:g}")
+    if not max(gaps32) <= LM_TOL_F32:
+        bad.append(f"f32 serving logits gap {max(gaps32):.3e} > {LM_TOL_F32:g}")
+    d, ref = r0["train8"], kept["train_gate"]
+    per = {k: v / MLA_GATE_STEPS for k, v in d["counts"].items()}
+    ms = statistics.median(d["step_ms"][1:])
+    say(f"[{smi}] MLA (c) training 2x2 at capacity factor {MLA_GATE_CF:g}: "
+        + _steps_line("against 1x1", d, ref, "1x1")
+        + f" (tol loss {MOE_LOSS_TOL:g}, change {MOE_MOVED_TOL:g}; the bf16 gnorm shown, "
+        f"gated in f32 below); "
+        f"{ms:.3f} ms/step on rank 0 (median of {MLA_GATE_STEPS - 1}; "
+        f"{', '.join(f'{t:.3f}' for t in d['step_ms'])}); peak GiB by rank "
+        f"{[round(r['mla']['train8']['peak_bytes'] / 2**30, 3) for r in ranks]} (free GiB "
+        f"as each began {[round(r['mla']['free_at_start'] / 2**30, 3) for r in ranks]}); a "
+        f"step on rank 0: all_to_all {per['collectives.all_to_all']:g}, wire bytes "
+        f"{per['wire_bytes']:.0f}, ring_send {per['ring_send']:g}, ring_land "
+        f"{per['ring_land']:g}, flash {per['flash_attention']:g}; pairs dropped: serving "
+        f"{sv['dropped']:.4%}, training {r0['train_dropped']:.4%}")
+    bad += _step_faults("training", d, ref, MOE_LOSS_TOL, float("inf"), MOE_MOVED_TOL)
+    out["ms_per_step_2x2"] = ms
+    d32, ref32, ctl = r0["train32"], kept["train_gate32"], r0["control32"]
+    tol = dict(zip(("loss", "gnorm", "change"), MLA_F32_TOLS))
+    say(f"[{smi}] MLA (c) training 2x2 f32 at capacity factor {MLA_GATE_CF:g}: "
+        + _steps_line("against 1x1", d32, ref32, "1x1")
+        + f" (tol {tol}); {', '.join(f'{t:.3f}' for t in d32['step_ms'])} ms a step on "
+        f"rank 0; peak GiB by rank "
+        f"{[round(r['mla']['train32']['peak_bytes'] / 2**30, 3) for r in ranks]}")
+    refused = _step_faults("control", ctl, ref32, *MLA_F32_TOLS)
+    say(f"[{smi}] MLA (c) control f32, the latent weights' gradients left unsummed over "
+        f"model: " + _steps_line("against 1x1", ctl, ref32, "1x1")
+        + f"; {'refused: ' + '; '.join(refused) if refused else 'PASSED'}")
+    bad += _step_faults("f32 training", d32, ref32, *MLA_F32_TOLS)
+    if not refused:
+        bad.append("the f32 gates pass the run with the latents' gradients unsummed")
+    out["refused"] = refused
+    if any(r["mla"]["serve8"]["dropped"] or r["mla"]["train_dropped"] or
+           r["mla"]["train32_dropped"] for r in ranks):
+        bad.append(f"pairs dropped at capacity factor {MLA_GATE_CF:g}")
+    want_flash = T.block_forwards(cfg, T.RunCfg(remat=cfg.remat))
+    launches = {"flash_attention": 0, "ring_send": 0, "ring_land": 0}
+    for r in ranks:
+        c = r["mla"]["serve8"]["counts"]
+        if c["flash_attention"] != cfg.n_layers or c["flash_attention_plain"] or \
+                c["pad_copies"] or not c["collectives.all_to_all"] or \
+                not (c["ring_send"] > 0 and c["ring_land"] > 0):
+            bad.append(f"serving rank {r['rank']}: counts {c}")
+        for part, n in (("train8", MLA_GATE_STEPS), ("train32", MLA_GATE_STEPS),
+                        ("control32", MLA_CONTROL_STEPS)):
+            c = r["mla"][part]["counts"]
+            if c["flash_attention"] != n * want_flash or c["flash_attention_plain"] or \
+                    not c["collectives.all_to_all"] or not c["ring_land"]:
+                bad.append(f"{part} rank {r['rank']}: counts {c}")
+        if not r["wires_ipc"] or r["backend"] != "gloo":
+            bad.append(f"rank {r['rank']}: wires {r['wires']}, default group "
+                       f"{r['backend']}: a CUDA tensor's collective off the peer-mapped wire")
+        for part in ("serve8", "train8", "train32", "control32"):
+            for k in launches:
+                launches[k] += r["mla"][part]["counts"][k]
+        for part in ("serve8", "serve32"):
+            r["mla"][part].pop("logits", None)
+    out["mesh"] = {"ranks": [r["mla"] for r in ranks], "serve_gaps": gaps8,
+                   "serve_gaps_by_row": rows, "serve_gaps_f32": gaps32}
+    # (a) and (b)'s faults too: every reading of phase 15 is printed first
+    faults = out["serve_1x1"]["faults"] + out["train_1x1"]["faults"] + \
+        [f"(c) {b}" for b in bad]
+    if faults:
+        fail("MLA " + "; ".join(faults))
+    return launches
 
 
 REPLACES = {"flash_attention": "src/repro/kernels/attention.py:68",
@@ -4558,10 +5245,23 @@ def main(argv) -> int:
         lm, lm_kept = lm_serving(float("nan"))
         trained, _ = training(smi)
         sharded_lm(smi, trained, lm_kept)
-        moe_lm(smi)
+        mla, mla_kept, _ = mla_lm(smi)
+        moe, _ = moe_lm(smi, mla_kept)
+        mla_mesh(smi, mla, mla_kept, moe.pop("mla_ranks"))
         return 0
     if argv == [MOE_ONLY]:
         moe_lm(smi)
+        return 0
+    if argv == [MLA_ONLY]:
+        from repro_torch import dist
+
+        mla, mla_kept, _ = mla_lm(smi)
+        t0 = time.perf_counter()
+        ranks = dist.run_ranks(_mla_ranks, 2, 2, device="cuda",
+                               args=_mla_rank_args(mla_kept),
+                               timeout=900)
+        say(f"MLA (c): its own spawn in {time.perf_counter() - t0:.3f} s")
+        mla_mesh(smi, mla, mla_kept, ranks)
         return 0
     flash_sass_counts, ptxas_build = build()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -4595,8 +5295,13 @@ def main(argv) -> int:
     sharded, sharded_launches = sharded_lm(smi, trained, lm_kept)
     for k, n in sharded_launches.items():
         launches[k] += n
-    moe, moe_launches = moe_lm(smi)
+    mla, mla_kept, mla_launches = mla_lm(smi)
+    launches["flash_attention"] += mla_launches
+    moe, moe_launches = moe_lm(smi, mla_kept)
     for k, n in moe_launches.items():
+        launches[k] += n
+    mla_mesh_launches = mla_mesh(smi, mla, mla_kept, moe.pop("mla_ranks"))
+    for k, n in mla_mesh_launches.items():
         launches[k] += n
 
     kernels = []
@@ -4634,7 +5339,8 @@ def main(argv) -> int:
                    "observability": observed, "multi_rank": ranks,
                    "staged": staged_ranks, "flash_bf16_gaps": flash_gaps, "lm": lm,
                    "tuning": tuned, "serving": served, "fleet": fleeted,
-                   "training": trained, "sharded_lm": sharded, "moe": moe},
+                   "training": trained, "sharded_lm": sharded, "moe": moe,
+                   "mla": mla},
                   f, indent=1)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -262,9 +262,10 @@ class RankFailure(RuntimeError):
         self.exit_codes = dict(exit_codes)
 
 
-def _worker(fn, grid, rank, port, device, args, results):
+def _worker(fn, grid, rank, port, device, inbox, results):
     global _CONTEXT
     try:
+        args = inbox.get(timeout=TIMEOUT_S)
         timeout = datetime.timedelta(seconds=TIMEOUT_S)
         store = tdist.TCPStore("localhost", port, is_master=False, timeout=timeout)
         tdist.init_process_group("gloo", store=store, rank=rank,
@@ -346,16 +347,25 @@ def run_ranks(fn, pu: int, pv: int, *, u_sizes=None, device="cuda", args=(),
                            timeout=datetime.timedelta(seconds=TIMEOUT_S))
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
+    # the arguments go through a queue once every rank has started: as a
+    # process's own arguments, a payload past the pipe's buffer would hold
+    # each start until that process had imported its modules, one by one
+    inbox = ctx.Queue()
     procs = [ctx.Process(target=_worker, args=(fn, grid, r, store.port, dev.type,
-                                                 tuple(args), results))
+                                                 inbox, results))
              for r in range(p)]
     # until _wait returns, a failure: anything raised here stops every rank
     outs, failure = None, ("interrupted", None)
     try:
         for proc in procs:
             proc.start()
+        for _ in procs:
+            inbox.put(tuple(args))
         outs, failure = _wait(procs, results, grid.mesh_label, timeout)
     finally:
+        # a rank that died before taking its arguments leaves them unread
+        inbox.cancel_join_thread()
+        inbox.close()
         started = [proc for proc in procs if proc.pid is not None]
         if failure is not None:  # the others get GRACE_S to exit by themselves
             end = time.monotonic() + GRACE_S

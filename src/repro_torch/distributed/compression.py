@@ -8,11 +8,12 @@ the pod-axis gradient sync of the train step.
 The trees are flat ``{name: tensor}`` mappings.  A tensor's scale is the
 max over the *whole* tensor of the reference's tree: in the train step's
 sync (:func:`pod_sync_compressed`, :func:`tensor_scales`) the layer leaves
-``blocks.<i>.<path>`` of the port are one tensor, stacked over the layers
-in the reference, and share its scale; on a mesh the leaves are this
-rank's shards, and each leaf's local max is all-reduced over the axes its
-spec cuts (one packed exchange an axis for the leaves cut alike) before
-the quantization, as GSPMD's max does inside the reference's pod.  The
+``<stack>.<i>.<path>`` of the port (``first_blocks``, ``blocks``) are one
+tensor a stack, stacked over its layers in the reference, and share its
+scale; on a mesh the leaves are this rank's shards, and each leaf's local
+max is all-reduced over the axes its spec cuts (one packed exchange an
+axis for the leaves cut alike) before the quantization, as GSPMD's max
+does inside the reference's pod.  The
 sum over ``pod`` is of the dequantized f32, divided by the pod count,
 packed into exchanges of up to ``PACK_BYTES``.  Residuals stay per rank,
 per pod, as the reference's ``shard_map`` keeps them.
@@ -23,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.distributed import collectives as C
+from repro_torch.models.common import split_stacked
 
 #: the bytes of dequantized gradients one exchange over the pod axis packs
 PACK_BYTES = 1 << 28
@@ -46,9 +48,9 @@ def quantize_int8(g):
 
 def stacked_name(name: str) -> str:
     """The reference's tensor that a port leaf is part of: a block's leaf
-    ``blocks.<i>.<path>`` is layer i of ``blocks.<path>``."""
-    parts = name.split(".")
-    return ".".join(parts[:1] + parts[2:]) if parts[0] == "blocks" else name
+    ``<stack>.<i>.<path>`` is layer i of ``<stack>.<path>``."""
+    split = split_stacked(name)
+    return f"{split[0]}.{split[2]}" if split else name
 
 
 def tensor_scales(g32: dict, cut_axes: dict | None = None) -> dict:

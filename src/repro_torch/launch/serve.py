@@ -21,12 +21,16 @@ parameters sharded by the reference's specs, the batch's rows over
 ``data``, the decode cache laid out by ``cache_specs`` (its kv heads, or
 else its head_dim, over ``model``); rank 0 prints.  qwen3-moe's experts
 lie over ``model``, its dispatch and combine all-to-alls over it
-(:mod:`repro_torch.models.moe`); a batch whose rows do not divide over
-``data`` lies whole on every rank::
+(:mod:`repro_torch.models.moe`); deepseek-v2-lite's MLA cuts its heads
+over ``model`` and keeps the compressed cache (c_kv and k_rope a token,
+:mod:`repro_torch.models.mla`) whole there; a batch whose rows do not
+divide over ``data`` lies whole on every rank::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --smoke --device cpu --mesh 2x2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
+        --smoke --device cpu --mesh 2x2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \
         --smoke --device cpu --mesh 2x2
 
 ``--sim`` serves spectral simulations instead: every other argument goes

@@ -28,10 +28,14 @@ checkpoints, and every rank restores its shards.  ``--grad-compression``
 does what the reference's does on such a mesh: nothing (it has no
 ``pod`` axis, so the step is the plain one).  qwen3-moe trains as the
 dense decoders do, its experts over ``model`` (expert-parallel on a mesh:
-:mod:`repro_torch.models.moe`); the architectures other than the uniform
-decoders are not ported yet (ROADMAP Queue 1 item 11)::
+:mod:`repro_torch.models.moe`); so does deepseek-v2-lite, its MLA's heads
+over ``model`` (:mod:`repro_torch.models.mla`) and its leading dense block
+a stack of its own (``first_blocks``); the architectures other than the
+uniform decoders are not ported yet (ROADMAP Queue 1 item 11)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b \
+        --smoke --device cpu --steps 4 --batch 4 --seq 32 --mesh 2x2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-lite-16b \
         --smoke --device cpu --steps 4 --batch 4 --seq 32 --mesh 2x2
 """
 
@@ -50,6 +54,7 @@ from repro_torch.data.pipeline import DataConfig, Pipeline
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding as SH
 from repro_torch.launch import mesh as M
+from repro_torch.models.common import split_stacked
 from repro_torch.models.convert import params_to_jax_tree, port_leaves, put_path
 from repro_torch.models.transformer import (RunCfg, check_supported, init_model,
                                             param_specs)
@@ -62,8 +67,8 @@ def _groups(names) -> list:
     each block's."""
     groups: dict = {}
     for n in names:
-        key = ".".join(n.split(".")[:2]) if n.startswith("blocks.") else ""
-        groups.setdefault(key, []).append(n)
+        split = split_stacked(n)
+        groups.setdefault(split[:2] if split else "", []).append(n)
     return list(groups.values())
 
 
@@ -106,10 +111,11 @@ def _placers(model, run: RunCfg, device) -> dict:
 
     tree: dict = {}
     for name, spec in specs.items():
-        if name.startswith("blocks."):
-            _, i, rest = name.split(".", 2)
-            if i == "0":
-                put_path(tree, ["blocks"] + rest.split("."), placer((None,) + spec))
+        split = split_stacked(name)
+        if split:
+            stack, i, rest = split
+            if i == 0:
+                put_path(tree, [stack] + rest.split("."), placer((None,) + spec))
             continue
         put_path(tree, name.split("."), placer(spec))
     return tree

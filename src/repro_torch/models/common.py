@@ -17,6 +17,21 @@ from repro_torch.device import resolve_device
 #: the dtypes the LM path runs in (the attention kernel takes these two)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+#: the decoder's stacks of blocks, in the order they run: the leading
+#: dense blocks of a MoE model (deepseek-v2's ``first_dense``), then the
+#: rest.  The reference stacks each on a leading layer axis; the port names
+#: a block's leaves ``<stack>.<i>.<path>``
+STACKS = ("first_blocks", "blocks")
+
+
+def split_stacked(name: str):
+    """``(stack, layer, path)`` of a block's leaf ``<stack>.<i>.<path>``, or
+    None for a leaf outside the stacks."""
+    parts = name.split(".", 2)
+    if parts[0] in STACKS and len(parts) == 3:
+        return parts[0], int(parts[1]), parts[2]
+    return None
+
 
 def dtype_of(name: str) -> torch.dtype:
     """The torch dtype of a config's dtype name (``"bfloat16"``, ...)."""

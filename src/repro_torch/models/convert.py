@@ -1,9 +1,11 @@
 """Carry the JAX package's parameters into the port.
 
-The JAX params are a nested dict of arrays whose ``blocks`` leaves carry a
-leading layer axis L.  :func:`params_from_jax` takes them as numpy arrays
-(``jax.tree.map(np.asarray, params)``; nothing here imports JAX), unstacks
-``blocks`` into the port's per-layer modules and keeps every other layout
+The JAX params are a nested dict of arrays whose ``first_blocks`` and
+``blocks`` leaves carry a leading layer axis (the stacks of
+:data:`repro_torch.models.common.STACKS`).  :func:`params_from_jax` takes
+them as numpy arrays (``jax.tree.map(np.asarray, params)``; nothing here
+imports JAX), unstacks each stack into the port's per-layer modules and
+keeps every other layout
 as it is (``wq`` (d, H, Dh), ``wo`` (H, Dh, d), ...), so that the port's
 einsums match the JAX ones term for term.  :func:`params_to_jax_tree` is
 its inverse: the JAX tree of any ``{port name: tensor}`` mapping (the
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.common import STACKS, split_stacked
 from repro_torch.models.transformer import Transformer, init_model, shard_model
 
 
@@ -32,14 +35,15 @@ def _flatten(tree, prefix=""):
 
 
 def port_leaves(tree) -> dict:
-    """The JAX pytree's leaves under the port's parameter names:
-    ``blocks.<path>`` with leading axis L becomes ``blocks.<i>.<path>``."""
+    """The JAX pytree's leaves under the port's parameter names: a stack's
+    ``<stack>.<path>`` with leading layer axis becomes
+    ``<stack>.<i>.<path>``."""
     out = {}
     for name, leaf in _flatten(tree):
-        if name.startswith("blocks."):
-            rest = name[len("blocks."):]
+        stack, _, rest = name.partition(".")
+        if stack in STACKS:
             for i in range(leaf.shape[0]):
-                out[f"blocks.{i}.{rest}"] = leaf[i]
+                out[f"{stack}.{i}.{rest}"] = leaf[i]
         else:
             out[name] = leaf
     return out
@@ -76,13 +80,14 @@ def params_from_jax_sharded(cfg: ArchConfig, tree, mesh, device="cuda") -> Trans
 def axes_to_jax_tree(axes: dict) -> dict:
     """The reference's logical-axes tree of the port's ``{name: axes}``
     (:func:`repro_torch.models.transformer.model_axes`): a block's leaves
-    under ``blocks`` with the leading ``layers`` axis JAX stacks them on."""
+    under its stack with the leading ``layers`` axis JAX stacks them on."""
     tree: dict = {}
     for name, ax in axes.items():
-        if name.startswith("blocks."):
-            _, i, rest = name.split(".", 2)
-            if i == "0":
-                put_path(tree, ["blocks"] + rest.split("."), ("layers",) + tuple(ax))
+        split = split_stacked(name)
+        if split:
+            stack, i, rest = split
+            if i == 0:
+                put_path(tree, [stack] + rest.split("."), ("layers",) + tuple(ax))
             continue
         put_path(tree, name.split("."), tuple(ax))
     return tree
@@ -91,19 +96,20 @@ def axes_to_jax_tree(axes: dict) -> dict:
 def params_to_jax_tree(named) -> dict:
     """The JAX package's nested dict of a ``{port name: tensor}`` mapping
     (``model.named_parameters()``, or a moment keyed as they are): the
-    per-layer ``blocks.<i>.<path>`` leaves stacked on a leading L axis under
-    ``blocks``, every other name split at its dots.  Tensors stay on their
-    device (``meta`` makes a template of shapes and dtypes)."""
+    per-layer ``<stack>.<i>.<path>`` leaves stacked on a leading layer axis
+    under their stack, every other name split at its dots.  Tensors stay
+    on their device (``meta`` makes a template of shapes and dtypes)."""
     tree: dict = {}
     stacks: dict = {}
     for name, leaf in dict(named).items():
-        if name.startswith("blocks."):
-            _, i, rest = name.split(".", 2)
-            stacks.setdefault(rest, {})[int(i)] = leaf
+        split = split_stacked(name)
+        if split:
+            stack, i, rest = split
+            stacks.setdefault((stack, rest), {})[i] = leaf
             continue
         put_path(tree, name.split("."), leaf)
-    for rest, layers in stacks.items():
-        put_path(tree, ["blocks"] + rest.split("."),
+    for (stack, rest), layers in stacks.items():
+        put_path(tree, [stack] + rest.split("."),
                  torch.stack([layers[i] for i in sorted(layers)]))
     return tree
 

@@ -202,6 +202,8 @@ def _sdpa_direct(q, k, v, a: AttnDims, mask=None):
 
 Q_CHUNK = 512
 K_CHUNK = 1024
+#: S·T above which the reference's plain attention takes its chunked path
+CHUNK_THRESHOLD = 2048
 
 
 def _sdpa_chunked(q, k, v, a: AttnDims, causal: bool,

@@ -5,12 +5,16 @@ Port of the uniform path of ``repro.models.transformer`` (smollm,
 deepseek, qwen, gemma: GQA/MQA, SwiGLU/GeGLU, optional QKV bias, RoPE,
 RMSNorm or RMSNorm(1 + w), optional embedding scale, tied or untied head;
 qwen3-moe: a Mixture of Experts as every block's feed-forward,
-:mod:`repro_torch.models.moe`).
-Layers run as a Python loop over an ``nn.ModuleList`` where JAX scans over
-layer-stacked params; each block's params are cast to the compute dtype
-where JAX's ``_cast_f`` casts them, at the top of every block.  The
-attention of the forward (prefill and training) is the flash-attention
-kernel.  Under autograd the blocks are rematerialised as JAX's
+:mod:`repro_torch.models.moe`; deepseek-v2-lite: Multi-head Latent
+Attention, :mod:`repro_torch.models.mla`, its ``first_dense`` leading
+dense blocks and its shared experts).
+Layers run as a Python loop over an ``nn.ModuleList`` a stack
+(``first_blocks``, then ``blocks``: :data:`repro_torch.models.common.STACKS`)
+where JAX scans over each stack's layer-stacked params; each block's
+params are cast to the compute dtype where JAX's ``_cast_f`` casts them,
+at the top of every block.  The attention of the forward (prefill and
+training) is the flash-attention kernel (MLA's in its decompressed form).
+Under autograd each stack's blocks are rematerialised as JAX's
 ``_scan_blocks`` does (:func:`_scan_blocks`: ``torch.utils.checkpoint``).
 
 On a mesh (``RunCfg.mesh``, the ranks of :func:`repro_torch.dist.run_ranks`)
@@ -32,10 +36,9 @@ batch whose rows do not divide over the data axes (B=1 decode on 2x2)
 lies whole on every rank (``RunCfg.split_batch``), as GSPMD replicates it.
 
 Configs outside this path raise ``NotImplementedError`` naming ROADMAP
-Queue 1 item 11: MLA (and with it deepseek-v2's leading dense blocks),
-RWKV, the Jamba hybrid, Whisper's encoder–decoder, the VLM ``embeds``
-input, the int8 KV cache (``kv_quant``) and the sequence-sharded decode
-(``seq_shard_kv``).
+Queue 1 item 11: RWKV, the Jamba hybrid (MoE every other layer), Whisper's
+encoder–decoder, the VLM ``embeds`` input, the int8 KV cache
+(``kv_quant``) and the sequence-sharded decode (``seq_shard_kv``).
 """
 
 from __future__ import annotations
@@ -54,7 +57,9 @@ from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding as SH
 from repro_torch.models import common as cm
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models.common import STACKS
 
 LM_ITEM = "ROADMAP Queue 1 item 11"
 
@@ -106,9 +111,7 @@ class RunCfg:
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for what this slice does not run."""
     left = []
-    if cfg.attn_kind == "mla":
-        left.append("MLA attention")
-    if cfg.moe is not None and (cfg.moe.first_dense or cfg.moe.every != 1):
+    if cfg.moe is not None and cfg.moe.every != 1:
         left.append("MoE with dense blocks among its layers")
     if cfg.mixer != "attn":
         left.append(f"mixer {cfg.mixer!r}")
@@ -121,7 +124,7 @@ def check_supported(cfg: ArchConfig) -> None:
     if left:
         raise NotImplementedError(
             f"{cfg.arch_id}: {', '.join(left)} not ported yet ({LM_ITEM}); the "
-            "port runs the uniform decoder, dense or MoE")
+            "port runs the uniform decoder, dense or MoE, GQA or MLA")
 
 
 def _dt(cfg: ArchConfig) -> torch.dtype:
@@ -145,6 +148,21 @@ def attn_dims(cfg: ArchConfig) -> L.AttnDims:
     return L.AttnDims(d_model=cfg.d_model, n_heads=cfg.n_heads,
                       n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
                       qkv_bias=cfg.qkv_bias, rope_base=cfg.rope_base)
+
+
+def mla_dims(cfg: ArchConfig) -> MLA.MLADims:
+    m = cfg.mla
+    return MLA.MLADims(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                       kv_lora_rank=m.kv_lora_rank, qk_nope_dim=m.qk_nope_dim,
+                       qk_rope_dim=m.qk_rope_dim, v_head_dim=m.v_head_dim,
+                       rope_base=cfg.rope_base)
+
+
+def stack_sizes(cfg: ArchConfig) -> dict:
+    """``{stack: its layers}`` in :data:`STACKS` order: a MoE config's
+    ``first_dense`` leading dense blocks, then the rest."""
+    nd = cfg.moe.first_dense if cfg.moe is not None else 0
+    return {"first_blocks": nd, "blocks": cfg.n_layers - nd}
 
 
 def moe_dims(cfg: ArchConfig) -> MOE.MoEDims:
@@ -185,15 +203,21 @@ def _apply_norm(p, x, cfg: ArchConfig):
 
 
 class Block(nn.Module):
-    """``_init_uniform_block`` without MLA: the MoE as ``ff`` where the
-    config has one."""
+    """``_init_uniform_block`` of ``stack``: GQA or MLA as ``attn``; the
+    MoE as ``ff`` in a MoE config's ``blocks``, else the dense MLP (a MoE
+    config's ``first_blocks`` and every block of a dense one).  ``stack``
+    names the specs its parameters are cut by."""
 
-    def __init__(self, ini, cfg: ArchConfig):
+    def __init__(self, ini, cfg: ArchConfig, stack: str):
         super().__init__()
+        self.stack = stack
         self.ln1 = Norm(ini, cfg)
         self.ln2 = Norm(ini, cfg)
-        self.attn = L.Attention(ini, attn_dims(cfg))
-        if cfg.moe is not None:
+        if cfg.attn_kind == "mla":
+            self.attn = MLA.MLA(ini, mla_dims(cfg))
+        else:
+            self.attn = L.Attention(ini, attn_dims(cfg))
+        if cfg.moe is not None and stack == "blocks":
             self.ff = MOE.MoE(ini, moe_dims(cfg))
         else:
             self.ff = L.MLP(ini, cfg.d_model, cfg.d_ff, cfg.mlp_type)
@@ -201,11 +225,12 @@ class Block(nn.Module):
 
 class Transformer(nn.Module):
     """``init_model``'s uniform branch: ``embed`` (vocab, d), ``final_norm``,
-    ``head`` (d, vocab) unless tied, and ``blocks`` (one :class:`Block` a
-    layer where JAX stacks them on a leading axis).  With ``mesh`` each
-    parameter is cut to this rank's shard (:func:`shard_model`) as soon as
-    its block (or the top-level leaves) is made, so that no more than a
-    block's whole parameters are ever held."""
+    ``head`` (d, vocab) unless tied, ``first_blocks`` (a MoE config's
+    ``first_dense`` dense blocks; empty otherwise) and ``blocks`` (one
+    :class:`Block` a layer where JAX stacks each on a leading axis).  With
+    ``mesh`` each parameter is cut to this rank's shard
+    (:func:`shard_model`) as soon as its block (or the top-level leaves) is
+    made, so that no more than a block's whole parameters are ever held."""
 
     AXES = {"embed": ("vocab", "embed"), "head": ("embed", "vocab")}
 
@@ -221,11 +246,13 @@ class Transformer(nn.Module):
             self.head = ini.param((d, cfg.vocab))
         if specs is not None:
             _shard_params(self, "", specs, mesh)
-        self.blocks = nn.ModuleList()
-        for i in range(cfg.n_layers):
-            self.blocks.append(Block(ini, cfg))
-            if specs is not None:
-                _shard_params(self.blocks[i], f"blocks.{i}.", specs, mesh)
+        for stack, n in stack_sizes(cfg).items():
+            blocks = nn.ModuleList()
+            setattr(self, stack, blocks)
+            for i in range(n):
+                blocks.append(Block(ini, cfg, stack))
+                if specs is not None:
+                    _shard_params(blocks[i], f"{stack}.{i}.", specs, mesh)
 
 
 def init_model(cfg: ArchConfig, seed: int = 0, device="cuda",
@@ -267,16 +294,17 @@ def param_specs(cfg: ArchConfig, mesh) -> dict:
     return _specs(cfg, tuple(SH.shape_of(mesh).items()))
 
 
-def block_specs(cfg: ArchConfig, mesh) -> dict:
-    """The specs of a block's parameters, by their names in the block
-    (every block has the same)."""
-    return _block_specs(cfg, tuple(SH.shape_of(mesh).items()))
+def block_specs(cfg: ArchConfig, mesh, stack: str) -> dict:
+    """The specs of a block's parameters in ``stack``, by their names in
+    the block (every block of a stack has the same)."""
+    return _block_specs(cfg, tuple(SH.shape_of(mesh).items()), stack)
 
 
 @functools.lru_cache(maxsize=None)
-def _block_specs(cfg: ArchConfig, mesh_shape: tuple) -> dict:
-    return {n[len("blocks.0."):]: s for n, s in _specs(cfg, mesh_shape).items()
-            if n.startswith("blocks.0.")}
+def _block_specs(cfg: ArchConfig, mesh_shape: tuple, stack: str) -> dict:
+    first = f"{stack}.0."
+    return {n[len(first):]: s for n, s in _specs(cfg, mesh_shape).items()
+            if n.startswith(first)}
 
 
 @torch.no_grad()
@@ -286,7 +314,7 @@ def _shard_params(module: nn.Module, prefix: str, specs: dict, mesh: SH.Mesh) ->
     the full tensor is let go leaf by leaf)."""
     for name, p in list(module.named_parameters()):
         full = prefix + name
-        if full.startswith("blocks.") and not prefix:
+        if not prefix and cm.split_stacked(full):
             continue  # a block cuts its own
         *path, leaf = name.split(".")
         owner = module.get_submodule(".".join(path))
@@ -300,8 +328,9 @@ def shard_model(model: Transformer, mesh: SH.Mesh) -> Transformer:
     let go leaf by leaf); returns the model."""
     specs = param_specs(model.cfg, mesh)
     _shard_params(model, "", specs, mesh)
-    for i, block in enumerate(model.blocks):
-        _shard_params(block, f"blocks.{i}.", specs, mesh)
+    for stack in STACKS:
+        for i, block in enumerate(getattr(model, stack)):
+            _shard_params(block, f"{stack}.{i}.", specs, mesh)
     return model
 
 
@@ -378,13 +407,13 @@ def _cast_for_gather(named: dict, dtype: torch.dtype, names=None) -> dict:
             and not (grad and p.requires_grad) else p for n, p in named.items()}
 
 
-def _block_params(block: nn.Module, cfg: ArchConfig, run: RunCfg, dtype) -> dict:
+def _block_params(block: Block, cfg: ArchConfig, run: RunCfg, dtype) -> dict:
     """A block's parameters as :func:`_cast_f` gives them; on a mesh
-    gathered over the FSDP axes first."""
+    gathered over the FSDP axes first, by its stack's specs."""
     if run.mesh is None:
         return _cast_f(block, dtype)
     named = _cast_for_gather(dict(block.named_parameters()), dtype)
-    return _nest(_fsdp_gather(named, block_specs(cfg, run.mesh), run), dtype)
+    return _nest(_fsdp_gather(named, block_specs(cfg, run.mesh, block.stack), run), dtype)
 
 
 def _top_params(params: Transformer, cfg: ArchConfig, run: RunCfg) -> dict:
@@ -392,7 +421,7 @@ def _top_params(params: Transformer, cfg: ArchConfig, run: RunCfg) -> dict:
     kept); on a mesh gathered over the FSDP axes, in one exchange an
     axis, ``embed`` and ``head`` in the compute dtype where no gradient
     flows (their rows and product are cast to it after the gather)."""
-    named = {n: p for n, p in params.named_parameters() if not n.startswith("blocks.")}
+    named = {n: p for n, p in params.named_parameters() if not cm.split_stacked(n)}
     if run.mesh is not None:
         specs = {n: s for n, s in param_specs(cfg, run.mesh).items() if n in named}
         named = _fsdp_gather(_cast_for_gather(named, _dt(cfg), ("embed", "head")),
@@ -426,8 +455,11 @@ def attn_tp(cfg: ArchConfig, run: RunCfg, *, cache: bool = False) -> L.TP:
     ``cache``, the decode cache of :func:`cache_layout`)."""
     if run.mesh is None:
         return L.NO_TP
-    bs = block_specs(cfg, run.mesh)
+    bs = block_specs(cfg, run.mesh, "blocks")
     axes = _tp_axes(run, bs["attn.wq"][1])
+    if cfg.attn_kind == "mla":
+        # wq, w_uk, w_uv, wo by heads; the latents and the cache whole
+        return L.TP(axes=axes)
     kv = None
     if axes and not _tp_axes(run, bs["attn.wk"][1]):
         # query heads cut, kv heads whole: each local query head reads its
@@ -453,13 +485,17 @@ def attn_tp(cfg: ArchConfig, run: RunCfg, *, cache: bool = False) -> L.TP:
 
 @functools.lru_cache(maxsize=None)
 def mlp_tp(cfg: ArchConfig, run: RunCfg, prefix: str = "ff.") -> L.TP:
-    """How the model axes cut the MLP at ``prefix`` (a dense block's
-    ``ff``, a MoE block's shared MLP ``ff.shared``)."""
+    """How the model axes cut the MLP at ``prefix`` of a block (a dense
+    block's ``ff``, a MoE block's shared MLP ``ff.shared.``), by the specs
+    of the stack whose blocks hold it."""
     if run.mesh is None:
         return L.NO_TP
-    bs = block_specs(cfg, run.mesh)
-    name = prefix + ("wi_gate" if prefix + "wi_gate" in bs else "wi")
-    return L.TP(axes=_tp_axes(run, bs[name][1]))
+    for stack in STACKS:
+        bs = block_specs(cfg, run.mesh, stack)
+        for name in (prefix + "wi_gate", prefix + "wi"):
+            if name in bs:
+                return L.TP(axes=_tp_axes(run, bs[name][1]))
+    raise KeyError(f"no block of {cfg.name} has an MLP at {prefix!r}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -469,7 +505,7 @@ def expert_block(cfg: ArchConfig, run: RunCfg) -> tuple:
     where they are whole (one device, or experts that do not divide)."""
     if run.mesh is None:
         return (), 0, ()
-    bs = block_specs(cfg, run.mesh)
+    bs = block_specs(cfg, run.mesh, "blocks")
     axes = _tp_axes(run, bs["ff.experts.wi_gate"][0])
     first = 0
     if axes:
@@ -478,12 +514,24 @@ def expert_block(cfg: ArchConfig, run: RunCfg) -> tuple:
     return axes, first, _tp_axes(run, bs["ff.router"][1])
 
 
+def cache_shapes(cfg: ArchConfig, b: int, t: int) -> dict:
+    """The whole decode cache's shapes for ``b`` rows of ``t`` positions
+    (the reference's ``init_cache``): k and v (L, B, T, Hkv, Dh); MLA's k
+    the latents (L, B, T, kv_lora_rank) and v the RoPE keys (L, B, T,
+    qk_rope_dim), the first stack's layers before the rest."""
+    if cfg.attn_kind == "mla":
+        m = cfg.mla
+        return {"k": (cfg.n_layers, b, t, m.kv_lora_rank),
+                "v": (cfg.n_layers, b, t, m.qk_rope_dim)}
+    shape = (cfg.n_layers, b, t, cfg.n_kv_heads, cfg.head_dim_)
+    return {"k": shape, "v": shape}
+
+
 def cache_layout(cfg: ArchConfig, run: RunCfg, b: int) -> dict:
     """The decode cache's specs on ``run.mesh`` (the reference's
     ``cache_specs`` for a cache of ``b`` rows)."""
-    shape = (cfg.n_layers, b, 1, cfg.n_kv_heads, cfg.head_dim_)
-    meta = torch.empty(shape, device="meta")
-    return SH.cache_specs(run.mesh, {"k": meta, "v": meta}, cfg)
+    return SH.cache_specs(run.mesh, {k: torch.empty(s, device="meta") for k, s
+                                     in cache_shapes(cfg, b, 1).items()}, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -496,8 +544,8 @@ def _live_data_axes(run: RunCfg) -> tuple:
 
 
 def _ff_apply(p, cfg: ArchConfig, run: RunCfg, x):
-    """The block's feed-forward (``transformer.py:233``): the MLP, or the
-    MoE.  On a mesh, a MoE's router is gathered whole over the model axes
+    """The feed-forward of a block (``transformer.py:233``):
+    the MLP (a block without a router), or the MoE.  On a mesh, a MoE's router is gathered whole over the model axes
     (its gradient, a share on each rank, summed back by the gather's
     backward).  The expert-parallel path where the config's ``impl`` is
     ``"ep"``, the experts are cut over the model axes and the batch's rows
@@ -506,8 +554,8 @@ def _ff_apply(p, cfg: ArchConfig, run: RunCfg, x):
     rank its experts' share, summed over the model axes.  Where
     ``moe.routing`` replays a recorded run, its next expert choices (the
     global batch's) are cut to the rows this rank routes."""
-    if cfg.moe is None:
-        return L.apply_mlp(p, x, cfg.mlp_type, tp=mlp_tp(cfg, run))
+    if "router" not in p:
+        return L.apply_mlp(p, x, cfg.mlp_type, tp=mlp_tp(cfg, run, "ff."))
     m = moe_dims(cfg)
     pinned = MOE.next_pinned()  # the global batch's (B, S, k), or None
     if pinned is not None:
@@ -539,12 +587,21 @@ def _flat_rows(t):
 
 def _uniform_block_fwd(p, cfg: ArchConfig, run: RunCfg, x, positions):
     h = _apply_norm(p["ln1"], x, cfg)
-    a, kv = L.apply_attention(p["attn"], attn_dims(cfg), h, positions,
+    if cfg.attn_kind == "mla":
+        a, kv = MLA.apply_mla(p["attn"], mla_dims(cfg), h, positions,
                               plain=run.plain_attention, tp=attn_tp(cfg, run))
+    else:
+        a, kv = L.apply_attention(p["attn"], attn_dims(cfg), h, positions,
+                                  plain=run.plain_attention, tp=attn_tp(cfg, run))
     x = x + a
     h = _apply_norm(p["ln2"], x, cfg)
     x = x + _ff_apply(p["ff"], cfg, run, h)
     return x, kv
+
+
+def _layers(params: Transformer):
+    """Every layer's block in order: the cache's layers."""
+    return [block for stack in STACKS for block in getattr(params, stack)]
 
 
 def _embed_tokens(top: dict, cfg: ArchConfig, run: RunCfg, tokens):
@@ -655,35 +712,43 @@ def _scan_blocks(blocks, x, body, remat: bool):
 
 def block_forwards(cfg: ArchConfig, run: RunCfg) -> int:
     """Forward passes of the blocks in one training step (forward and
-    backward of :func:`lm_loss`): one a layer without remat; with it, a
-    layer's forward runs again for its own backward, and within a group of
+    backward of :func:`lm_loss`), summed over the stacks, each scanned on
+    its own as JAX does: one a layer without remat; with it, a layer's
+    forward runs again for its own backward, and within a group of
     several layers the group's recompute stops, as torch's checkpoint
     does by default, once it has the last layer's input."""
-    n = cfg.n_layers
-    if not (run.remat and cfg.remat):
-        return n
-    group = _remat_group(n)
-    if group <= 1 or group == n:
-        return 2 * n
-    return 3 * n - n // group
+    remat = run.remat and cfg.remat
+    total = 0
+    for n in stack_sizes(cfg).values():
+        group = _remat_group(n)
+        if not remat:
+            total += n
+        elif group <= 1 or group == n:
+            total += 2 * n
+        else:
+            total += 3 * n - n // group
+    return total
 
 
-def _cache_shape(cfg: ArchConfig, run: RunCfg, b: int, t: int) -> tuple:
-    """This rank's part of a (L, B, T, Hkv, Dh) cache, ``b`` its rows."""
-    shape = (cfg.n_layers, b, t, cfg.n_kv_heads, cfg.head_dim_)
+def _cache_shapes(cfg: ArchConfig, run: RunCfg, b: int, t: int) -> dict:
+    """This rank's part of the cache (:func:`cache_shapes`), ``b`` its
+    rows."""
+    shapes = cache_shapes(cfg, b, t)
     if run.mesh is None:
-        return shape
-    spec = cache_layout(cfg, run, b)["k"]
-    return shape[:3] + SH.local_shape(shape[3:], spec[3:], run.mesh)
+        return shapes
+    specs = cache_layout(cfg, run, b)
+    return {k: s[:3] + SH.local_shape(s[3:], specs[k][3:], run.mesh)
+            for k, s in shapes.items()}
 
 
 def forward(cfg: ArchConfig, run: RunCfg, params: Transformer, batch, *,
             collect_cache: bool = False, t_max: int = 0, last_only: bool = False):
     """Full-sequence forward over ``batch["tokens"]`` (B, S; on a mesh this
     rank's rows).  Returns (logits, cache|None): the cache holds every
-    layer's k and v, ``(L, B, max(S, t_max), Hkv, Dh)`` in the compute
-    dtype, zeros past S (JAX's stacked cache then ``pad_cache``, written in
-    one buffer; on a mesh this rank's part, :func:`cache_layout`).
+    layer's k and v (:func:`cache_shapes` at T = max(S, t_max); MLA's
+    c_kv and k_rope) in the compute dtype, zeros past S (JAX's stacked
+    caches concatenated, then ``pad_cache``, written in one buffer; on a
+    mesh this rank's part, :func:`cache_layout`).
     ``last_only`` computes the head on the last position only.  Without a
     cache and with grad enabled, the blocks are rematerialised where
     ``run.remat`` and ``cfg.remat`` are both on (:func:`_scan_blocks`).  On
@@ -697,21 +762,21 @@ def forward(cfg: ArchConfig, run: RunCfg, params: Transformer, batch, *,
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     cache = None
     if collect_cache:
-        shape = _cache_shape(cfg, run, b, max(s, t_max))
-        cache = {"k": torch.zeros(shape, dtype=cd, device=x.device),
-                 "v": torch.zeros(shape, dtype=cd, device=x.device)}
+        cache = {k: torch.zeros(shape, dtype=cd, device=x.device)
+                 for k, shape in _cache_shapes(cfg, run, b, max(s, t_max)).items()}
         ctp = attn_tp(cfg, run, cache=True)
-        for i, block in enumerate(params.blocks):
-            x, (k, v) = _uniform_block_fwd(_block_params(block, cfg, run, cd), cfg,
-                                           run, x, positions)
+        for i, block in enumerate(_layers(params)):
+            x, (k, v) = _uniform_block_fwd(_block_params(block, cfg, run, cd), cfg, run,
+                                           x, positions)
             cache["k"][i, :, :s] = L.cache_entry(k, ctp)
             cache["v"][i, :, :s] = L.cache_entry(v, ctp)
     else:
         def body(block, y):
-            return _uniform_block_fwd(_block_params(block, cfg, run, cd), cfg, run,
-                                      y, positions)[0]
+            return _uniform_block_fwd(_block_params(block, cfg, run, cd), cfg, run, y,
+                                      positions)[0]
         remat = run.remat and cfg.remat and torch.is_grad_enabled()
-        x = _scan_blocks(params.blocks, x, body, remat)
+        for stack in STACKS:
+            x = _scan_blocks(getattr(params, stack), x, body, remat)
     if last_only:
         x = x[:, -1:]
     x = _apply_norm(top["final_norm"], x, cfg)
@@ -761,23 +826,24 @@ def lm_loss(cfg: ArchConfig, run: RunCfg, params: Transformer, batch):
 
 def init_cache(cfg: ArchConfig, b: int, t_max: int, device="cuda",
                run: RunCfg | None = None):
-    """A zero decode cache: k, v (L, B, t_max, Hkv, Dh) and ``len`` 0 (on
-    a mesh this rank's part for its ``b`` rows)."""
+    """A zero decode cache: k and v of :func:`cache_shapes` at ``t_max``
+    and ``len`` 0 (on a mesh this rank's part for its ``b`` rows)."""
     check_supported(cfg)
     cd = _dt(cfg)
-    shape = _cache_shape(cfg, run or RunCfg(), b, t_max)
     dev = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=cd, device=dev),
-            "v": torch.zeros(shape, dtype=cd, device=dev), "len": 0}
+    out = {k: torch.zeros(shape, dtype=cd, device=dev)
+           for k, shape in _cache_shapes(cfg, run or RunCfg(), b, t_max).items()}
+    return dict(out, len=0)
 
 
 def pad_cache(cfg: ArchConfig, cache, s: int, t_max: int):
-    """Pad a prefill cache's time axis to t_max and set len=s."""
+    """Pad a prefill cache's time axis (dim 2, whatever the entries' rank:
+    5 for GQA, 4 for MLA) to t_max and set len=s."""
     out = dict(cache)
     for key in ("k", "v"):
         a = cache[key]
         out[key] = torch.nn.functional.pad(
-            a, (0, 0, 0, 0, 0, t_max - a.shape[2]))
+            a, (0, 0) * (a.ndim - 3) + (0, t_max - a.shape[2]))
     out["len"] = s
     return out
 
@@ -794,13 +860,16 @@ def decode_step(cfg: ArchConfig, run: RunCfg, params: Transformer, cache, tokens
     positions = torch.full((b, 1), clen, dtype=torch.long, device=tokens.device)
     top = _top_params(params, cfg, run)
     y = _embed_tokens(top, cfg, run, tokens)
-    a_dims = attn_dims(cfg)
     atp = attn_tp(cfg, run, cache=True)
-    for i, block in enumerate(params.blocks):
+    for i, block in enumerate(_layers(params)):
         bp = _block_params(block, cfg, run, cd)
         h = _apply_norm(bp["ln1"], y, cfg)
-        y = y + L.apply_attention_decode(bp["attn"], a_dims, h, cache["k"][i],
+        if cfg.attn_kind == "mla":
+            y = y + MLA.apply_mla_decode(bp["attn"], mla_dims(cfg), h, cache["k"][i],
                                          cache["v"][i], clen, positions, tp=atp)
+        else:
+            y = y + L.apply_attention_decode(bp["attn"], attn_dims(cfg), h, cache["k"][i],
+                                             cache["v"][i], clen, positions, tp=atp)
         h = _apply_norm(bp["ln2"], y, cfg)
         y = y + _ff_apply(bp["ff"], cfg, run, h)
     y = _apply_norm(top["final_norm"], y, cfg)

@@ -534,3 +534,67 @@ def test_moe_top_k_on_card_takes_the_lower_index_first(cuda):
     assert torch.equal(i.cpu(), i_cpu) and torch.equal(v.cpu(), v_cpu)
     e = torch.randint(0, 128, (4096 * 8,), generator=g)
     assert torch.equal(MOE.arrival(e.to(cuda), 128).cpu(), MOE.arrival(e, 128))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_at_mla_head_width(cuda, no_tf32, dtype):
+    # deepseek-v2-lite's decompressed MLA prefill: 16 heads on 16 at D=192
+    # (nope 128 + rope 64; v zero-padded to 192), the bf16 tiles at DP=256
+    g = torch.Generator(device=cuda).manual_seed(192)
+    q, k, v = (torch.randn(2, 512, 16, 192, device=cuda, generator=g).to(dtype)
+               for _ in range(3))
+    before, pads = attention.launches, attention.pad_copies
+    got = attention.flash_attention(q, k, v, causal=True)
+    assert (attention.launches, attention.pad_copies) == (before + 1, pads)
+    want = attention.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.bfloat16:
+        gap = attention.bf16_gap(got, want)
+        assert gap["ok"], gap
+    else:
+        torch.testing.assert_close(got, want, rtol=FLASH_TOL_F32, atol=FLASH_TOL_F32)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_mla_decompressed_on_kernel_matches_the_latent_form(cuda, no_tf32, dtype, tol):
+    # one MLA layer at deepseek-v2-lite's widths (d 2048, 16 heads, kv_lora
+    # 512, nope 128, rope 64, v 128), B=2, S=512: the main path's form on
+    # the kernel against the reference's latent form in plain torch
+    from repro_torch.models import mla as MLA
+    from repro_torch.models import common as cm
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    m = T.mla_dims(cfg)
+    layer = MLA.MLA(cm.Initializer(torch.Generator(device=cuda).manual_seed(3),
+                                   torch.float32, cuda), m)
+    p = {n: w.to(dtype) for n, w in layer.named_parameters()}
+    x = torch.randn(2, 512, cfg.d_model, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(4)).to(dtype)
+    pos = torch.arange(512, device=cuda)[None].expand(2, 512)
+    launches, plain, pads = attention.launches, attention.plain_calls, attention.pad_copies
+    got, (c, k) = MLA.apply_mla(p, m, x, pos)
+    assert (attention.launches, attention.plain_calls, attention.pad_copies) == \
+        (launches + 1, plain, pads)
+    want, (c2, k2) = MLA.apply_mla_latent(p, m, x, pos)
+    assert torch.equal(c, c2) and torch.equal(k, k2)
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert bool(torch.isfinite(got).all()) and float(err) <= tol
+
+
+def test_mla_model_on_card_launches_the_kernel_once_a_layer(cuda):
+    # deepseek-v2-lite at full width cut to 2 layers (the dense first block
+    # and one MoE block), bf16: a prefill launches the kernel once a layer
+    # at D=192, reads every operand in place, and decodes over the cache
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"), n_layers=2)
+    model = T.init_model(cfg, seed=0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 256), generator=torch.Generator().manual_seed(5))
+    launches, plain, pads = attention.launches, attention.plain_calls, attention.pad_copies
+    logits, cache = T.prefill(cfg, T.RunCfg(), model, {"tokens": tokens.to(cuda)}, t_max=260)
+    assert (attention.launches, attention.plain_calls, attention.pad_copies) == \
+        (launches + 2, plain, pads)
+    assert tuple(cache["k"].shape) == (2, 2, 260, 512)
+    assert tuple(cache["v"].shape) == (2, 2, 260, 64)
+    logits, cache = T.decode_step(cfg, T.RunCfg(), model, cache,
+                                  logits[:, -1].argmax(-1)[:, None])
+    assert cache["len"] == 257 and torch.isfinite(logits).all()

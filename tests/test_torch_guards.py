@@ -271,7 +271,6 @@ def test_what_this_slice_leaves_out_names_its_roadmap_item():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--arch", "deepseek-v2-lite-16b"], "Queue 1 item 11"),     # MLA + MoE
     (["--arch", "rwkv6-3b"], "Queue 1 item 11"),                 # RWKV
     (["--arch", "jamba-1.5-large-398b"], "Queue 1 item 11"),     # hybrid
     (["--arch", "whisper-small"], "Queue 1 item 11"),            # encdec
@@ -290,6 +289,15 @@ def test_serve_runs_the_moe_slice(capsys):
     assert "prefill 32 tokens x4" in out and "decode  15 steps" in out and "sample:" in out
 
 
+def test_serve_runs_the_mla_slice(capsys):
+    # deepseek-v2-lite (MLA, a leading dense block, shared experts), refused
+    # until the MLA slice, serves and prints its lines
+    toks = serve.main(["--arch", "deepseek-v2-lite-16b", "--smoke", "--device", "cpu"])
+    assert toks.shape == (4, 16)
+    out = capsys.readouterr().out
+    assert "prefill 32 tokens x4" in out and "decode  15 steps" in out and "sample:" in out
+
+
 def test_serve_runs_a_mesh():
     # the arguments refused until the sharding slice: 2 rank processes
     argv = ["--smoke", "--device", "cpu"]
@@ -298,7 +306,6 @@ def test_serve_runs_a_mesh():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--arch", "deepseek-v2-lite-16b"],                          # MLA + MoE
     ["--arch", "rwkv6-3b"],                                      # RWKV
 ])
 def test_train_refuses_what_is_not_ported(argv):
@@ -309,6 +316,14 @@ def test_train_refuses_what_is_not_ported(argv):
 def test_train_runs_the_moe_slice(capsys):
     # qwen3-moe, refused until the MoE slice, trains and prints its lines
     losses = train.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--device", "cpu",
+                         "--steps", "2", "--batch", "2", "--seq", "16", "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert len(losses) == 2 and "step     0 loss" in out and "[done]" in out
+
+
+def test_train_runs_the_mla_slice(capsys):
+    # deepseek-v2-lite, refused until the MLA slice, trains and prints its lines
+    losses = train.main(["--arch", "deepseek-v2-lite-16b", "--smoke", "--device", "cpu",
                          "--steps", "2", "--batch", "2", "--seq", "16", "--log-every", "1"])
     out = capsys.readouterr().out
     assert len(losses) == 2 and "step     0 loss" in out and "[done]" in out
