@@ -140,6 +140,13 @@ def batch_spec(mesh, ndim: int, rules=None) -> tuple:
     return (lead,) + (None,) * (ndim - 1)
 
 
+def cache_batch_axes(mesh, rules=None) -> tuple:
+    """The mesh axes :func:`cache_specs` cuts a cache's batch over (or,
+    with ``seq_shard``, its time axis), in order."""
+    rules = rules or ACT_RULES
+    return tuple(a for a in rules.get("batch", ("data",)) if a in shape_of(mesh))
+
+
 def cache_specs(mesh, cache_shapes, cfg, *, seq_shard: bool = False, rules=None):
     """Decode-cache specs: batch over (pod, data), kv heads over model if
     divisible, else head_dim over model if that divides (the reference's
@@ -149,7 +156,7 @@ def cache_specs(mesh, cache_shapes, cfg, *, seq_shard: bool = False, rules=None)
     to a non-array, e.g. ``len``)."""
     rules = rules or ACT_RULES
     mshape = shape_of(mesh)
-    b_axes = tuple(a for a in rules.get("batch", ("data",)) if a in mshape)
+    b_axes = cache_batch_axes(mesh, rules)
     b_lead = b_axes if len(b_axes) > 1 else (b_axes[0] if b_axes else None)
 
     def one(name, sh):

@@ -24,7 +24,13 @@ lie over ``model``, its dispatch and combine all-to-alls over it
 (:mod:`repro_torch.models.moe`); deepseek-v2-lite's MLA cuts its heads
 over ``model`` and keeps the compressed cache (c_kv and k_rope a token,
 :mod:`repro_torch.models.mla`) whole there; a batch whose rows do not
-divide over ``data`` lies whole on every rank::
+divide over ``data`` lies whole on every rank.
+
+The int8 KV cache and the sequence-sharded decode take no flag, as in the
+reference: :func:`generate` serves a config with ``kv_quant`` from an int8
+cache (``dataclasses.replace(cfg, kv_quant=True)``), and on a mesh a
+``RunCfg`` with ``seq_shard_kv`` cuts the cache's time axis over ``data``
+(the batch then whole on every rank)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --smoke --device cpu --mesh 2x2

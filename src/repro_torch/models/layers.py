@@ -21,11 +21,12 @@ the specs): column-parallel ``wq``/``wk``/``wv``/``wi_*`` behind
 places the same collectives in the reference.  A decode cache whose
 head_dim the model axes cut (kv heads that do not divide) takes partial
 q·k scores, all-reduced before the softmax, and gathers the output's
-head_dim before ``wo``.
+head_dim before ``wo``.  :func:`decode_attention_seqsharded` is the
+sequence-sharded decode's log-sum-exp combine over a cache whose time
+axis the data axes cut.
 
-Not ported here: ``apply_cross_attention`` (Whisper) and
-``decode_attention_seqsharded`` (the sequence-sharded ``long_500k``
-decode), ROADMAP Queue 1 item 11.
+Not ported here: ``apply_cross_attention`` (Whisper), ROADMAP Queue 1
+item 11.
 """
 
 from __future__ import annotations
@@ -320,12 +321,18 @@ def apply_attention_decode(p, a: AttnDims, x, cache_k, cache_v, cache_len: int,
         raise ValueError(f"cache position {cache_len} outside its {t} slots")
     cache_k[:, cache_len:cache_len + 1] = cache_entry(k, tp).to(cache_k.dtype)
     cache_v[:, cache_len:cache_len + 1] = cache_entry(v, tp).to(cache_v.dtype)
-    valid = (torch.arange(t, device=x.device)[None, :] <= cache_len)[None, None, None]
-    ck, cv = cache_k, cache_v
+    return decode_attend(p, a, q, cache_k, cache_v, cache_len, tp)
+
+
+def decode_attend(p, a: AttnDims, q, ck, cv, cache_len: int, tp: TP = NO_TP):
+    """One query token q (B, 1, H, D) over the caches ``ck``, ``cv`` (B, T,
+    Hkv, D; this rank's part on a mesh), their entries up to
+    ``cache_len`` valid, then ``wo`` (row-parallel over ``tp.axes``)."""
+    t = ck.shape[1]
+    valid = (torch.arange(t, device=q.device)[None, :] <= cache_len)[None, None, None]
     if tp.cache_dim == 4 and not tp.axes:
         lo, hi = tp.cache_block
-        o = _sdpa_head_dim_cut(q[..., lo:hi], ck, cv, tp.cache_axes, valid,
-                               a.head_dim)
+        o = _sdpa_head_dim_cut(q[..., lo:hi], ck, cv, tp.cache_axes, valid, a.head_dim)
     else:
         if tp.cache_dim == 4:  # query heads cut too: the whole head_dim here
             ck, cv = (C.all_gather(c[:, :cache_len + 1], tp.cache_axes, dim=-1)
@@ -333,3 +340,39 @@ def apply_attention_decode(p, a: AttnDims, x, cache_k, cache_v, cache_len: int,
             valid = valid[..., :cache_len + 1]
         o = _sdpa_direct(q, _read_kv(ck, tp.kv), _read_kv(cv, tp.kv), a, mask=valid)
     return C.reduce_from(torch.einsum("bshd,hdm->bsm", o, p["wo"]), tp.axes)
+
+
+def decode_attention_seqsharded(q, k_shard, v_shard, local_valid, axes, *,
+                                cut_axes=(), d_full: int | None = None):
+    """Flash-decoding across mesh ``axes``: the cache's time axis cut over
+    them, the slabs' softmaxes combined by log-sum-exp
+    (``repro/models/layers.py:259``).
+
+    q: (B, 1, H, D), the same on every rank of ``axes``; ``k_shard``,
+    ``v_shard``: (B, T_loc, Hkv, D), this rank's slab; ``local_valid``:
+    (B, T_loc) bool.  f32 logits, ``-1e30`` where not valid, the global
+    max all-reduced over ``axes``, then each slab's sum of weights ``l``
+    and weighted values ``o`` (f32) summed over them in one exchange.
+    ``cut_axes``: mesh axes that cut D (q, k and v hold this rank's block
+    of it): the scores are partial sums, all-reduced over them (f32)
+    before the mask, and scaled by 1/sqrt(``d_full``); the output is this
+    rank's block of D."""
+    b, s, h, d = q.shape
+    hkv = k_shard.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, s, hkv, g, d)
+    if cut_axes:
+        qg, k_shard = qg.float(), k_shard.float()
+    logits = torch.einsum("bshgd,bthd->bhgst", qg, k_shard).float()
+    if cut_axes:
+        logits = C.all_reduce(logits, cut_axes, "sum")
+    logits = logits / torch.sqrt(torch.tensor(float(d_full or d), dtype=torch.float32))
+    logits = logits.masked_fill(~local_valid[:, None, None, None, :], -1e30)
+    m = C.all_reduce(logits.amax(-1), axes, "max")                    # (b,hkv,g,s)
+    w = torch.exp(logits - m[..., None])
+    l_loc = w.sum(-1)
+    o_loc = torch.einsum("bhgst,bthd->bshgd", w.to(v_shard.dtype), v_shard)
+    l_glob, o_glob = C.all_reduce_packed([l_loc, o_loc.float()], axes, "sum")
+    lg = l_glob.permute(0, 3, 1, 2)[..., None]                        # (b,s,hkv,g,1)
+    out = (o_glob / torch.clamp(lg, min=1e-30)).to(q.dtype)
+    return out.reshape(b, s, h, d)

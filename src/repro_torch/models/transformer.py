@@ -35,10 +35,21 @@ batch and the shares are summed over ``model`` (:func:`_ff_apply`).  A
 batch whose rows do not divide over the data axes (B=1 decode on 2x2)
 lies whole on every rank (``RunCfg.split_batch``), as GSPMD replicates it.
 
+The decode cache holds k and v in the compute dtype, or with the config's
+``kv_quant`` (a GQA model) int8 with an f32 scale a (token, head)
+(:mod:`repro_torch.models.kvquant`): the prefill quantizes each layer's
+entries as it writes them, the decode dequantizes a layer's cache, splices
+the new token in unquantized, attends, and quantizes only the new entry
+(the reference's ``bodyq``).  With ``RunCfg.seq_shard_kv`` on a mesh the
+cache's time axis is cut over the data axes and the batch lies whole on
+every rank: the prefill keeps this rank's time slab, the decode writes the
+new entry where its slab holds it and combines the slabs' softmaxes by
+log-sum-exp (:func:`_attn_decode`,
+:func:`repro_torch.models.layers.decode_attention_seqsharded`).
+
 Configs outside this path raise ``NotImplementedError`` naming ROADMAP
 Queue 1 item 11: RWKV, the Jamba hybrid (MoE every other layer), Whisper's
-encoder–decoder, the VLM ``embeds`` input, the int8 KV cache
-(``kv_quant``) and the sequence-sharded decode (``seq_shard_kv``).
+encoder–decoder and the VLM ``embeds`` input.
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding as SH
 from repro_torch.models import common as cm
+from repro_torch.models import kvquant as KQ
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
@@ -80,13 +92,16 @@ class RunCfg:
     ``split_batch`` (on a mesh): the batch's rows are cut over the data
     axes; off, every rank holds the whole batch (serving a batch that does
     not divide over them, :func:`batch_run`; :func:`local_rows` and
-    :func:`gather_rows` then keep it whole).  The reference's ``seq_shard_kv`` (the
-    sequence-sharded decode) is not ported."""
+    :func:`gather_rows` then keep it whole).  ``seq_shard_kv`` (on a mesh;
+    nothing without one, as the reference's): the sequence-sharded decode,
+    the GQA cache's time axis cut over the data axes (``cache_specs``), the
+    batch whole on every rank (:func:`batch_run`)."""
     mesh: SH.Mesh | None = None
     per_pod: bool = False
     plain_attention: bool = False
     remat: bool = True
     split_batch: bool = True
+    seq_shard_kv: bool = False
 
     def __post_init__(self):
         if self.mesh is not None and not isinstance(self.mesh, SH.Mesh):
@@ -119,12 +134,21 @@ def check_supported(cfg: ArchConfig) -> None:
         left.append("encoder-decoder")
     if cfg.embed_mode != "tokens":
         left.append(f"embed_mode {cfg.embed_mode!r}")
-    if cfg.kv_quant:
-        left.append("the int8 KV cache (kv_quant)")
     if left:
         raise NotImplementedError(
             f"{cfg.arch_id}: {', '.join(left)} not ported yet ({LM_ITEM}); the "
             "port runs the uniform decoder, dense or MoE, GQA or MLA")
+    if _quantized(cfg) and stack_sizes(cfg)["first_blocks"]:
+        raise ValueError(
+            f"{cfg.arch_id}: the int8 KV cache (kv_quant) with first_dense leading "
+            "blocks: the reference's decode takes its float branch there and casts "
+            "the new entries to int8 unscaled; no config has it")
+
+
+def _quantized(cfg: ArchConfig) -> bool:
+    """The decode cache is int8 with scales: ``kv_quant`` on a GQA model
+    (MLA keeps its compressed cache, as the reference's ``init_cache``)."""
+    return cfg.kv_quant and cfg.attn_kind == "gqa"
 
 
 def _dt(cfg: ArchConfig) -> torch.dtype:
@@ -516,22 +540,50 @@ def expert_block(cfg: ArchConfig, run: RunCfg) -> tuple:
 
 def cache_shapes(cfg: ArchConfig, b: int, t: int) -> dict:
     """The whole decode cache's shapes for ``b`` rows of ``t`` positions
-    (the reference's ``init_cache``): k and v (L, B, T, Hkv, Dh); MLA's k
-    the latents (L, B, T, kv_lora_rank) and v the RoPE keys (L, B, T,
-    qk_rope_dim), the first stack's layers before the rest."""
+    (the reference's ``init_cache``): k and v (L, B, T, Hkv, Dh), with
+    ``kv_quant`` also their scales ``k_scale``, ``v_scale`` (L, B, T, Hkv,
+    1); MLA's k the latents (L, B, T, kv_lora_rank) and v the RoPE keys
+    (L, B, T, qk_rope_dim), the first stack's layers before the rest."""
     if cfg.attn_kind == "mla":
         m = cfg.mla
         return {"k": (cfg.n_layers, b, t, m.kv_lora_rank),
                 "v": (cfg.n_layers, b, t, m.qk_rope_dim)}
     shape = (cfg.n_layers, b, t, cfg.n_kv_heads, cfg.head_dim_)
-    return {"k": shape, "v": shape}
+    out = {"k": shape, "v": shape}
+    if _quantized(cfg):
+        out.update(k_scale=shape[:4] + (1,), v_scale=shape[:4] + (1,))
+    return out
 
 
-def cache_layout(cfg: ArchConfig, run: RunCfg, b: int) -> dict:
+def cache_dtypes(cfg: ArchConfig) -> dict:
+    """Each cache entry's dtype: the compute dtype; with ``kv_quant`` int8
+    k and v and f32 scales."""
+    if _quantized(cfg):
+        return {"k": torch.int8, "v": torch.int8, "k_scale": torch.float32,
+                "v_scale": torch.float32}
+    return {"k": _dt(cfg), "v": _dt(cfg)}
+
+
+def cache_layout(cfg: ArchConfig, run: RunCfg, b: int, t: int = 1) -> dict:
     """The decode cache's specs on ``run.mesh`` (the reference's
-    ``cache_specs`` for a cache of ``b`` rows)."""
-    return SH.cache_specs(run.mesh, {k: torch.empty(s, device="meta") for k, s
-                                     in cache_shapes(cfg, b, 1).items()}, cfg)
+    ``cache_specs`` for a cache of ``b`` rows and ``t`` positions, its
+    time axis cut where :func:`time_cut` cuts it)."""
+    shapes = {k: torch.empty(s, device="meta") for k, s in cache_shapes(cfg, b, t).items()}
+    return SH.cache_specs(run.mesh, shapes, cfg,
+                          seq_shard=time_cut(cfg, run) is not None)
+
+
+def time_cut(cfg: ArchConfig, run: RunCfg):
+    """``(axes, index, count)`` of this rank's slab of the cache's time
+    axis where ``run.seq_shard_kv`` cuts it (the data axes of
+    ``cache_specs``, a GQA cache: MLA's compressed cache stays whole, as
+    the reference's MLA decode never takes the sequence-sharded path);
+    None where it is whole."""
+    if not run.seq_shard_kv or run.mesh is None or cfg.attn_kind != "gqa":
+        return None
+    axes = SH.cache_batch_axes(run.mesh)
+    idx, count = SH.shard_index(axes, run.mesh)
+    return (axes, idx, count) if count > 1 else None
 
 
 # ---------------------------------------------------------------------------
@@ -648,12 +700,15 @@ def gather_rows(x, run: RunCfg):
 
 def batch_run(run: RunCfg, b: int) -> RunCfg:
     """``run`` for a batch of ``b`` rows: with ``split_batch`` off where
-    they do not divide over the data axes (every rank then holds them
-    all)."""
+    they do not divide over the data axes or the cache's time axis lies
+    over them (``seq_shard_kv``; the reference's ``P()`` batch): every rank
+    then holds them all."""
     if run.mesh is None:
         return run
     count = math.prod(run.mesh.shape[a] for a in run.data_axes if a in run.mesh.shape)
-    return run if b % count == 0 else dataclasses.replace(run, split_batch=False)
+    if b % count == 0 and not run.seq_shard_kv:
+        return run
+    return dataclasses.replace(run, split_batch=False)
 
 
 def local_rows(x, run: RunCfg, axes=None):
@@ -732,13 +787,36 @@ def block_forwards(cfg: ArchConfig, run: RunCfg) -> int:
 
 def _cache_shapes(cfg: ArchConfig, run: RunCfg, b: int, t: int) -> dict:
     """This rank's part of the cache (:func:`cache_shapes`), ``b`` its
-    rows."""
+    rows, ``t`` the whole cache's positions."""
     shapes = cache_shapes(cfg, b, t)
     if run.mesh is None:
         return shapes
-    specs = cache_layout(cfg, run, b)
-    return {k: s[:3] + SH.local_shape(s[3:], specs[k][3:], run.mesh)
+    cut = time_cut(cfg, run)
+    if cut is not None and t % cut[2]:
+        raise ValueError(f"a sequence-sharded cache of {t} positions does not divide "
+                         f"over {cut[0]} ({cut[2]} ranks)")
+    specs = cache_layout(cfg, run, b, t)
+    return {k: s[:2] + SH.local_shape(s[2:], specs[k][2:], run.mesh)
             for k, s in shapes.items()}
+
+
+def _write_entries(cache: dict, i: int, at: slice, k, v, tp: L.TP) -> None:
+    """Write computed ``k``, ``v`` (B, S, ...) into layer ``i`` of
+    ``cache`` at positions ``at`` of this rank's slab: their part
+    (:func:`repro_torch.models.layers.cache_entry`), quantized where the
+    cache is int8.  Where the model axes cut the head_dim, each row's
+    max|x| is all-reduced (max) over them first, so that every rank holds
+    the whole row's scale (every rank of those axes calls this)."""
+    k, v = L.cache_entry(k, tp), L.cache_entry(v, tp)
+    if "k_scale" not in cache:
+        cache["k"][i, :, at], cache["v"][i, :, at] = k, v
+        return
+    amax = [KQ.amax(k), KQ.amax(v)]
+    if tp.cache_dim == 4:
+        amax = C.all_reduce_packed(amax, tp.cache_axes, "max")
+    (kq, ks), (vq, vs) = KQ.quantize(k, amax[0]), KQ.quantize(v, amax[1])
+    cache["k"][i, :, at], cache["k_scale"][i, :, at] = kq, ks
+    cache["v"][i, :, at], cache["v_scale"][i, :, at] = vq, vs
 
 
 def forward(cfg: ArchConfig, run: RunCfg, params: Transformer, batch, *,
@@ -746,9 +824,11 @@ def forward(cfg: ArchConfig, run: RunCfg, params: Transformer, batch, *,
     """Full-sequence forward over ``batch["tokens"]`` (B, S; on a mesh this
     rank's rows).  Returns (logits, cache|None): the cache holds every
     layer's k and v (:func:`cache_shapes` at T = max(S, t_max); MLA's
-    c_kv and k_rope) in the compute dtype, zeros past S (JAX's stacked
-    caches concatenated, then ``pad_cache``, written in one buffer; on a
-    mesh this rank's part, :func:`cache_layout`).
+    c_kv and k_rope) in the compute dtype, or int8 with their scales
+    (``kv_quant``: each layer's entries quantized as they are written),
+    zeros past S (JAX's stacked caches concatenated, then ``pad_cache``,
+    written in one buffer; on a mesh this rank's part, :func:`cache_layout`,
+    with ``seq_shard_kv`` its time slab of the whole prompt's).
     ``last_only`` computes the head on the last position only.  Without a
     cache and with grad enabled, the blocks are rematerialised where
     ``run.remat`` and ``cfg.remat`` are both on (:func:`_scan_blocks`).  On
@@ -762,14 +842,20 @@ def forward(cfg: ArchConfig, run: RunCfg, params: Transformer, batch, *,
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     cache = None
     if collect_cache:
-        cache = {k: torch.zeros(shape, dtype=cd, device=x.device)
-                 for k, shape in _cache_shapes(cfg, run, b, max(s, t_max)).items()}
+        t = max(s, t_max)
+        dtypes = cache_dtypes(cfg)
+        cache = {k: torch.zeros(shape, dtype=dtypes[k], device=x.device)
+                 for k, shape in _cache_shapes(cfg, run, b, t).items()}
         ctp = attn_tp(cfg, run, cache=True)
+        # the prompt's positions in this rank's time slab
+        cut = time_cut(cfg, run)
+        lo = 0 if cut is None else cut[1] * (t // cut[2])
+        hi = min(lo + cache["k"].shape[2], s)
         for i, block in enumerate(_layers(params)):
             x, (k, v) = _uniform_block_fwd(_block_params(block, cfg, run, cd), cfg, run,
                                            x, positions)
-            cache["k"][i, :, :s] = L.cache_entry(k, ctp)
-            cache["v"][i, :, :s] = L.cache_entry(v, ctp)
+            if hi > lo:
+                _write_entries(cache, i, slice(0, hi - lo), k[:, lo:hi], v[:, lo:hi], ctp)
     else:
         def body(block, y):
             return _uniform_block_fwd(_block_params(block, cfg, run, cd), cfg, run, y,
@@ -826,31 +912,108 @@ def lm_loss(cfg: ArchConfig, run: RunCfg, params: Transformer, batch):
 
 def init_cache(cfg: ArchConfig, b: int, t_max: int, device="cuda",
                run: RunCfg | None = None):
-    """A zero decode cache: k and v of :func:`cache_shapes` at ``t_max``
-    and ``len`` 0 (on a mesh this rank's part for its ``b`` rows)."""
+    """A zero decode cache: the entries of :func:`cache_shapes` at ``t_max``
+    (:func:`cache_dtypes`) and ``len`` 0 (on a mesh this rank's part for
+    its ``b`` rows)."""
     check_supported(cfg)
-    cd = _dt(cfg)
+    dtypes = cache_dtypes(cfg)
     dev = resolve_device(device)
-    out = {k: torch.zeros(shape, dtype=cd, device=dev)
+    out = {k: torch.zeros(shape, dtype=dtypes[k], device=dev)
            for k, shape in _cache_shapes(cfg, run or RunCfg(), b, t_max).items()}
     return dict(out, len=0)
 
 
 def pad_cache(cfg: ArchConfig, cache, s: int, t_max: int):
     """Pad a prefill cache's time axis (dim 2, whatever the entries' rank:
-    5 for GQA, 4 for MLA) to t_max and set len=s."""
+    5 for GQA, 4 for MLA) to t_max and set len=s: every entry, the int8
+    cache's scales too (the reference pads k and v only)."""
     out = dict(cache)
-    for key in ("k", "v"):
-        a = cache[key]
-        out[key] = torch.nn.functional.pad(
-            a, (0, 0) * (a.ndim - 3) + (0, t_max - a.shape[2]))
+    for key, a in cache.items():
+        if key != "len":
+            out[key] = torch.nn.functional.pad(
+                a, (0, 0) * (a.ndim - 3) + (0, t_max - a.shape[2]))
     out["len"] = s
+    return out
+
+
+def _attn_decode(p, cfg: ArchConfig, run: RunCfg, x, ck, cv, clen: int, positions,
+                 tp: L.TP):
+    """GQA decode of one layer over its cache ``ck``, ``cv`` (this rank's
+    part), updated in place (``repro/models/transformer.py:537``).  With
+    the cache's time axis cut (:func:`time_cut`): the new entry written
+    where this rank's slab holds position ``clen``, each slab attended
+    under its ``valid`` mask and the slabs combined over the data axes
+    (:func:`repro_torch.models.layers.decode_attention_seqsharded`).  Where
+    the model axes cut the head_dim, the partial scores are all-reduced
+    over them before the mask and the max, and the output's head_dim
+    gathered; where they cut the query heads too, the slabs' head_dim is
+    gathered first."""
+    a = attn_dims(cfg)
+    cut = time_cut(cfg, run)
+    if cut is None:
+        return L.apply_attention_decode(p, a, x, ck, cv, clen, positions, tp=tp)
+    axes, r, count = cut
+    q, k, v = L._qkv(p, a, C.copy_to(x, tp.axes), positions)  # s == 1
+    b, tl = q.shape[0], ck.shape[1]
+    if not 0 <= clen < tl * count:
+        raise ValueError(f"cache position {clen} outside its {tl * count} slots")
+    start = r * tl
+    off = clen - start
+    if 0 <= off < tl:
+        ck[:, off:off + 1] = L.cache_entry(k, tp).to(ck.dtype)
+        cv[:, off:off + 1] = L.cache_entry(v, tp).to(cv.dtype)
+    valid = (start + torch.arange(tl, device=q.device) <= clen)[None, :].expand(b, tl)
+    if tp.cache_dim == 4 and not tp.axes:
+        lo, hi = tp.cache_block
+        o = L.decode_attention_seqsharded(q[..., lo:hi], ck, cv, valid, axes,
+                                          cut_axes=tp.cache_axes, d_full=a.head_dim)
+        o = C.all_gather(o, tp.cache_axes, dim=-1)
+    else:
+        if tp.cache_dim == 4:  # query heads cut too: the whole head_dim here
+            ck, cv = (C.all_gather(c, tp.cache_axes, dim=-1) for c in (ck, cv))
+        o = L.decode_attention_seqsharded(q, L._read_kv(ck, tp.kv), L._read_kv(cv, tp.kv),
+                                          valid, axes)
+    return C.reduce_from(torch.einsum("bshd,hdm->bsm", o, p["wo"]), tp.axes)
+
+
+def _attn_decode_int8(p, cfg: ArchConfig, run: RunCfg, x, cache: dict, i: int,
+                      clen: int, positions, tp: L.TP):
+    """GQA decode of layer ``i`` over the int8 cache, updated in place: the
+    reference's ``bodyq`` (``repro/models/transformer.py:680–722``) in its
+    order.  The layer's whole cache dequantized to the compute dtype, the
+    new token's k and v spliced in unquantized at ``clen`` (this token
+    attends to its own full-precision entry), the attention under the
+    ``valid`` mask over all T, then only the new entry quantized and
+    written.  The sequence-sharded decode is never taken (``kv_quant``
+    comes first in the reference): a time-cut cache's slabs are gathered
+    over the data axes to be read, and the new entry lands in the slab
+    that holds ``clen``."""
+    a = attn_dims(cfg)
+    cd = _dt(cfg)
+    q, knew, vnew = L._qkv(p, a, C.copy_to(x, tp.axes), positions)  # s == 1
+    names = ("k", "v", "k_scale", "v_scale")
+    slabs = [cache[n][i] for n in names]
+    cut = time_cut(cfg, run)
+    if cut is not None:
+        slabs = C.gather_packed(slabs, [1] * len(names), cut[0])
+    ck = KQ.dequantize(slabs[0], slabs[2], cd)
+    cv = KQ.dequantize(slabs[1], slabs[3], cd)
+    t = ck.shape[1]
+    if not 0 <= clen < t:
+        raise ValueError(f"cache position {clen} outside its {t} slots")
+    ck[:, clen:clen + 1] = L.cache_entry(knew, tp).to(cd)
+    cv[:, clen:clen + 1] = L.cache_entry(vnew, tp).to(cd)
+    out = L.decode_attend(p, a, q, ck, cv, clen, tp)
+    tl = cache["k"].shape[2]
+    off = clen - (0 if cut is None else cut[1] * tl)
+    if 0 <= off < tl:  # the same on every rank of the model axes
+        _write_entries(cache, i, slice(off, off + 1), knew, vnew, tp)
     return out
 
 
 def decode_step(cfg: ArchConfig, run: RunCfg, params: Transformer, cache, tokens):
     """One greedy-decode step. tokens: (B, 1) (on a mesh this rank's
-    rows).  Returns (logits, cache); the cache's k and v are updated in
+    rows).  Returns (logits, cache); the cache's entries are updated in
     place, ``len`` grows by one.  On a vocab block the logits are this
     rank's block of the vocab."""
     check_supported(cfg)
@@ -867,14 +1030,16 @@ def decode_step(cfg: ArchConfig, run: RunCfg, params: Transformer, cache, tokens
         if cfg.attn_kind == "mla":
             y = y + MLA.apply_mla_decode(bp["attn"], mla_dims(cfg), h, cache["k"][i],
                                          cache["v"][i], clen, positions, tp=atp)
+        elif _quantized(cfg):
+            y = y + _attn_decode_int8(bp["attn"], cfg, run, h, cache, i, clen, positions,
+                                      atp)
         else:
-            y = y + L.apply_attention_decode(bp["attn"], attn_dims(cfg), h, cache["k"][i],
-                                             cache["v"][i], clen, positions, tp=atp)
+            y = y + _attn_decode(bp["attn"], cfg, run, h, cache["k"][i], cache["v"][i],
+                                 clen, positions, atp)
         h = _apply_norm(bp["ln2"], y, cfg)
         y = y + _ff_apply(bp["ff"], cfg, run, h)
     y = _apply_norm(top["final_norm"], y, cfg)
-    return _head_out(top, cfg, run, y), {"k": cache["k"], "v": cache["v"],
-                                         "len": clen + 1}
+    return _head_out(top, cfg, run, y), dict(cache, len=clen + 1)
 
 
 def prefill(cfg: ArchConfig, run: RunCfg, params: Transformer, batch,

@@ -598,3 +598,29 @@ def test_mla_model_on_card_launches_the_kernel_once_a_layer(cuda):
     logits, cache = T.decode_step(cfg, T.RunCfg(), model, cache,
                                   logits[:, -1].argmax(-1)[:, None])
     assert cache["len"] == 257 and torch.isfinite(logits).all()
+
+
+def test_int8_cache_on_card_tracks_the_float_cache(cuda):
+    # smollm-360m's smoke config in bf16 on the card: a prefill (the kernel
+    # once a layer) into an int8 cache, then 8 decode steps fed the float
+    # cache's tokens; the logits within the reference's own 0.08·max|logit|
+    # of the float cache's, top-1 agreeing on ≥ 7 of 8 steps per row
+    cfg = dataclasses.replace(get_config("smollm-360m", smoke=True), compute_dtype="bfloat16")
+    cfgq = dataclasses.replace(cfg, kv_quant=True)
+    model = T.init_model(cfg, seed=7, device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=torch.Generator().manual_seed(7))
+    run = T.RunCfg()
+    launches = attention.launches
+    lo, cache = T.prefill(cfg, run, model, {"tokens": tokens.to(cuda)}, t_max=72)
+    lq, cacheq = T.prefill(cfgq, run, model, {"tokens": tokens.to(cuda)}, t_max=72)
+    assert attention.launches == launches + 2 * cfg.n_layers
+    assert cacheq["k"].dtype == torch.int8 and cacheq["k_scale"].dtype == torch.float32
+    agree = 0
+    for step in range(8):
+        err = (lq.float() - lo.float()).abs().max() / lo.float().abs().max()
+        assert float(err) < 0.08, (step, float(err))
+        agree += int((lq[:, -1].argmax(-1) == lo[:, -1].argmax(-1)).sum())
+        tok = lo[:, -1].argmax(-1)[:, None]
+        lo, cache = T.decode_step(cfg, run, model, cache, tok)
+        lq, cacheq = T.decode_step(cfgq, run, model, cacheq, tok)
+    assert agree >= 7 * 2 and cacheq["len"] == 72

@@ -348,13 +348,18 @@ def test_train_defaults_to_cuda_and_raises_without_a_card():
 
 
 def test_lm_path_refuses_kv_quant_and_seq_sharded_decode():
-    cfg = get_config("smollm-360m", smoke=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        T.init_model(dataclasses.replace(cfg, kv_quant=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        T.init_cache(dataclasses.replace(cfg, kv_quant=True), 1, 4, device="cpu")
-    # the run context's mesh is a sharding.Mesh; the sequence-sharded
-    # decode is not ported
-    for field in ("mesh", "seq_shard_kv"):
-        with pytest.raises(TypeError, match=field):
-            T.RunCfg(**{field: True})
+    # the two paths this test pinned as refused until the int8-cache slice
+    # now run: an int8 cache with its scales, and the sequence-sharded
+    # decode's RunCfg (nothing without a mesh, as the reference's)
+    cfg = dataclasses.replace(get_config("smollm-360m", smoke=True), kv_quant=True)
+    model = T.init_model(cfg, device="cpu")
+    cache = T.init_cache(cfg, 1, 4, device="cpu")
+    assert cache["k"].dtype == torch.int8 and cache["k_scale"].dtype == torch.float32
+    for run in (T.RunCfg(), T.RunCfg(seq_shard_kv=True)):
+        c = T.init_cache(cfg, 1, 4, device="cpu")
+        logits, c = T.decode_step(cfg, run, model, c, torch.zeros((1, 1), dtype=torch.long))
+        assert logits.shape == (1, 1, cfg.vocab) and c["len"] == 1
+        assert bool(torch.isfinite(logits).all()) and c["k"][:, :, 0].any()
+    # the run context's mesh is a sharding.Mesh
+    with pytest.raises(TypeError, match="mesh"):
+        T.RunCfg(mesh=True)
