@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout (it imports ``src/repro_torch``; nothing of
-JAX or of the JAX package ``repro``).  It covers the six kernels of the
+JAX or of the JAX package ``repro``).  It covers the seven kernels of the
 port's three main paths.  The solver step: ``fft_radix2`` (backend
 ``"pallas"``), ``fft_mxu`` (backend ``"mxu"``, the four-step FFT on the
 FP64 tensor cores), and the NIC engine's ``ring_payload``, ``ring_send``
@@ -13,13 +13,14 @@ and ``ring_land`` (``csrc/ring_rdma.cu``, engines
 serving and training: ``flash_attention`` (``csrc/flash_attention.cu``),
 the attention of every layer of the prefill and of every forward of a
 training step (deepseek-v2-lite's MLA in its decompressed form, at
-D=192); sharded over a mesh of rank processes, the LM's
-collectives run on ``ring_send`` and ``ring_land`` too, the MoE's
-expert-parallel all-to-alls among them.  Phases, each
+D=192); RWKV-6's recurrence, ``wkv6`` (``csrc/wkv6.cu``), once a
+layer in rwkv6-3b's prefill and each of its decode steps; sharded over a
+mesh of rank processes, the LM's collectives run on ``ring_send`` and
+``ring_land`` too, the MoE's expert-parallel all-to-alls among them.  Phases, each
 fatal on failure:
 
 1. card — ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
-2. build — the four CUDA sources, ``nvcc`` processes started together,
+2. build — the five CUDA sources, ``nvcc`` processes started together,
    with each one's register, shared-memory and spill report (for the
    radix-2 row engine, one line of registers / spill bytes / static shared
    memory for each instantiation of ``fft_radix2_kernel<T, L>`` and
@@ -134,7 +135,7 @@ fatal on failure:
    gate that must refuse that control; every prompt entry of the int8
    cache within half a level of a bf16 prefill's; the cache's bytes,
    decode ms a step, tok/s and peak beside the bf16 cache's; and
-   both attentions in f32 at prompt 512, free-running: identical greedy
+   both attentions in f32 at prompt 512 (8 tokens), free-running: identical greedy
    tokens, logits within 1e-4·max|logit|.  One ``torch.profiler`` trace
    of a prefill and of a decode step (informational);
 9. tuning — the perf model's calibration and the plan autotuner
@@ -212,21 +213,23 @@ fatal on failure:
    progress line) and the phase's seconds.  ``chip_smoke.py --fleet-only``
    runs phases 1 and 11 alone (in a fresh ``build/``, the two workers of
    (a) build the kernel library at once);
-12. training — ``smollm-360m`` at full width and depth through
+12. training — ``smollm-360m`` at full width, cut to its first 12 of 32
+   layers (``--layers 12``: two remat groups of 6, as the full model's
+   groups of 8 are two-level), through
    ``repro_torch.launch.train`` (bf16 compute, f32 params and moments,
    two-level remat, B=8, S=512, random weights from seed 0).  (a) Step
    0's loss and gradients through the kernel path against the plain
    attention's (``RunCfg(plain_attention=True)``), in bf16 and in f32: the
    kernel launched once a block forward (``models.transformer.
-   block_forwards``: 92 a step, 32 layers in groups of 8) and no plain
+   block_forwards``: 34 a step, 12 layers in two remat groups) and no plain
    call; every ``wq``/``wk``/``wv`` gradient nonzero; per gradient leaf
    ``||d|| <= tol·||g_plain||`` (bf16 5e-2, f32 1e-5); the losses within
    3e-2 relative; and the same gate must refuse a control whose kernel
    output is detached from q, k and v (the fault this slice repaired).
    (b) 12 steps through ``launch/train.py``'s ``main``, counts set to 0
    just before and read just after: every loss finite, ``flash_attention``
-   launched 12 × 92 times, no plain call, no pad copy.  (c) The run halted
-   after step 6 (checkpoints of ≈4.34 GB at steps 0 and 6, under
+   launched 12 × 16 times, no plain call, no pad copy.  (c) The run halted
+   after step 6 (checkpoints at steps 0 and 6, under
    ``build/``), the latest restored onto the card on the clock, then
    resumed in a fresh process (``python -m repro_torch.launch.train``):
    the losses of steps 8-11 within 1e-4 of (b)'s (the lines print 4
@@ -242,11 +245,11 @@ fatal on failure:
    (``repro_torch.launch.mesh``; every collective on the peer-mapped wire,
    ``ring_send``/``ring_land``: no NCCL, no gloo for a CUDA tensor), the
    counts set to 0 just before each part and read just after.  (a)
-   Phase 12's model, seed and data on 2x2 (FSDP over ``data``, the mlp and
+   Phase 12's model (12 layers), seed and data on 2x2 (FSDP over ``data``, the mlp and
    vocab over ``model``, the 15 heads replicated): 6 steps, each loss
    within 3e-2 of phase 12 (d)'s 1x1 step (the gaps and gnorms' printed),
    ms/step on rank 0, one step under ``torch.profiler`` on rank 0 (its
-   idle share), every rank's peak below phase 12's, per step and rank 92
+   idle share), every rank's peak below phase 12's, per step and rank 34
    ``flash_attention`` launches and no plain call, the wire copies and
    bytes.  (b) ``launch/train.py`` on 2x2 saves at steps 0 and 3 and
    halts (its checkpoint resumed on 1x1 here for steps 4-5), and phase
@@ -254,7 +257,7 @@ fatal on failure:
    3e-2 of phase 12 (b)'s.  (c) Re-cut to (pod 2, data 1, model 2): 3
    steps with the int8 pod sync, the losses against (a)'s and the largest
    residual.  (d) Re-cut to 2x2: phase 8's prompts (B=8, prompt 2048)
-   for 8 tokens teacher-forced with phase 8's, one launch a layer a rank:
+   for 4 tokens teacher-forced with phase 8's, one launch a layer a rank:
    the dense decode and the sequence-sharded one (``RunCfg.seq_shard_kv``:
    the cache's time axis cut over ``data``, its head_dim over ``model``,
    the batch whole; each decode step's softmaxes combined over ``data`` by
@@ -283,9 +286,9 @@ fatal on failure:
    attention's per leaf (5e-2, phase 12's gate), 4 steps (ms/step,
    tokens/s, peak), 3 steps at 8.0.  (b) and (d): one spawn of 4 rank
    processes on 2x2, expert-parallel (every all-to-all on the peer-mapped
-   wire: ``ring_send``/``ring_land``).  (b) serving 8 tokens at 8.0,
-   teacher-forced with (a)'s first 8 there: logits within 3e-2·max|logit|
-   of (a)'s; at 1.25 (8 tokens) prefill and decode ms on rank 0, all-to-alls and wire bytes a
+   wire: ``ring_send``/``ring_land``).  (b) serving 4 tokens at 8.0,
+   teacher-forced with (a)'s first 4 there: logits within 3e-2·max|logit|
+   of (a)'s; at 1.25 (4 tokens) prefill and decode ms on rank 0, all-to-alls and wire bytes a
    prefill and a decode step.  (d) 3 steps at 8.0 against (c)'s: loss,
    gnorm and the params' change ‖p₃ − p₀‖, gates that must refuse the
    same steps with the experts' gradients left out; at 1.25 ms/step on
@@ -299,8 +302,8 @@ fatal on failure:
    (a) 1x1 serving at full depth (27 layers, 15.706 B params, 62.83 GB of
    f32 params on the card), B=8, prompt 2048, 32 tokens through
    ``generate``: 27 ``flash_attention`` launches a prefill, no plain call,
-   no pad copy; the plain attention's run, teacher-forced and its expert
-   choices pinned: the kernel's gates are every layer's kernel output on
+   no pad copy; the plain attention's run of its first 8 tokens,
+   teacher-forced and its expert choices pinned: the kernel's gates are every layer's kernel output on
    the plain run's q, k, v within phase 3's bf16 rule and the same runs in
    f32 (prompt 512, 8 tokens) within 1e-4; the bf16 logits are shown
    beside those of a control attention (unblocked f32, rounded once) and
@@ -319,8 +322,8 @@ fatal on failure:
    phase 14's spawn,
    after its runs: the 4-layer model on 2x2 (heads over ``model``, the
    latents and the cache whole there, the experts expert-parallel),
-   serving 8 tokens at 11 teacher-forced and pinned, logits within
-   3e-2·max|logit| of (b)'s first 8 (f32: 1e-4); 3 training steps at 11 against (b)'s: in bf16
+   serving 4 tokens at 11 teacher-forced and pinned, logits within
+   3e-2·max|logit| of (b)'s first 4 (f32: 1e-4); 3 training steps at 11 against (b)'s: in bf16
    the loss and ‖p₃ − p₀‖ under phase 14's (d) gates (1e-3, 1e-3), the
    gnorm shown; in f32 the loss, gnorm and change under all three (1e-3,
    4e-3, 1e-3), which must refuse a control with MLA's latent weights'
@@ -330,7 +333,43 @@ fatal on failure:
    to 1x1's, each leaf's norm against 1x1's (the unpinned f32 gnorm gap's
    cause).
    ``chip_smoke.py --mla-only`` runs phases 1 and 15, (c) in a spawn of
-   its own; ``--lm-only`` runs phases 1, 8, 12, 13, 14 and 15.
+   its own;
+16. RWKV — ``rwkv6-3b`` at full width and depth (32 layers, d 2560, 40
+   heads of 64, d_ff 8960, vocab 65536; 3.07 B params, 12.29 GB in f32),
+   bf16, seed 0, its recurrence the ``wkv6`` kernel (``wkv6``'s ptxas
+   registers and spills in phase 2, fatal on a spill).  (a) After phase 8,
+   its batch, prompt and 32 tokens through ``generate``: one launch a layer
+   for the prefill and for each decode step, no plain call (counted in
+   the run, and again for one prefill and one step alone); the plain
+   recurrence's run (``RunCfg(plain_wkv=True)``), teacher-forced for 4
+   tokens, in which every call of the recurrence also runs the kernel on
+   the same inputs: y and the final state within 1e-5 of max, a gate that
+   must refuse the kernel with u = 0 in every call; the bf16 logits within
+   max(3e-2, 2 × the gap of a correct control, the recurrence in f64
+   rounded once) of the plain run's, a bound that the kernel with u = 0 in
+   every layer must exceed; f32 at prompt 512, 8 tokens: identical greedy
+   tokens, logits within 1e-4; prefill ms, decode ms a step, tok/s, peak,
+   the decode state's bytes, a profiled prefill and decode step; the
+   kernel timed at the prefill shape and at S=1 against its bound.  (b)
+   B=1 at ``long_500k``'s 524288 positions (in chunks of
+   ``transformer.SEQ_CHUNK_TOKENS``), then 8 decode steps: prefill s,
+   decode ms a step, peak, the state's bytes, finite logits; at layer 0
+   the kernel over the whole prompt equals its two halves with the state
+   carried, bit for bit, and the plain loop over the last 2048 steps from
+   the kernel's state there is within 1e-5 of it.  (c) Inside phase 13's
+   spawn, after its runs: the model's shards on 2x2 (20 heads a rank and
+   their WKV state; FSDP over ``data``), (a)'s prompts teacher-forced with
+   its tokens: bf16 for 4 tokens within max(3e-2, 2 × the gap of a
+   correct 1x1 control with 2x2's arithmetic: ``Wo`` and the channel
+   mix's ``Wv`` in two halves of their rows, each rounded to bf16, summed
+   in rank order) of (a)'s logits; f32 at prompt 512 for 4 tokens within
+   1e-4 of (a)'s f32 run, a gate that must refuse the same run with every
+   rank taking the first heads' decay (the bf16 run with that fault is
+   shown too: it stays within twice a correct run's bf16 drift);
+   decode ms a step on rank 0, a decode step's exchanges and wire bytes,
+   the state a rank.  ``--rwkv-only`` runs phases 1 and 16 ((c) in a
+   spawn of its own); ``--lm-only`` runs phases 1, 8, 16, 12, 13, 14 and
+   15.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Full results go to
@@ -359,7 +398,7 @@ FP32_FLOPS = 67e12            # H100 SXM data sheet, FP32 without tensor cores
 TOL = {"float64": 1e-12, "float32": 1e-5}
 KERNELS = ("fft_radix2", "fft_mxu")
 BACKEND = {"fft_radix2": "pallas", "fft_mxu": "mxu"}
-SOURCES = KERNELS + ("ring_rdma", "flash_attention")
+SOURCES = KERNELS + ("ring_rdma", "flash_attention", "wkv6")
 RADIX2_SOURCES = ("fft_radix2", "ring_rdma")  # the radix-2 row engine's users
 RING_KERNELS = ("ring_payload", "ring_send", "ring_land")
 BF16_TC_FLOPS = 989e12        # H100 SXM data sheet, dense bf16 tensor cores
@@ -479,8 +518,11 @@ LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
 # the tokens of a serving run on 2x2 (phases 13 (d), 14 (b), 15 (c)): the
 # first MESH_GEN of the 1x1 run compared with, teacher-forced (a 2x2 decode
 # step takes 0.2-1.4 s on rank 0: the script's time limit)
-MESH_GEN = 8
+MESH_GEN = 4
 LM_PROMPT_F32 = 512
+# phase 8's f32 runs (kernel and plain attention, free-running) serve
+# LM_GEN_F32 tokens
+LM_GEN_F32 = 8
 # kernel vs plain attention through the whole bf16 model, each step's
 # logits: max|d| <= LM_TOL_BF16 · max|logit|.  This bounds the model's
 # drift, not the kernel's error (phase 3 holds that to a few bf16 units in
@@ -559,8 +601,9 @@ def build():
     radix2 = radix2_ptxas({name: _build.build_log(name) for name in RADIX2_SOURCES})
     mxu = mxu_ptxas(_build.build_log("fft_mxu"))
     copies = copy_ptxas(_build.build_log("ring_rdma"))
+    wkv = wkv_ptxas(_build.build_log("wkv6"))
     return flash_sass(libs["flash_attention"], _build.build_log("flash_attention"),
-                      _build.nvcc()), radix2 + mxu + copies
+                      _build.nvcc()), radix2 + mxu + copies + wkv
 
 
 def _radix2_log2ns(dtype: str) -> list:
@@ -686,6 +729,22 @@ def copy_ptxas(log: str) -> list:
         fail(f"wire copy instantiations: {ks}")
     return [{"source": "ring_rdma", "kernel": k["groups"][0],
              "width": width[k["groups"][1]], "registers": k["registers"],
+             "spill_bytes": k["spill_bytes"]} for k in ks]
+
+
+def wkv_ptxas(log: str) -> list:
+    """Phase 2, ``wkv6``: registers and spill bytes of each instantiation
+    (f32 and bf16 inputs, head sizes 16 and 64); fatal on a spill or a
+    missing one."""
+    ks = _ptxas_entries(log, r"wkv6_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+    dtype = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
+    say("  ptxas wkv6_kernel, registers / spill bytes: " + ", ".join(
+        f"<{dtype[k['groups'][0]]}, K={k['groups'][1]}>: {k['registers']}/"
+        f"{k['spill_bytes']}" for k in ks))
+    if len(ks) != 4 or any(k["spill_bytes"] != 0 for k in ks):
+        fail(f"wkv6 instantiations: {ks}")
+    return [{"source": "wkv6", "kernel": "wkv6_kernel", "dtype": dtype[k["groups"][0]],
+             "head_size": int(k["groups"][1]), "registers": k["registers"],
              "spill_bytes": k["spill_bytes"]} for k in ks]
 
 
@@ -1022,8 +1081,8 @@ def lm_serving(flash_rel_bf16):
     plain attention (``RunCfg(plain_attention=True)``), teacher-forced
     with the kernel run's tokens, every step's logits within
     ``LM_TOL_BF16``; the int8 KV cache (:func:`_lm_int8`); and both
-    attentions at f32 (prompt 512), free-running: identical tokens, logits
-    within ``LM_TOL_F32``.  One ``torch.profiler`` trace of a prefill and
+    attentions at f32 (prompt 512, LM_GEN_F32 tokens), free-running:
+    identical tokens, logits within ``LM_TOL_F32``.  One ``torch.profiler`` trace of a prefill and
     of a decode step (informational)."""
     import dataclasses
 
@@ -1104,16 +1163,17 @@ def lm_serving(flash_rel_bf16):
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     t32 = tokens[:, :LM_PROMPT_F32]
     attention.launches = attention.plain_calls = 0
-    k32 = serve.generate(cfg32, run, model, t32, LM_GEN, keep_logits=True)
+    k32 = serve.generate(cfg32, run, model, t32, LM_GEN_F32, keep_logits=True)
     n32 = attention.launches
-    p32 = serve.generate(cfg32, plain_run, model, t32, LM_GEN, keep_logits=True)
+    p32 = serve.generate(cfg32, plain_run, model, t32, LM_GEN_F32, keep_logits=True)
     gaps32 = _logit_gaps(k32["logits"], p32["logits"])
     same = bool(torch.equal(k32["tokens"], p32["tokens"]))
     out["f32"] = {"prompt": LM_PROMPT_F32, "prefill_ms": k32["prefill_ms"],
                   "decode_ms": k32["decode_ms"], "plain_prefill_ms": p32["prefill_ms"],
                   "same_tokens": same, "gap_max": max(gaps32), "launches": n32,
                   "tol": LM_TOL_F32}
-    say(f"LM f32 (prompt {LM_PROMPT_F32}): kernel prefill {k32['prefill_ms']:.3f} ms "
+    say(f"LM f32 (prompt {LM_PROMPT_F32}, {LM_GEN_F32} tokens): kernel prefill "
+        f"{k32['prefill_ms']:.3f} ms "
         f"({n32} launches), plain {p32['prefill_ms']:.3f} ms; greedy tokens "
         f"{'identical' if same else 'DIFFER'}, logits gap max {max(gaps32):.3e} of "
         f"max|logit| (tol {LM_TOL_F32:g})")
@@ -3466,6 +3526,12 @@ def fleet(smi):
 # launch/train.py's defaults: smollm-360m (32 layers, d 960), bf16 compute,
 # f32 params and moments, remat, B=8, S=512
 TRAIN_ARCH = "smollm-360m"
+# phases 12 and 13 (a)-(c), (e) train it at full width cut to its first
+# TRAIN_LAYERS of 32 layers (``launch/train.py --layers``; phase 16 took
+# the room): 12, the least depth whose remat is two-level as the full
+# model's (two groups of 6; 8 layers would be one group, a single level);
+# phase 13 (d) serves it at full depth, as phase 8 does
+TRAIN_LAYERS = 12
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 12
 # (c): the halted run saves at steps 0 and 6 (every 6) and stops after 7;
 # the resumed run restarts at 7 and saves at 11, its last step
@@ -3589,8 +3655,18 @@ def _train_grad_checks(cfg):
 
 
 def _train_argv(*extra):
-    return ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+    return ["--arch", TRAIN_ARCH, "--layers", str(TRAIN_LAYERS), "--steps", str(TRAIN_STEPS),
+            "--batch",
             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1", *extra]
+
+
+def _train_cfg():
+    """Phase 12's config: TRAIN_ARCH cut to its first TRAIN_LAYERS layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
 
 
 def _step_losses(stdout):
@@ -3799,17 +3875,21 @@ def _train_measure(smi, cfg):
 
 
 def training(smi):
-    """Phase 12: training of smollm-360m at full width and depth on the
-    card; returns the results and (b)'s ``flash_attention`` launches."""
+    """Phase 12: training of smollm-360m at full width, cut to
+    TRAIN_LAYERS layers, on the card; returns the results and (b)'s
+    ``flash_attention`` launches."""
     import math
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import attention
     from repro_torch.launch import train
     from repro_torch.models import transformer as T
 
     t_phase = time.perf_counter()
-    cfg = get_config(TRAIN_ARCH)
+    cfg = _train_cfg()
+    group = T._remat_group(cfg.n_layers)
+    if not 1 < group < cfg.n_layers:
+        fail(f"training: {cfg.n_layers} layers make remat groups of {group}, a single "
+             "level; the cut must keep the full model's two-level remat")
     out = {"grads": _train_grad_checks(cfg)}
     # (b) 12 steps through launch/train.py's main, counts from 0
     attention.launches = attention.plain_calls = attention.pad_copies = 0
@@ -3888,7 +3968,8 @@ def _shard_counts():
 
     return {"flash_attention": attention.launches,
             "flash_attention_plain": attention.plain_calls,
-            "pad_copies": attention.pad_copies, "ring_send": ring_rdma.send_launches,
+            "pad_copies": attention.pad_copies, **_wkv_counts(),
+            "ring_send": ring_rdma.send_launches,
             "ring_land": ring_rdma.land_launches, "wire_bytes": C.wire_bytes,
             **{f"collectives.{k}": n for k, n in C.calls.items()}}
 
@@ -3898,6 +3979,7 @@ def _zero_shard_counts():
     from repro_torch.kernels import attention, ring_rdma
 
     attention.launches = attention.plain_calls = attention.pad_copies = 0
+    _zero_wkv_counts()
     ring_rdma.send_launches = ring_rdma.land_launches = 0
     C.wire_bytes = 0
     for k in C.calls:
@@ -4058,7 +4140,8 @@ def _serve_part(ctx, cfg, run, model, tokens, forced, gen, *, timed=True):
     counts = _shard_counts()
     out = {"prefill_ms": r["prefill_ms"], "decode_ms_per_step": r["decode_ms"] / (gen - 1),
            "counts": counts, "peak_bytes": torch.cuda.max_memory_allocated(),
-           "cache_shape": list(r["cache"]["k"].shape), "cache_bytes": _cache_bytes(r["cache"])}
+           "cache_shape": {k: list(t.shape) for k, t in r["cache"].items() if k != "len"},
+           "cache_bytes": _cache_bytes(r["cache"])}
     if timed:
         brun = T.batch_run(run, tokens.shape[0])
         _zero_shard_counts()
@@ -4096,15 +4179,16 @@ def _shard_serve(ctx, cfg, forced):
     return out
 
 
-def _sharded_ranks(ctx, forced):
-    """Everything phase 13's 4 rank processes do, (a) to (e)."""
+def _sharded_ranks(ctx, forced, rwkv_args=None):
+    """Everything phase 13's 4 rank processes do, (a) to (e), and then
+    phase 16 (c) (with ``rwkv_args``)."""
     import torch.distributed as tdist
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ring_rdma
     from repro_torch.launch import mesh as M
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = _train_cfg()
     out = {"rank": ctx.rank, "train": _shard_steps(ctx, cfg, SHARD_STEPS, profile=True)}
     ck = ["--ckpt-dir"]
     _zero_shard_counts()
@@ -4122,7 +4206,9 @@ def _sharded_ranks(ctx, forced):
     out["control_sync"] = _shard_compressed_unsynced(ctx, cfg)
     wires.update({("pod2",) + k: w for k, w in ctx.wires().items()})
     ctx = M.regrid_mesh(SHARD_MESH)
-    out["serve"] = _shard_serve(ctx, cfg, forced)
+    out["serve"] = _shard_serve(ctx, get_config(TRAIN_ARCH), forced)
+    if rwkv_args is not None:
+        out["rwkv"] = _rwkv_ranks(ctx, *rwkv_args)
     wires.update({("serve",) + k: w for k, w in ctx.wires().items()})
     out["wires"] = sorted(f"{k}: {type(w).__name__}" for k, w in wires.items())
     out["wires_ipc"] = all(isinstance(w, ring_rdma.IpcWire) for w in wires.values())
@@ -4175,11 +4261,13 @@ def _steps_line(label, run, ref, ref_label) -> str:
             f"{ {n: f'{g:.2e}' for n, g in moved.items()} }")
 
 
-def sharded_lm(smi, trained, served):
+def sharded_lm(smi, trained, served, rwkv_kept=None):
     """Phase 13: smollm-360m at full width sharded over a 2x2 mesh of rank
     processes on the one card (one spawn, re-cut between meshes), against
     phases 12 and 8; returns the results and the kernels' launches summed
-    over the ranks.  Every reading is printed before the gates fail."""
+    over the ranks.  Every reading is printed before the gates fail.  With
+    ``rwkv_kept`` (phase 16 (a)'s), the spawn runs phase 16 (c) last, its
+    ranks' results under ``rwkv_ranks`` (gated by :func:`rwkv_mesh`)."""
     import torch
 
     from repro_torch import dist
@@ -4200,8 +4288,10 @@ def sharded_lm(smi, trained, served):
         f.write(step6)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    rwkv_args = None if rwkv_kept is None else _rwkv_rank_args(rwkv_kept)
     ranks = dist.run_ranks(_sharded_ranks, 2, 2, device="cuda",
-                           args=(served["tokens"].numpy(),), timeout=1200)
+                           args=(served["tokens"].numpy(), rwkv_args), timeout=1200)
+    rwkv_ranks = [r.pop("rwkv") for r in ranks] if rwkv_kept is not None else None
     spawn_s = time.perf_counter() - t0
     # (b) the 2x2 run's step-3 checkpoint resumed on one device, steps 4-5
     t0 = time.perf_counter()
@@ -4209,7 +4299,7 @@ def sharded_lm(smi, trained, served):
                                      "--halt-after", "6"))
     resume_1x1_s = time.perf_counter() - t0
     out = {"spawn_s": spawn_s, "ranks": ranks, "resume_1x1": resumed,
-           "resume_1x1_s": resume_1x1_s}
+           "resume_1x1_s": resume_1x1_s, "rwkv_ranks": rwkv_ranks}
     bad = []
     r0 = ranks[0]
     a = r0["train"]
@@ -4234,7 +4324,7 @@ def sharded_lm(smi, trained, served):
     if a["breakdown"]:
         for line in a["breakdown"]["lines"]:
             say(line)
-    cfg = get_config(TRAIN_ARCH)
+    cfg = _train_cfg()
     want_flash = T.block_forwards(cfg, T.RunCfg(remat=cfg.remat))
     for r in ranks:
         c = r["train"]["counts"]
@@ -4320,7 +4410,8 @@ def sharded_lm(smi, trained, served):
     for r in ranks:
         for label in ("dense", "seq", "int8", "seq_control"):
             cd = r["serve"][label]["counts"]
-            if cd["flash_attention"] != cfg.n_layers or cd["flash_attention_plain"]:
+            if cd["flash_attention"] != get_config(TRAIN_ARCH).n_layers \
+                    or cd["flash_attention_plain"]:
                 bad.append(f"(d) {label} rank {r['rank']}: counts {cd}")
     for label in ("dense", "seq", "seq vs dense 2x2", "int8"):
         if max(gaps[label]) > LM_TOL_BF16:
@@ -4870,6 +4961,9 @@ def moe_lm(smi, mla_kept=None):
 MLA_ARCH = "deepseek-v2-lite-16b"
 MLA_TRAIN_LAYERS = 4
 MLA_BATCH, MLA_PROMPT, MLA_GEN = 8, 2048, 32
+# (a) the plain attention's, the control's and the broken attentions' runs
+# serve the first MLA_CHECK_GEN of the kernel run's tokens, teacher-forced
+MLA_CHECK_GEN = 8
 # (a) one MLA layer at B=8, S=2048, bf16: the decompressed form on the
 # kernel against the plain latent form, max|d| <= MLA_LAYER_TOL·max|latent|
 # (two bf16 roundings of one function: the scores through c_kv·W_uk or
@@ -5032,8 +5126,9 @@ def _mla_serve_1x1(smi):
     """(a): deepseek-v2-lite at full width and depth, bf16, B=8, prompt
     2048, 32 tokens through ``launch/serve.py``'s ``generate`` at capacity
     factor 1.25: one ``flash_attention`` launch a layer (D=192), no plain
-    call, no pad copy.  Then the plain attention's run, teacher-forced and
-    its expert choices pinned, every layer's kernel output beside the
+    call, no pad copy.  Then the plain attention's run of the first
+    MLA_CHECK_GEN tokens, teacher-forced and its expert choices pinned,
+    every layer's kernel output beside the
     plain one on the same q, k, v (phase 3's bf16 rule), and the
     control's run (:func:`_mla_control`) the same way: the kernel run's
     logits gap to the plain run within MLA_DRIFT_RATIO times the
@@ -5093,9 +5188,10 @@ def _mla_serve_1x1(smi):
         fail(f"MLA (a): tokens {tuple(r['tokens'].shape)}, logits "
              f"{tuple(r['logits'][0].shape)} or not finite")
     def plain_run_of():
-        return serve.generate(cfg, plain_run, model, tokens, MLA_GEN, forced=r["tokens"],
-                              keep_logits=True)
+        return serve.generate(cfg, plain_run, model, tokens, MLA_CHECK_GEN,
+                              forced=r["tokens"][:, :MLA_CHECK_GEN], keep_logits=True)
 
+    record = record[:len(record) // MLA_GEN * MLA_CHECK_GEN]  # those tokens' choices
     layer_gaps = []
     p, flips = _mla_attend_as(_mla_probe(layer_gaps), lambda: _replay(plain_run_of, record))
     gaps = _logit_gaps(r["logits"], p["logits"])
@@ -5553,12 +5649,578 @@ def mla_mesh(smi, out, kept, ranks):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: RWKV (rwkv6-3b) served at full width and depth on one card, a
+# long prompt decoded from its O(1) state, and on 2x2 inside phase 13's spawn
+# ---------------------------------------------------------------------------
+
+RWKV_ARCH = "rwkv6-3b"
+# (a) phase 8's batch, prompt and gen.  Every layer's kernel output (y and
+# the final state) within RWKV_LAYER_TOL·max of the plain recurrence's on
+# the same inputs, in f32 (the same arithmetic in another summation order);
+# a control passing u = 0 to the kernel must be refused by that gate.  The
+# bf16 logits within LM_TOL_BF16·max|logit| of the plain recurrence's run,
+# teacher-forced; f32 at LM_PROMPT_F32, RWKV_F32_GEN tokens: identical greedy
+# tokens and logits within LM_TOL_F32
+RWKV_LAYER_TOL = 1e-5
+RWKV_F32_GEN = 8
+# (a) the bf16 logits of a correct recurrence drift far past LM_TOL_BF16
+# through 32 layers of random weights: a 1e-7 relative change of each
+# layer's y moves them by 0.7 % at 2 layers and 2.5 % at 8 (S=256 on the
+# CPU).  So the bf16 gate is calibrated on a correct control, the
+# recurrence in f64 rounded once: the kernel run's gap to the plain run at
+# most RWKV_DRIFT_RATIO times the control's, or LM_TOL_BF16, a bound that
+# the kernel with u = 0 in every layer must exceed.  The plain and control
+# runs serve RWKV_CHECK_GEN tokens, teacher-forced
+RWKV_DRIFT_RATIO = 2.0
+RWKV_CHECK_GEN = MESH_GEN
+# (b) long_500k's positions (src/repro/configs/base.py:105) at B=1, then
+# RWKV_LONG_GEN decode steps; at layer 0 the kernel over the whole prompt
+# equals its two halves with the state carried, bit for bit, and the plain
+# loop over the last RWKV_TAIL steps from the kernel's state there is
+# within RWKV_LAYER_TOL of the kernel's
+RWKV_LONG, RWKV_LONG_GEN, RWKV_TAIL = 524288, 8, 2048
+# (c) on 2x2: MESH_GEN tokens in bf16 within a bound of (a)'s logits
+# calibrated on 2x2's own arithmetic: max(LM_TOL_BF16, RWKV_DRIFT_RATIO x
+# the gap of a correct 1x1 control whose row-parallel products (``Wo``,
+# the channel mix's ``Wv``) run in two halves of their rows, each rounded
+# to bf16 and summed in rank order, as the two ranks of ``model`` do).  The
+# same bf16 run with every rank taking the first heads' decay is shown
+# beside it, not gated: at init ``w0`` is zero in every column, so the
+# fault changes each layer's decay by the LoRA's share only, and in bf16 it
+# lands within twice a correct run's drift (PERF.md).  f32 at LM_PROMPT_F32
+# for RWKV_MESH_F32_GEN tokens within LM_TOL_F32 of (a)'s f32 run, a gate
+# that the same control must fail: f32 carries the heads' slices
+RWKV_MESH_F32_GEN = 4
+RWKV_ONLY = "--rwkv-only"
+
+
+def _wkv_counts() -> dict:
+    from repro_torch.kernels import wkv
+
+    return {"wkv6": wkv.launches, "wkv6_plain": wkv.plain_calls}
+
+
+def _zero_wkv_counts() -> None:
+    from repro_torch.kernels import wkv
+
+    wkv.launches = wkv.plain_calls = 0
+
+
+def _patched(module, name: str, wrap, body):
+    """``body()`` with ``module.<name>`` replaced by ``wrap(original)``."""
+    original = getattr(module, name)
+    setattr(module, name, wrap(original))
+    try:
+        return body()
+    finally:
+        setattr(module, name, original)
+
+
+def _kernel_beside(gaps: list):
+    """A wrapper of ``wkv6_plain`` that also runs the kernel on the same
+    inputs, and with u = 0 (the control), and records each call's gaps to
+    the plain version (device scalars: no synchronisation a call)."""
+    import torch
+
+    from repro_torch.kernels import wkv
+
+    def wrap(plain):
+        def both(r, k, v, w, u, state):
+            y, s = plain(r, k, v, w, u, state)
+            yk, sk = wkv.wkv6(r, k, v, w, u, state)
+            y0, _ = wkv.wkv6(r, k, v, w, torch.zeros_like(u), state)
+            ym, sm = y.abs().max(), s.abs().max()
+            d = (yk - y).abs().max()
+            gaps.append(torch.stack([d / ym, (sk - s).abs().max() / sm,
+                                     (y0 - y).abs().max() / ym, d,
+                                     torch.tensor(float(r.shape[1]), device=y.device)]))
+            return y, s
+        return both
+    return wrap
+
+
+def _wkv_f64(_plain):
+    """(a)'s correct control in place of ``wkv6_plain``: the same step loop
+    in f64, its y and state rounded to f32 once."""
+    import torch
+
+    def f64(r, k, v, w, u, state):
+        rd, kd, vd, wd = (x.double() for x in (r, k, v, w))
+        st, uu = state.double(), u.double()[None, :, :, None]
+        y = torch.empty(r.shape, dtype=torch.float64, device=r.device)
+        for t in range(r.shape[1]):
+            kv = kd[:, t, :, :, None] * vd[:, t, :, None, :]
+            y[:, t] = torch.einsum("bhk,bhkv->bhv", rd[:, t], st + uu * kv)
+            st = wd[:, t, :, :, None] * st + kv
+        return y.float(), st.float()
+    return f64
+
+
+def _without_bonus(kernel):
+    """(a)'s broken control in place of ``wkv6``: the kernel with u = 0."""
+    import torch
+
+    return lambda r, k, v, w, u, state: kernel(r, k, v, w, torch.zeros_like(u), state)
+
+
+def _rows_in_halves(_row_parallel):
+    """(c)'s correct control, run on 1x1 in place of ``row_parallel``: the
+    product in two halves of ``w``'s rows, each rounded to the compute
+    dtype, summed in rank order: the 2x2 ranks' arithmetic."""
+    def halves(x, w, axes):
+        n = w.shape[0] // 2
+        return x[..., :n].contiguous() @ w[:n] + x[..., n:].contiguous() @ w[n:]
+    return halves
+
+
+def _first_heads(decay):
+    """The control of (c): every rank's decay from the first heads' columns."""
+    return lambda p, xw, cols: decay(p, xw, slice(0, cols.stop - cols.start))
+
+
+def _wkv_timing(gen) -> list:
+    """``wkv6`` at the prefill shape (B=8, S=2048, 40 heads of 64, bf16 r,
+    k, v) and at a decode step's (S=1): the kernel (median of 7 CUDA-event
+    timings), its plain version, and the bound: the larger of
+    :func:`repro_torch.kernels.wkv.wkv6_bytes` over 3.35 TB/s and
+    :func:`~repro_torch.kernels.wkv.wkv6_flops` over the f32 CUDA cores'
+    67 TFLOP/s.  No single PyTorch call computes the recurrence: no
+    library time."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import wkv
+
+    cfg = get_config(RWKV_ARCH)
+    h, k = cfg.n_heads, cfg.d_model // cfg.n_heads
+    out = []
+    for s in (LM_PROMPT, 1):
+        b = LM_BATCH
+        r, kk, v = (_rand((b, s, h, k), torch.float32, gen).bfloat16() for _ in range(3))
+        w = torch.exp(-torch.exp(_rand((b, s, h, k), torch.float32, gen) - 1))
+        u = _rand((h, k), torch.float32, gen) * 0.5
+        st = _rand((b, h, k, k), torch.float32, gen) * 0.3
+        ms, lo, hi = _median_ms(lambda: wkv.wkv6(r, kk, v, w, u, st), 10, 2)
+        plain_ms = _time_ms(lambda: wkv.wkv6_plain(r, kk, v, w, u, st), 1, 1)
+        moved, flops = wkv.wkv6_bytes(b, s, h, k, 2), wkv.wkv6_flops(b, s, h, k)
+        bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+        rec = {"kernel": "wkv6", "shape": [b, s, h, k], "dtype": "bfloat16", "ms": ms,
+               "ms_spread": [lo, hi], "plain_ms": plain_ms, "library_ms": None,
+               "bytes": moved, "flops": flops, "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        say(f"timing wkv6 B={b} S={s} H={h} K={k} bf16 r, k, v: kernel {ms:.4f} ms "
+            f"({lo:.4f}-{hi:.4f}), plain {plain_ms:.3f} ms, library none; bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {moved} B {bytes_ms:.4f} ms, "
+            f"{flops:.4g} flop {ops_ms:.4f} ms), {rec['bound_ms'] / ms:.1%} of the bound")
+        out.append(rec)
+        del r, kk, v, w, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rwkv_layer0_inputs(cfg, model, tokens) -> dict:
+    """The inputs of layer 0's recurrence over the whole of ``tokens``: the
+    block run alone (in its chunks of the time axis), each chunk's r, k, v
+    and w copied into whole-prompt buffers as it reaches ``wkv6``."""
+    import torch
+
+    from repro_torch.models import rwkv as RW
+    from repro_torch.models import transformer as T
+
+    run, cd = T.RunCfg(), T._dt(cfg)
+    top = T._top_params(model, cfg, run)
+    x = T._apply_norm(top["ln0"], T._embed_tokens(top, cfg, run, tokens), cfg)
+    p0 = T._block_params(model.blocks[0], cfg, run, cd)
+    b, s = tokens.shape
+    hs = cfg.d_model // cfg.n_heads
+    shape = (b, s, cfg.n_heads, hs)
+    rec = {n: torch.empty(shape, dtype=cd if n != "w" else torch.float32, device="cuda")
+           for n in "rkvw"}
+    at = [0]
+
+    def record(kernel):
+        def copy_then_run(r, k, v, w, u, state):
+            n = r.shape[1]
+            for name, t in zip("rkvw", (r, k, v, w)):
+                rec[name][:, at[0]:at[0] + n] = t
+            rec["u"] = u.clone()
+            at[0] += n
+            return kernel(r, k, v, w, u, state)
+        return copy_then_run
+
+    zero = {k: torch.zeros(sh[1:], dtype=T.cache_dtypes(cfg)[k], device="cuda")
+            for k, sh in T.cache_shapes(cfg, b, 0).items()}
+    _patched(RW, "wkv6", record, lambda: T._rwkv_block_fwd(p0, cfg, run, x, zero))
+    if at[0] != s:
+        fail(f"RWKV (b): layer 0's recurrence saw {at[0]} of {s} positions")
+    return rec
+
+
+def _rwkv_layer0_checks(cfg, model, tokens) -> dict:
+    """(b)'s gates at layer 0: the kernel over the whole prompt against its
+    two halves with the state carried (bitwise), and the plain loop over
+    the last RWKV_TAIL steps from the kernel's state at S - RWKV_TAIL."""
+    import torch
+
+    from repro_torch.kernels import wkv
+
+    ins = _rwkv_layer0_inputs(cfg, model, tokens)
+    r, k, v, w, u = (ins[n] for n in "rkvwu")
+    b, s, h, hs = r.shape
+    zero = torch.zeros((b, h, hs, hs), dtype=torch.float32, device="cuda")
+    t0 = time.perf_counter()
+    y, st = wkv.wkv6(r, k, v, w, u, zero)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+
+    def part(lo, hi, state):
+        return wkv.wkv6(*(x[:, lo:hi].contiguous() for x in (r, k, v, w)), u, state)
+
+    half = s // 2
+    y1, s1 = part(0, half, zero)
+    same = bool(torch.equal(y[:, :half], y1))
+    del y1
+    y2, s2 = part(half, s, s1)
+    same = same and bool(torch.equal(y[:, half:], y2)) and bool(torch.equal(st, s2))
+    del y2, s1, s2
+    cut = s - RWKV_TAIL
+    _, s_cut = part(0, cut, zero)
+    yp, sp = wkv.wkv6_plain(*(x[:, cut:].contiguous() for x in (r, k, v, w)), u, s_cut)
+    tail = {"y": float((y[:, cut:] - yp).abs().max() / yp.abs().max()),
+            "state": float((st - sp).abs().max() / sp.abs().max())}
+    del ins, r, k, v, w, y, yp, sp, s_cut
+    torch.cuda.empty_cache()
+    return {"halves_bitwise": same, "tail": tail, "whole_s": whole_s}
+
+
+def _rwkv_long(smi, cfg, model, a) -> dict:
+    """(b): B=1 at RWKV_LONG positions, then RWKV_LONG_GEN decode steps."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    run = T.RunCfg()
+    tokens = serve.prompt_tokens(cfg, 1, RWKV_LONG, "cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_wkv_counts()
+    r = serve.generate(cfg, run, model, tokens, RWKV_LONG_GEN + 1, keep_logits=True)
+    counts = _wkv_counts()
+    chunks = -(-RWKV_LONG // T.SEQ_CHUNK_TOKENS)
+    out = {"positions": RWKV_LONG, "counts": counts, "chunks": chunks,
+           "prefill_s": r["prefill_ms"] / 1e3,
+           "decode_ms_per_step": r["decode_ms"] / RWKV_LONG_GEN,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "state_bytes": _cache_bytes(r["cache"]),
+           "finite": all(bool(torch.isfinite(x).all()) for x in r["logits"]),
+           "sample": r["tokens"][0].tolist()}
+    del r
+    out.update(_rwkv_layer0_checks(cfg, model, tokens))
+    say(f"[{smi}] RWKV (b) {RWKV_ARCH} B=1 prompt={RWKV_LONG} (long_500k's positions, "
+        f"{chunks} chunks of {T.SEQ_CHUNK_TOKENS} a layer) then {RWKV_LONG_GEN} decode "
+        f"steps: prefill {out['prefill_s']:.3f} s, decode {out['decode_ms_per_step']:.3f} "
+        f"ms/step ((a) at B={LM_BATCH}: {a['decode_ms_per_step']:.3f}), peak "
+        f"{out['peak_bytes'] / 2**30:.3f} GiB, state {out['state_bytes']} B; counts {counts}; "
+        f"logits finite {out['finite']}; layer 0: whole prompt in one launch "
+        f"{out['whole_s']:.3f} s, its two halves with the state carried bitwise "
+        f"{out['halves_bitwise']}, the plain loop over the last {RWKV_TAIL} steps from the "
+        f"kernel's state: y {out['tail']['y']:.3e}, state {out['tail']['state']:.3e} of max "
+        f"(tol {RWKV_LAYER_TOL:g})")
+    bad = []
+    if counts != {"wkv6": cfg.n_layers * (chunks + RWKV_LONG_GEN), "wkv6_plain": 0}:
+        bad.append(f"counts {counts}, want {cfg.n_layers} launches a chunk and a step")
+    if not out["finite"]:
+        bad.append("non-finite logits")
+    if not out["halves_bitwise"]:
+        bad.append("the kernel over two halves is not the whole prompt's, bit for bit")
+    if max(out["tail"].values()) > RWKV_LAYER_TOL:
+        bad.append(f"the plain tail parts by {out['tail']}")
+    if bad:
+        fail("RWKV (b): " + "; ".join(bad))
+    return out
+
+
+def rwkv_lm(smi):
+    """Phase 16 (a) and (b) on one card: rwkv6-3b at full width and depth
+    (32 layers, d 2560, 40 heads of 64, d_ff 8960, vocab 65536; 3.07 B
+    params, 12.29 GB in f32), bf16, random weights from seed 0.  Returns
+    (results, what (c) compares with, the main path's wkv6 launches)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import rwkv as RW
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    cfg = get_config(RWKV_ARCH)
+    run, plain_run = T.RunCfg(), T.RunCfg(plain_wkv=True)
+    model = T.init_model(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = serve.prompt_tokens(cfg, LM_BATCH, LM_PROMPT, "cuda")
+    serve.generate(cfg, run, model, tokens[:, :64], 2)  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_wkv_counts()
+    r = serve.generate(cfg, run, model, tokens, LM_GEN, keep_logits=True)
+    counts = _wkv_counts()
+    steps = LM_GEN - 1
+    out = {"arch": RWKV_ARCH, "params": n_params, "batch": LM_BATCH, "prompt": LM_PROMPT,
+           "gen": LM_GEN, "counts": counts, "prefill_ms": r["prefill_ms"],
+           "decode_ms_per_step": r["decode_ms"] / steps,
+           "tok_per_s": steps * LM_BATCH / (r["decode_ms"] / 1e3),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "state_bytes": _cache_bytes(r["cache"]), "sample": r["tokens"][0, :16].tolist()}
+    launches = counts["wkv6"]
+    # one more prefill and one decode step, each counted alone and profiled
+    _zero_wkv_counts()
+    prof_prefill = _profile(lambda: T.prefill(cfg, run, model, {"tokens": tokens}),
+                            f"RWKV prefill {RWKV_ARCH} B={LM_BATCH} S={LM_PROMPT}")
+    out["prefill_counts"] = _wkv_counts()
+    cache, tok = r["cache"], r["tokens"][:, -1:]
+    _zero_wkv_counts()
+    prof_decode = _profile(lambda: T.decode_step(cfg, run, model, cache, tok),
+                           f"RWKV decode step {RWKV_ARCH} B={LM_BATCH}")
+    out["step_counts"] = _wkv_counts()
+    out["breakdown"] = [prof_prefill, prof_decode]
+    kept = {"tokens": r["tokens"].cpu(), "logits": [x.float().cpu() for x in r["logits"]]}
+    del cache, tok
+    say(f"[{smi}] RWKV (a) {RWKV_ARCH} ({n_params} params, f32) bf16 B={LM_BATCH} "
+        f"prompt={LM_PROMPT} gen={LM_GEN}: prefill {out['prefill_ms']:.3f} ms, decode "
+        f"{out['decode_ms_per_step']:.3f} ms/step ({out['tok_per_s']:.1f} tok/s), peak "
+        f"{out['peak_bytes'] / 2**30:.3f} GiB, decode state {out['state_bytes']} B at any "
+        f"length; counts {counts}, a prefill {out['prefill_counts']}, a decode step "
+        f"{out['step_counts']}; sample {out['sample']}")
+    for line in prof_prefill["lines"] + prof_decode["lines"]:
+        say(line)
+
+    # the plain recurrence's run, teacher-forced; every call of it also
+    # runs the kernel on the same inputs, and with u = 0
+    gaps = []
+    forced = r["tokens"][:, :RWKV_CHECK_GEN]
+    p = _patched(RW, "wkv6_plain", _kernel_beside(gaps), lambda: serve.generate(
+        cfg, plain_run, model, tokens, RWKV_CHECK_GEN, forced=forced, keep_logits=True))
+    g = torch.stack(gaps).cpu()
+    prefill_rows = g[:, 4] > 1
+    layer = {"calls": len(gaps), "prefill_calls": int(prefill_rows.sum()),
+             "y_max": float(g[:, 0].max()), "state_max": float(g[:, 1].max()),
+             "prefill_y_max": float(g[prefill_rows, 0].max()),
+             "max_abs": float(g[:, 3].max()), "u0_min": float(g[:, 2].min()),
+             "u0_refused": int((g[:, 2] > RWKV_LAYER_TOL).sum())}
+    # a correct recurrence in other roundings (f64) and a broken one (u = 0
+    # in every layer's kernel), the same tokens forced
+    c = _patched(RW, "wkv6_plain", _wkv_f64, lambda: serve.generate(
+        cfg, plain_run, model, tokens, RWKV_CHECK_GEN, forced=forced, keep_logits=True))
+    u0 = _patched(RW, "wkv6", _without_bonus, lambda: serve.generate(
+        cfg, run, model, tokens, RWKV_CHECK_GEN, forced=forced, keep_logits=True))
+    # (c)'s bound: the 2x2 ranks' row-parallel roundings, on 1x1
+    halves = _patched(RW, "row_parallel", _rows_in_halves, lambda: serve.generate(
+        cfg, run, model, tokens, MESH_GEN, forced=r["tokens"][:, :MESH_GEN],
+        keep_logits=True))
+    logit_gaps = _logit_gaps(p["logits"], r["logits"])
+    drift = _logit_gaps(p["logits"], c["logits"])
+    broken = _logit_gaps(p["logits"], u0["logits"])
+    bound = max(LM_TOL_BF16, RWKV_DRIFT_RATIO * max(drift))
+    mesh_drift = _logit_gaps(r["logits"], halves["logits"])
+    mesh_bound = max(LM_TOL_BF16, RWKV_DRIFT_RATIO * max(mesh_drift))
+    kept["halves_logits"] = [x.float().cpu() for x in halves["logits"]]
+    out.update(layer=layer, gap_prefill=logit_gaps[0], gap_decode_max=max(logit_gaps[1:]),
+               drift_prefill=drift[0], drift_max=max(drift), u0_gap_max=max(broken),
+               bound=bound, mesh_drift=mesh_drift, mesh_bound=mesh_bound,
+               plain_prefill_ms=p["prefill_ms"],
+               plain_decode_ms_per_step=p["decode_ms"] / (RWKV_CHECK_GEN - 1))
+    del r, p, c, u0, halves
+    say(f"[{smi}] RWKV (a) every call of the recurrence in the plain run ({layer['calls']}: "
+        f"{layer['prefill_calls']} at S={LM_PROMPT}, the rest decode steps) against the "
+        f"kernel on the same inputs: y {layer['y_max']:.3e} (the prefill's "
+        f"{layer['prefill_y_max']:.3e}), state {layer['state_max']:.3e} of max (tol "
+        f"{RWKV_LAYER_TOL:g}; max |d| {layer['max_abs']:.3e}); control, u = 0: the "
+        f"smallest gap {layer['u0_min']:.3e}, refused in {layer['u0_refused']} of "
+        f"{layer['calls']} calls")
+    say(f"[{smi}] RWKV (a) bf16 logits against the plain recurrence's run ({RWKV_CHECK_GEN} "
+        f"tokens, teacher-forced): the kernel prefill {logit_gaps[0]:.3e}, max "
+        f"{max(logit_gaps):.3e}; a correct control (the recurrence in f64, rounded once) "
+        f"prefill {drift[0]:.3e}, max {max(drift):.3e}; bound max({LM_TOL_BF16:g}, "
+        f"{RWKV_DRIFT_RATIO:g} x the control's) = {bound:.3e}; the kernel with u = 0 in every "
+        f"layer {max(broken):.3e}: {'refused' if max(broken) > bound else 'PASSED'}; plain "
+        f"prefill {out['plain_prefill_ms']:.1f} ms, decode "
+        f"{out['plain_decode_ms_per_step']:.1f} ms/step")
+    say(f"[{smi}] RWKV (a) for (c): the kernel run against a correct control with 2x2's "
+        f"row-parallel roundings (Wo, the channel mix's Wv in two halves of their rows, "
+        f"each rounded to bf16, summed in rank order; {MESH_GEN} tokens): prefill "
+        f"{mesh_drift[0]:.3e}, max {max(mesh_drift):.3e}; (c)'s bf16 bound max("
+        f"{LM_TOL_BF16:g}, {RWKV_DRIFT_RATIO:g} x that) = {mesh_bound:.3e}")
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    t32 = tokens[:, :LM_PROMPT_F32]
+    _zero_wkv_counts()
+    k32 = serve.generate(cfg32, run, model, t32, RWKV_F32_GEN, keep_logits=True)
+    n32 = _wkv_counts()
+    p32 = serve.generate(cfg32, plain_run, model, t32, RWKV_F32_GEN, keep_logits=True)
+    gaps32 = _logit_gaps(k32["logits"], p32["logits"])
+    same = bool(torch.equal(k32["tokens"], p32["tokens"]))
+    out["f32"] = {"prompt": LM_PROMPT_F32, "gen": RWKV_F32_GEN, "counts": n32,
+                  "prefill_ms": k32["prefill_ms"], "plain_prefill_ms": p32["prefill_ms"],
+                  "same_tokens": same, "gap_max": max(gaps32)}
+    kept.update(f32_tokens=k32["tokens"].cpu(),
+                f32_logits=[x.float().cpu() for x in k32["logits"]])
+    launches += n32["wkv6"]
+    del k32, p32
+    say(f"[{smi}] RWKV (a) f32 (prompt {LM_PROMPT_F32}, {RWKV_F32_GEN} tokens): kernel "
+        f"prefill {out['f32']['prefill_ms']:.3f} ms, plain {out['f32']['plain_prefill_ms']:.3f}"
+        f" ms; greedy tokens {'identical' if same else 'DIFFER'}, logits gap max "
+        f"{max(gaps32):.3e} of max|logit| (tol {LM_TOL_F32:g}); counts {n32}")
+    out["timing"] = _wkv_timing(torch.Generator(device="cuda").manual_seed(16))
+    out["long"] = _rwkv_long(smi, cfg, model, out)
+    launches += out["long"]["counts"]["wkv6"]
+    del model
+    torch.cuda.empty_cache()
+
+    n = cfg.n_layers
+    bad = []
+    if counts != {"wkv6": n * LM_GEN, "wkv6_plain": 0} or \
+            out["prefill_counts"] != {"wkv6": n, "wkv6_plain": 0} or \
+            out["step_counts"] != {"wkv6": n, "wkv6_plain": 0}:
+        bad.append(f"counts {counts}, a prefill {out['prefill_counts']}, a step "
+                   f"{out['step_counts']}: want {n} launches a prefill and {n} a step, no "
+                   "plain call")
+    if layer["y_max"] > RWKV_LAYER_TOL or layer["state_max"] > RWKV_LAYER_TOL:
+        bad.append(f"a layer's kernel output parts from the plain recurrence by "
+                   f"{max(layer['y_max'], layer['state_max']):.3e}")
+    if layer["u0_refused"] != layer["calls"]:
+        bad.append(f"the gate passes the u = 0 control in "
+                   f"{layer['calls'] - layer['u0_refused']} calls")
+    if max(logit_gaps) > bound or not all(bool(torch.isfinite(x).all())
+                                          for x in kept["logits"]):
+        bad.append(f"logits gap {max(logit_gaps):.3e} > {bound:.3e}, or non-finite")
+    if out["u0_gap_max"] <= bound:
+        bad.append(f"the logits bound passes the kernel with u = 0 ({out['u0_gap_max']:.3e})")
+    if not same or max(gaps32) > LM_TOL_F32 or n32 != {"wkv6": n * RWKV_F32_GEN,
+                                                       "wkv6_plain": 0}:
+        bad.append(f"f32: same tokens {same}, gap {max(gaps32):.3e}, counts {n32}")
+    if tuple(kept["tokens"].shape) != (LM_BATCH, LM_GEN) or \
+            tuple(kept["logits"][0].shape) != (LM_BATCH, 1, cfg.vocab):
+        bad.append(f"tokens {tuple(kept['tokens'].shape)}, prefill logits "
+                   f"{tuple(kept['logits'][0].shape)}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"[{smi}] RWKV: (a) and (b) on one card in {out['phase_s']:.3f} s")
+    if bad:
+        fail("RWKV (a): " + "; ".join(bad))
+    out["max_abs_err"] = layer["max_abs"]
+    return out, kept, launches
+
+
+def _rwkv_ranks(ctx, forced, forced32):
+    """Phase 16 (c) on this rank of 2x2: rwkv6-3b's shards (each rank its
+    20 heads and their WKV state, FSDP over ``data``), served from phase
+    8's prompts teacher-forced with (a)'s tokens: bf16 MESH_GEN tokens, f32
+    at LM_PROMPT_F32, and both again with the control taking the first
+    heads' decay."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve
+    from repro_torch.models import rwkv as RW
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(RWKV_ARCH)
+    run, model, _ = M.rank_setup(cfg, ctx, None)
+    tokens = serve.prompt_tokens(cfg, LM_BATCH, LM_PROMPT, ctx.device)
+    out = {"heads": T.rwkv_tp(cfg, run).heads,
+           "bf16": _serve_part(ctx, cfg, run, model, tokens, forced, MESH_GEN)}
+    out["bf16_control"] = _patched(RW, "decay", _first_heads, lambda: _serve_part(
+        ctx, cfg, run, model, tokens, forced, MESH_GEN, timed=False))
+    cfg32, t32 = dataclasses.replace(cfg, compute_dtype="float32"), tokens[:, :LM_PROMPT_F32]
+    out["f32"] = _serve_part(ctx, cfg32, run, model, t32, forced32, RWKV_MESH_F32_GEN,
+                             timed=False)
+    out["control"] = _patched(RW, "decay", _first_heads, lambda: _serve_part(
+        ctx, cfg32, run, model, t32, forced32, RWKV_MESH_F32_GEN, timed=False))
+    del model
+    return out
+
+
+def _rwkv_rank_args(kept):
+    """The arguments (c)'s ranks take: (a)'s tokens, bf16 and f32."""
+    return (kept["tokens"].numpy(), kept["f32_tokens"].numpy())
+
+
+def rwkv_mesh(smi, one, kept, ranks):
+    """Phase 16 (c)'s gates, from the ranks' results: returns the launches
+    of the main path's runs summed over the ranks."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(RWKV_ARCH)
+    r0 = ranks[0]
+    logits = {k: [torch.from_numpy(x) for x in r0[k]["logits"]]
+              for k in ("bf16", "bf16_control", "f32", "control")}
+    gaps = {"bf16": _logit_gaps(kept["logits"][:MESH_GEN], logits["bf16"]),
+            "bf16_control": _logit_gaps(kept["logits"][:MESH_GEN], logits["bf16_control"]),
+            "bf16_vs_halves": _logit_gaps(kept["halves_logits"], logits["bf16"]),
+            "f32": _logit_gaps(kept["f32_logits"][:RWKV_MESH_F32_GEN], logits["f32"]),
+            "control": _logit_gaps(kept["f32_logits"][:RWKV_MESH_F32_GEN],
+                                   logits["control"])}
+    b = r0["bf16"]
+    say(f"[{smi}] RWKV (c) serving 2x2 (4 ranks on one card, 20 heads a rank) bf16 "
+        f"B={LM_BATCH} prompt={LM_PROMPT} gen={MESH_GEN}, teacher-forced with (a)'s tokens: "
+        f"prefill {b['prefill_ms']:.3f} ms, decode {b['decode_ms_per_step']:.3f} ms/step on "
+        f"rank 0 ((a) at 1x1: {one['decode_ms_per_step']:.3f}); state a rank "
+        f"{b['cache_bytes']} B {b['cache_shape']} ((a) whole: {one['state_bytes']} B); a "
+        f"decode step's {b['decode_step_counts']}; counts {b['counts']}; heads by rank "
+        f"{[r['heads'] for r in ranks]}")
+    refused = max(gaps["control"]) > LM_TOL_F32
+    above16 = max(gaps["bf16_control"]) > one["mesh_bound"]
+    say(f"[{smi}] RWKV (c) logits against (a)'s 1x1: bf16 prefill {gaps['bf16'][0]:.3e}, "
+        f"decode max {max(gaps['bf16'][1:]):.3e} (bound {one['mesh_bound']:.3e} of "
+        f"max|logit|, from (a)'s control with 2x2's row-parallel roundings, whose gap is "
+        f"{max(one['mesh_drift']):.3e}; against that control itself "
+        f"{max(gaps['bf16_vs_halves']):.3e}); the same bf16 run with every rank the first "
+        f"heads' decay: max {max(gaps['bf16_control']):.3e} (shown, not gated: "
+        f"{'above' if above16 else 'within'} the bound); f32 (prompt {LM_PROMPT_F32}, "
+        f"{RWKV_MESH_F32_GEN} tokens) max {max(gaps['f32']):.3e} (tol {LM_TOL_F32:g}); "
+        f"control, the same f32 run with every rank the first heads' decay: max "
+        f"{max(gaps['control']):.3e}: {'refused' if refused else 'PASSED'}")
+    bad = []
+    launches = {"wkv6": 0, "ring_send": 0, "ring_land": 0}
+    for r in ranks:
+        for key, gen in (("bf16", MESH_GEN), ("f32", RWKV_MESH_F32_GEN)):
+            c = r[key]["counts"]
+            if c["wkv6"] != cfg.n_layers * gen or c["wkv6_plain"]:
+                bad.append(f"{key} rank counts {c}: want {cfg.n_layers * gen} launches")
+            for k in launches:
+                launches[k] += c[k]
+    if max(gaps["bf16"]) > one["mesh_bound"]:
+        bad.append(f"bf16 logits gap {max(gaps['bf16']):.3e} > {one['mesh_bound']:.3e}")
+    if max(gaps["f32"]) > LM_TOL_F32:
+        bad.append(f"f32 logits gap {max(gaps['f32']):.3e} > {LM_TOL_F32}")
+    if not refused:
+        bad.append("the gate passes the control whose ranks take the first heads' decay")
+    half = cfg.n_heads // 2  # rank i's model coordinate is i % 2
+    if [r["heads"] for r in ranks] != [(i % 2 * half, half) for i in range(len(ranks))]:
+        bad.append(f"heads by rank {[r['heads'] for r in ranks]}")
+    one["mesh"] = {"gaps": gaps, "refused": refused, "bf16_control_above_bound": above16,
+                   **{k: {kk: vv for kk, vv in r0[k].items() if kk not in ("logits", "tokens")}
+                      for k in ("bf16", "bf16_control", "f32", "control")}}
+    if bad:
+        fail("RWKV (c): " + "; ".join(bad))
+    return launches
+
+
 REPLACES = {"flash_attention": "src/repro/kernels/attention.py:68",
             "fft_radix2": "src/repro/kernels/fft_radix2.py:90",
             "fft_mxu": "src/repro/kernels/fft_mxu.py:80",
             "ring_payload": "src/repro/kernels/ring_rdma.py:153",
             "ring_send": "src/repro/kernels/ring_rdma.py:88",
-            "ring_land": "src/repro/kernels/ring_rdma.py:101"}
+            "ring_land": "src/repro/kernels/ring_rdma.py:101",
+            # no Pallas kernel: the reference's lax.scan of the recurrence
+            "wkv6": "src/repro/models/rwkv.py:90"}
 
 
 def main(argv) -> int:
@@ -5577,14 +6239,30 @@ def main(argv) -> int:
         return 0
     if argv == [LM_ONLY]:
         lm, lm_kept = lm_serving(float("nan"))
+        rwkv, rwkv_kept, _ = rwkv_lm(smi)
         trained, _ = training(smi)
-        sharded_lm(smi, trained, lm_kept)
+        sharded, _ = sharded_lm(smi, trained, lm_kept, rwkv_kept)
+        rwkv_mesh(smi, rwkv, rwkv_kept, sharded.pop("rwkv_ranks"))
         mla, mla_kept, _ = mla_lm(smi)
         moe, _ = moe_lm(smi, mla_kept)
         mla_mesh(smi, mla, mla_kept, moe.pop("mla_ranks"))
         return 0
     if argv == [MOE_ONLY]:
         moe_lm(smi)
+        return 0
+    if argv == [RWKV_ONLY]:
+        from repro_torch import dist
+
+        from repro_torch.kernels import _build
+
+        _build.build_all(["wkv6"])
+        wkv_ptxas(_build.build_log("wkv6"))
+        rwkv, rwkv_kept, _ = rwkv_lm(smi)
+        t0 = time.perf_counter()
+        ranks = dist.run_ranks(_rwkv_ranks, 2, 2, device="cuda",
+                               args=_rwkv_rank_args(rwkv_kept), timeout=900)
+        say(f"RWKV (c): its own spawn in {time.perf_counter() - t0:.3f} s")
+        rwkv_mesh(smi, rwkv, rwkv_kept, ranks)
         return 0
     if argv == [MLA_ONLY]:
         from repro_torch import dist
@@ -5631,6 +6309,7 @@ def main(argv) -> int:
     lm, lm_kept = timed("8 LM serving", lm_serving, flash_rel)
     launches["flash_attention"] = lm["counts"]["flash_attention"] + \
         lm["int8"]["counts"]["flash_attention"]
+    rwkv, rwkv_kept, launches["wkv6"] = timed("16 RWKV (a), (b)", rwkv_lm, smi)
     tuned = timed("9 tuning", tuning, runs, ranks, tune_backends)
     served, serve_launches = timed("10 serving", serving, smi)
     for k, n in serve_launches.items():
@@ -5640,8 +6319,13 @@ def main(argv) -> int:
         launches[k] += n
     trained, launches_trained = timed("12 training", training, smi)
     launches["flash_attention"] += launches_trained
-    sharded, sharded_launches = timed("13 sharded LM", sharded_lm, smi, trained, lm_kept)
+    sharded, sharded_launches = timed("13 sharded LM with 16 (c)", sharded_lm, smi, trained,
+                                      lm_kept, rwkv_kept)
     for k, n in sharded_launches.items():
+        launches[k] += n
+    rwkv_mesh_launches = timed("16 (c) gates", rwkv_mesh, smi, rwkv, rwkv_kept,
+                               sharded.pop("rwkv_ranks"))
+    for k, n in rwkv_mesh_launches.items():
         launches[k] += n
     mla, mla_kept, mla_launches = timed("15 MLA (a), (b)", mla_lm, smi)
     launches["flash_attention"] += mla_launches
@@ -5679,6 +6363,12 @@ def main(argv) -> int:
         "max_abs_err": max_abs["flash_attention"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"]})
+    t = rwkv["timing"][0]  # the prefill shape
+    kernels.append({
+        "name": "wkv6", "route": "cuda", "source": "src/repro_torch/csrc/wkv6.cu",
+        "replaces": REPLACES["wkv6"], "launches": launches["wkv6"],
+        "max_abs_err": rwkv["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None})
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump({"card": smi, "device": name,
@@ -5690,7 +6380,7 @@ def main(argv) -> int:
                    "staged": staged_ranks, "flash_bf16_gaps": flash_gaps, "lm": lm,
                    "tuning": tuned, "serving": served, "fleet": fleeted,
                    "training": trained, "sharded_lm": sharded, "moe": moe,
-                   "mla": mla, "phase_s": phase_s},
+                   "mla": mla, "rwkv": rwkv, "phase_s": phase_s},
                   f, indent=1)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -24,7 +24,16 @@ lie over ``model``, its dispatch and combine all-to-alls over it
 (:mod:`repro_torch.models.moe`); deepseek-v2-lite's MLA cuts its heads
 over ``model`` and keeps the compressed cache (c_kv and k_rope a token,
 :mod:`repro_torch.models.mla`) whole there; a batch whose rows do not
-divide over ``data`` lies whole on every rank.
+divide over ``data`` lies whole on every rank.  rwkv6-3b (RWKV-6,
+:mod:`repro_torch.models.rwkv`) decodes from an O(1) state a layer, its
+recurrence the ``wkv6`` kernel; its cache has no time axis, so a long
+prompt costs the prefill's time and nothing in the decode's memory.  On
+a mesh each rank computes its heads and holds their WKV state::
+
+    PYTHONPATH=src python3 -m repro_torch.launch.serve --arch rwkv6-3b \
+        --batch 1 --prompt-len 524288 --gen 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+        --smoke --device cpu --mesh 2x2
 
 The int8 KV cache and the sequence-sharded decode take no flag, as in the
 reference: :func:`generate` serves a config with ``kv_quant`` from an int8
@@ -77,7 +86,8 @@ def prompt_tokens(cfg, b: int, s: int, device, seed: int = 0) -> torch.Tensor:
 def generate(cfg, run: RunCfg, model, tokens: torch.Tensor, gen: int, *,
              forced: torch.Tensor | None = None, keep_logits: bool = False):
     """Prefill ``tokens`` (B, S), then ``gen - 1`` greedy decode steps: gen
-    tokens in all.  ``forced`` (B, gen) feeds those tokens instead of the
+    tokens in all (the cache sized for S + gen positions; an RWKV state
+    has none).  ``forced`` (B, gen) feeds those tokens instead of the
     greedy ones (teacher forcing).  Returns a dict: ``tokens`` (B, gen),
     the greedy choices; ``logits``, the prefill's last-position logits and
     each step's, when ``keep_logits``; ``prefill_ms`` and ``decode_ms`` on

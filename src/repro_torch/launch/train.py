@@ -11,7 +11,11 @@ as the reference's ``PRNGKey(0)``; the values differ)::
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --steps 12 --batch 4 --seq 64 --mesh 2x2
 
-It prints the reference's lines (``step N loss … gnorm … lr …``,
+``--layers N`` (the port's, beside ``--device`` and ``--seed``; for
+bring-up and smoke runs, not a training setting: the reference's launcher
+has no such option) trains the config cut to its first N layers at full
+width, so that a check on one card fits its time.  It prints the
+reference's lines (``step N loss … gnorm … lr …``,
 ``[resume] from step N``, ``[halt] …``, ``[done] …``) and returns the
 losses.  Resume is automatic: if the checkpoint directory has a LATEST
 pointer, training continues from it.  Checkpoints hold ``(params,
@@ -31,7 +35,8 @@ dense decoders do, its experts over ``model`` (expert-parallel on a mesh:
 :mod:`repro_torch.models.moe`); so does deepseek-v2-lite, its MLA's heads
 over ``model`` (:mod:`repro_torch.models.mla`) and its leading dense block
 a stack of its own (``first_blocks``); the architectures other than the
-uniform decoders are not ported yet (ROADMAP Queue 1 item 11)::
+uniform decoders are not ported yet (ROADMAP Queue 1 item 11; RWKV, which
+the port serves, trains with item 11.6b)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b \
         --smoke --device cpu --steps 4 --batch 4 --seq 32 --mesh 2x2
@@ -42,6 +47,7 @@ uniform decoders are not ported yet (ROADMAP Queue 1 item 11)::
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -170,6 +176,10 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--seed", type=int, default=0, help="init seed")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="bring-up and smoke runs only: train the config cut to "
+                         "its first N layers, full width (0: all of them; the "
+                         "reference's launcher has no such option)")
     return ap.parse_args(argv)
 
 
@@ -179,7 +189,9 @@ def train(args, ctx=None) -> list:
     whose grid is ``args.mesh``) as one rank of the mesh.  Returns the
     losses."""
     cfg = get_config(args.arch, smoke=args.smoke)
-    check_supported(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    check_supported(cfg, training=True)
     run, model, device = M.rank_setup(cfg, ctx, args.device, seed=args.seed,
                                       remat=cfg.remat)
     lead = ctx is None or ctx.rank == 0

@@ -7,7 +7,9 @@ them as numpy arrays (``jax.tree.map(np.asarray, params)``; nothing here
 imports JAX), unstacks each stack into the port's per-layer modules and
 keeps every other layout
 as it is (``wq`` (d, H, Dh), ``wo`` (H, Dh, d), ...), so that the port's
-einsums match the JAX ones term for term.  :func:`params_to_jax_tree` is
+einsums match the JAX ones term for term; RWKV's tree (``ln0``,
+``blocks.<i>.tm.*``, ``blocks.<i>.cm.*``) too, its ``u`` and ``w0`` (d,) as
+the reference keeps them.  :func:`params_to_jax_tree` is
 its inverse: the JAX tree of any ``{port name: tensor}`` mapping (the
 parameters, or an optimizer moment beside them), the layout in which the
 trainer writes checkpoints, so that either package resumes the other's

@@ -7,7 +7,8 @@ RMSNorm or RMSNorm(1 + w), optional embedding scale, tied or untied head;
 qwen3-moe: a Mixture of Experts as every block's feed-forward,
 :mod:`repro_torch.models.moe`; deepseek-v2-lite: Multi-head Latent
 Attention, :mod:`repro_torch.models.mla`, its ``first_dense`` leading
-dense blocks and its shared experts).
+dense blocks and its shared experts; rwkv6-3b: RWKV-6 blocks,
+:mod:`repro_torch.models.rwkv`, served only).
 Layers run as a Python loop over an ``nn.ModuleList`` a stack
 (``first_blocks``, then ``blocks``: :data:`repro_torch.models.common.STACKS`)
 where JAX scans over each stack's layer-stacked params; each block's
@@ -47,8 +48,26 @@ new entry where its slab holds it and combines the slabs' softmaxes by
 log-sum-exp (:func:`_attn_decode`,
 :func:`repro_torch.models.layers.decode_attention_seqsharded`).
 
+RWKV (``mixer="rwkv"``, the reference's RWKV branches): ``ln0`` after the
+embedding, then blocks of a time mix and a channel mix, each after its
+LayerNorm.  Its decode cache is a state a layer, O(1) in the sequence's
+length: the token-shift buffers ``x_tm`` and ``x_cm`` (the last ln1 and
+ln2 outputs, (L, B, d), compute dtype) and the WKV matrix ``wkv`` (L, B,
+H, K, K) f32; ``len`` counts positions.  Its recurrence is the ``wkv6``
+kernel (:mod:`repro_torch.kernels.wkv`), one launch a layer for the
+prefill and one a layer a decode step.  A block runs the prompt in chunks
+of at most :data:`SEQ_CHUNK_TOKENS` tokens, carrying the state, so that a
+long prompt (``long_500k``'s 524288 positions) holds a chunk's
+activations, not the whole prompt's.  On a mesh each rank computes its
+block of the heads (:func:`rwkv_tp`) and holds its heads' part of
+``wkv``: the cache's heads are cut over ``model`` beside the reference's
+``cache_specs``, which cut the states over the data axes only.  That
+changes memory, not values.  RWKV training is not ported (the kernel's
+backward: ``lm_loss`` and ``launch/train.py`` raise, naming ROADMAP Queue 1
+item 11.6b).
+
 Configs outside this path raise ``NotImplementedError`` naming ROADMAP
-Queue 1 item 11: RWKV, the Jamba hybrid (MoE every other layer), Whisper's
+Queue 1 item 11: the Jamba hybrid (MoE every other layer), Whisper's
 encoder–decoder and the VLM ``embeds`` input.
 """
 
@@ -71,9 +90,13 @@ from repro_torch.models import kvquant as KQ
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv as RW
 from repro_torch.models.common import STACKS
 
 LM_ITEM = "ROADMAP Queue 1 item 11"
+#: the most tokens (rows × positions) an RWKV block takes at once in the
+#: prefill: a longer prompt runs in chunks, its state carried
+SEQ_CHUNK_TOKENS = 1 << 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +112,8 @@ class RunCfg:
     ``remat`` is on too, as JAX's.  ``plain_attention`` sends the
     forward's attention through the kernel's plain version on any device;
     it is off on the main path and exists to compare the two.
+    ``plain_wkv`` sends RWKV's recurrence through the ``wkv6`` kernel's
+    plain version on any device, likewise to compare the two.
     ``split_batch`` (on a mesh): the batch's rows are cut over the data
     axes; off, every rank holds the whole batch (serving a batch that does
     not divide over them, :func:`batch_run`; :func:`local_rows` and
@@ -99,6 +124,7 @@ class RunCfg:
     mesh: SH.Mesh | None = None
     per_pod: bool = False
     plain_attention: bool = False
+    plain_wkv: bool = False
     remat: bool = True
     split_batch: bool = True
     seq_shard_kv: bool = False
@@ -123,12 +149,13 @@ class RunCfg:
         return SH.mesh_axes(self.mesh)[1] if self.mesh is not None else ("model",)
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for what this slice does not run."""
+def check_supported(cfg: ArchConfig, *, training: bool = False) -> None:
+    """Raise for what this slice does not run (with ``training``, for what
+    it does not train: RWKV)."""
     left = []
     if cfg.moe is not None and cfg.moe.every != 1:
         left.append("MoE with dense blocks among its layers")
-    if cfg.mixer != "attn":
+    if cfg.mixer not in ("attn", "rwkv"):
         left.append(f"mixer {cfg.mixer!r}")
     if cfg.encdec:
         left.append("encoder-decoder")
@@ -137,7 +164,11 @@ def check_supported(cfg: ArchConfig) -> None:
     if left:
         raise NotImplementedError(
             f"{cfg.arch_id}: {', '.join(left)} not ported yet ({LM_ITEM}); the "
-            "port runs the uniform decoder, dense or MoE, GQA or MLA")
+            "port runs the uniform decoder, dense or MoE, GQA or MLA, and serves RWKV")
+    if training and cfg.mixer == "rwkv":
+        raise NotImplementedError(
+            f"{cfg.arch_id}: RWKV training (the wkv6 kernel's backward) not ported yet "
+            f"({LM_ITEM}.6b); the port serves it")
     if _quantized(cfg) and stack_sizes(cfg)["first_blocks"]:
         raise ValueError(
             f"{cfg.arch_id}: the int8 KV cache (kv_quant) with first_dense leading "
@@ -147,8 +178,9 @@ def check_supported(cfg: ArchConfig) -> None:
 
 def _quantized(cfg: ArchConfig) -> bool:
     """The decode cache is int8 with scales: ``kv_quant`` on a GQA model
-    (MLA keeps its compressed cache, as the reference's ``init_cache``)."""
-    return cfg.kv_quant and cfg.attn_kind == "gqa"
+    (MLA keeps its compressed cache, as the reference's ``init_cache``;
+    RWKV has no KV cache)."""
+    return cfg.kv_quant and cfg.attn_kind == "gqa" and cfg.mixer == "attn"
 
 
 def _dt(cfg: ArchConfig) -> torch.dtype:
@@ -180,6 +212,10 @@ def mla_dims(cfg: ArchConfig) -> MLA.MLADims:
                        kv_lora_rank=m.kv_lora_rank, qk_nope_dim=m.qk_nope_dim,
                        qk_rope_dim=m.qk_rope_dim, v_head_dim=m.v_head_dim,
                        rope_base=cfg.rope_base)
+
+
+def rwkv_dims(cfg: ArchConfig) -> RW.RWKVDims:
+    return RW.RWKVDims(d_model=cfg.d_model, n_heads=cfg.n_heads, d_ff=cfg.d_ff)
 
 
 def stack_sizes(cfg: ArchConfig) -> dict:
@@ -247,11 +283,25 @@ class Block(nn.Module):
             self.ff = L.MLP(ini, cfg.d_model, cfg.d_ff, cfg.mlp_type)
 
 
+class RWKVBlock(nn.Module):
+    """``_init_rwkv_block`` (``transformer.py:127``): ``ln1``, ``ln2``, the
+    time mix ``tm`` and the channel mix ``cm``."""
+
+    def __init__(self, ini, cfg: ArchConfig, stack: str):
+        super().__init__()
+        self.stack = stack
+        self.ln1 = Norm(ini, cfg)
+        self.ln2 = Norm(ini, cfg)
+        self.tm = RW.RWKVTimeMix(ini, rwkv_dims(cfg))
+        self.cm = RW.RWKVChannelMix(ini, rwkv_dims(cfg))
+
+
 class Transformer(nn.Module):
-    """``init_model``'s uniform branch: ``embed`` (vocab, d), ``final_norm``,
-    ``head`` (d, vocab) unless tied, ``first_blocks`` (a MoE config's
-    ``first_dense`` dense blocks; empty otherwise) and ``blocks`` (one
-    :class:`Block` a layer where JAX stacks each on a leading axis).  With
+    """``init_model``'s uniform and RWKV branches: ``embed`` (vocab, d),
+    ``final_norm``, ``head`` (d, vocab) unless tied, RWKV's ``ln0``,
+    ``first_blocks`` (a MoE config's ``first_dense`` dense blocks; empty
+    otherwise) and ``blocks`` (one :class:`Block`, or :class:`RWKVBlock`, a
+    layer where JAX stacks each on a leading axis).  With
     ``mesh`` each parameter is cut to this rank's shard
     (:func:`shard_model`) as soon as its block (or the top-level leaves) is
     made, so that no more than a block's whole parameters are ever held."""
@@ -268,13 +318,16 @@ class Transformer(nn.Module):
         self.final_norm = Norm(ini, cfg)
         if not cfg.tie_embeddings:
             self.head = ini.param((d, cfg.vocab))
+        if cfg.mixer == "rwkv":
+            self.ln0 = Norm(ini, cfg)
         if specs is not None:
             _shard_params(self, "", specs, mesh)
+        kind = RWKVBlock if cfg.mixer == "rwkv" else Block
         for stack, n in stack_sizes(cfg).items():
             blocks = nn.ModuleList()
             setattr(self, stack, blocks)
             for i in range(n):
-                blocks.append(Block(ini, cfg, stack))
+                blocks.append(kind(ini, cfg, stack))
                 if specs is not None:
                     _shard_params(blocks[i], f"{stack}.{i}.", specs, mesh)
 
@@ -523,6 +576,27 @@ def mlp_tp(cfg: ArchConfig, run: RunCfg, prefix: str = "ff.") -> L.TP:
 
 
 @functools.lru_cache(maxsize=None)
+def rwkv_tp(cfg: ArchConfig, run: RunCfg) -> RW.RWKVTP:
+    """How the model axes cut an RWKV block on ``run.mesh``: the time mix's
+    heads (``Wr``'s columns; this rank's block of whole heads), the channel
+    mix's ``mlp`` (``Wk``'s columns) and ``embed_out`` (``Wr``'s)."""
+    if run.mesh is None:
+        return RW.NO_TP
+    bs = block_specs(cfg, run.mesh, "blocks")
+    axes = _tp_axes(run, bs["tm.Wr"][1])
+    heads = None
+    if axes:
+        idx, count = SH.shard_index(axes, run.mesh)
+        if cfg.n_heads % count:
+            raise ValueError(f"{cfg.arch_id}: the model axes {axes} ({count} ranks) cut "
+                             f"{cfg.n_heads} RWKV heads mid-head")
+        hl = cfg.n_heads // count
+        heads = (idx * hl, hl)
+    return RW.RWKVTP(axes=axes, heads=heads, mlp_axes=_tp_axes(run, bs["cm.Wk"][1]),
+                     out_axes=_tp_axes(run, bs["cm.Wr"][1]))
+
+
+@functools.lru_cache(maxsize=None)
 def expert_block(cfg: ArchConfig, run: RunCfg) -> tuple:
     """(model axes, first expert) of this rank's block of a MoE block's
     experts on ``run.mesh``, and the router's model axes; ``((), 0, ())``
@@ -543,7 +617,13 @@ def cache_shapes(cfg: ArchConfig, b: int, t: int) -> dict:
     (the reference's ``init_cache``): k and v (L, B, T, Hkv, Dh), with
     ``kv_quant`` also their scales ``k_scale``, ``v_scale`` (L, B, T, Hkv,
     1); MLA's k the latents (L, B, T, kv_lora_rank) and v the RoPE keys
-    (L, B, T, qk_rope_dim), the first stack's layers before the rest."""
+    (L, B, T, qk_rope_dim), the first stack's layers before the rest;
+    RWKV's states, no time axis: ``x_tm``, ``x_cm`` (L, B, d) and ``wkv``
+    (L, B, H, K, K)."""
+    if cfg.mixer == "rwkv":
+        hs = rwkv_dims(cfg).head_size
+        d = (cfg.n_layers, b, cfg.d_model)
+        return {"x_tm": d, "wkv": (cfg.n_layers, b, cfg.n_heads, hs, hs), "x_cm": d}
     if cfg.attn_kind == "mla":
         m = cfg.mla
         return {"k": (cfg.n_layers, b, t, m.kv_lora_rank),
@@ -557,7 +637,9 @@ def cache_shapes(cfg: ArchConfig, b: int, t: int) -> dict:
 
 def cache_dtypes(cfg: ArchConfig) -> dict:
     """Each cache entry's dtype: the compute dtype; with ``kv_quant`` int8
-    k and v and f32 scales."""
+    k and v and f32 scales; RWKV's ``wkv`` f32."""
+    if cfg.mixer == "rwkv":
+        return {"x_tm": _dt(cfg), "wkv": torch.float32, "x_cm": _dt(cfg)}
     if _quantized(cfg):
         return {"k": torch.int8, "v": torch.int8, "k_scale": torch.float32,
                 "v_scale": torch.float32}
@@ -567,19 +649,27 @@ def cache_dtypes(cfg: ArchConfig) -> dict:
 def cache_layout(cfg: ArchConfig, run: RunCfg, b: int, t: int = 1) -> dict:
     """The decode cache's specs on ``run.mesh`` (the reference's
     ``cache_specs`` for a cache of ``b`` rows and ``t`` positions, its
-    time axis cut where :func:`time_cut` cuts it)."""
+    time axis cut where :func:`time_cut` cuts it; RWKV's ``wkv`` also cut
+    over the model axes of its heads, :func:`rwkv_tp`)."""
     shapes = {k: torch.empty(s, device="meta") for k, s in cache_shapes(cfg, b, t).items()}
-    return SH.cache_specs(run.mesh, shapes, cfg,
-                          seq_shard=time_cut(cfg, run) is not None)
+    specs = SH.cache_specs(run.mesh, shapes, cfg, seq_shard=time_cut(cfg, run) is not None)
+    if cfg.mixer == "rwkv":
+        axes = rwkv_tp(cfg, run).axes
+        if axes:
+            spec = list(specs["wkv"])
+            spec[2] = axes if len(axes) > 1 else axes[0]
+            specs["wkv"] = tuple(spec)
+    return specs
 
 
 def time_cut(cfg: ArchConfig, run: RunCfg):
     """``(axes, index, count)`` of this rank's slab of the cache's time
     axis where ``run.seq_shard_kv`` cuts it (the data axes of
     ``cache_specs``, a GQA cache: MLA's compressed cache stays whole, as
-    the reference's MLA decode never takes the sequence-sharded path);
-    None where it is whole."""
-    if not run.seq_shard_kv or run.mesh is None or cfg.attn_kind != "gqa":
+    the reference's MLA decode never takes the sequence-sharded path; RWKV
+    has no time axis); None where it is whole."""
+    if not run.seq_shard_kv or run.mesh is None or cfg.attn_kind != "gqa" \
+            or cfg.mixer != "attn":
         return None
     axes = SH.cache_batch_axes(run.mesh)
     idx, count = SH.shard_index(axes, run.mesh)
@@ -832,8 +922,12 @@ def forward(cfg: ArchConfig, run: RunCfg, params: Transformer, batch, *,
     ``last_only`` computes the head on the last position only.  Without a
     cache and with grad enabled, the blocks are rematerialised where
     ``run.remat`` and ``cfg.remat`` are both on (:func:`_scan_blocks`).  On
-    a vocab block the logits are this rank's block of the vocab."""
+    a vocab block the logits are this rank's block of the vocab.  RWKV:
+    :func:`_rwkv_forward`."""
     check_supported(cfg)
+    if cfg.mixer == "rwkv":
+        return _rwkv_forward(cfg, run, params, batch, collect_cache=collect_cache,
+                             last_only=last_only)
     cd = _dt(cfg)
     tokens = batch["tokens"]
     top = _top_params(params, cfg, run)
@@ -889,6 +983,7 @@ def lm_loss(cfg: ArchConfig, run: RunCfg, params: Transformer, batch):
     reduce-scatter sums the shares).  On a vocab block the log-softmax is
     distributed: the max and the sum of exponentials all-reduced over the
     model axes, the gold logit taken where it lies."""
+    check_supported(cfg, training=True)
     logits, _ = forward(cfg, run, params, batch)
     logits = logits.float()[:, :-1]
     targets = batch["tokens"][:, 1:].long()
@@ -926,7 +1021,10 @@ def init_cache(cfg: ArchConfig, b: int, t_max: int, device="cuda",
 def pad_cache(cfg: ArchConfig, cache, s: int, t_max: int):
     """Pad a prefill cache's time axis (dim 2, whatever the entries' rank:
     5 for GQA, 4 for MLA) to t_max and set len=s: every entry, the int8
-    cache's scales too (the reference pads k and v only)."""
+    cache's scales too (the reference pads k and v only); RWKV's states
+    have no time axis: only ``len``."""
+    if cfg.mixer == "rwkv":
+        return dict(cache, len=s)
     out = dict(cache)
     for key, a in cache.items():
         if key != "len":
@@ -1015,8 +1113,10 @@ def decode_step(cfg: ArchConfig, run: RunCfg, params: Transformer, cache, tokens
     """One greedy-decode step. tokens: (B, 1) (on a mesh this rank's
     rows).  Returns (logits, cache); the cache's entries are updated in
     place, ``len`` grows by one.  On a vocab block the logits are this
-    rank's block of the vocab."""
+    rank's block of the vocab.  RWKV: :func:`_rwkv_decode`."""
     check_supported(cfg)
+    if cfg.mixer == "rwkv":
+        return _rwkv_decode(cfg, run, params, cache, tokens)
     cd = _dt(cfg)
     b = tokens.shape[0]
     clen = int(cache["len"])
@@ -1042,10 +1142,84 @@ def decode_step(cfg: ArchConfig, run: RunCfg, params: Transformer, cache, tokens
     return _head_out(top, cfg, run, y), dict(cache, len=clen + 1)
 
 
+def _rwkv_block_fwd(p, cfg: ArchConfig, run: RunCfg, x, state: dict):
+    """One RWKV block over x (B, S, d) from ``state`` (``x_tm``, ``wkv``,
+    ``x_cm`` of this layer), as ``_rwkv_block_fwd`` (``transformer.py:262``):
+    the time mix after ``ln1``, the channel mix after ``ln2``, each added to
+    the residual.  The time axis runs in chunks of at most
+    :data:`SEQ_CHUNK_TOKENS` tokens, the state carried from one to the next
+    (the same arithmetic as one pass).  Returns (x, the final state)."""
+    dims, tp = rwkv_dims(cfg), rwkv_tp(cfg, run)
+    b, s = x.shape[:2]
+    step = max(1, SEQ_CHUNK_TOKENS // b)
+    x_tm, wkv, x_cm = state["x_tm"], state["wkv"], state["x_cm"]
+    out = torch.empty_like(x)
+    for c0 in range(0, s, step):
+        xc = x[:, c0:c0 + step]
+        h = _apply_norm(p["ln1"], xc, cfg)
+        y, (x_tm, wkv) = RW.time_mix_seq(p["tm"], dims, h, x_tm, wkv, tp=tp,
+                                         plain=run.plain_wkv)
+        xc = xc + y
+        h = _apply_norm(p["ln2"], xc, cfg)
+        y, x_cm = RW.channel_mix_seq(p["cm"], h, x_cm, tp=tp)
+        out[:, c0:c0 + step] = xc + y
+    return out, {"x_tm": x_tm, "wkv": wkv, "x_cm": x_cm}
+
+
+def _rwkv_forward(cfg: ArchConfig, run: RunCfg, params: Transformer, batch, *,
+                  collect_cache: bool, last_only: bool):
+    """RWKV's forward (``transformer.py:378``): ``ln0`` after the
+    embedding, then each block from a zero state; the cache (this rank's
+    part, :func:`cache_layout`) holds each layer's final state."""
+    cd = _dt(cfg)
+    top = _top_params(params, cfg, run)
+    x = _apply_norm(top["ln0"], _embed_tokens(top, cfg, run, batch["tokens"]), cfg)
+    shapes = _cache_shapes(cfg, run, x.shape[0], 1)
+    dtypes = cache_dtypes(cfg)
+    cache = None
+    if collect_cache:
+        cache = {k: torch.empty(shape, dtype=dtypes[k], device=x.device)
+                 for k, shape in shapes.items()}
+    for i, block in enumerate(_layers(params)):
+        zero = {k: torch.zeros(shape[1:], dtype=dtypes[k], device=x.device)
+                for k, shape in shapes.items()}
+        x, state = _rwkv_block_fwd(_block_params(block, cfg, run, cd), cfg, run, x, zero)
+        if cache is not None:
+            for k, t in state.items():
+                cache[k][i] = t
+    if last_only:
+        x = x[:, -1:]
+    x = _apply_norm(top["final_norm"], x, cfg)
+    return _head_out(top, cfg, run, x), cache
+
+
+def _rwkv_decode(cfg: ArchConfig, run: RunCfg, params: Transformer, cache, tokens):
+    """RWKV's decode step (``transformer.py:584``): each layer's time mix
+    and channel mix over one token from its state, the recurrence at S = 1;
+    the states updated in place (the new ``x_tm`` is ``ln1``'s output)."""
+    cd = _dt(cfg)
+    dims, tp = rwkv_dims(cfg), rwkv_tp(cfg, run)
+    top = _top_params(params, cfg, run)
+    y = _apply_norm(top["ln0"], _embed_tokens(top, cfg, run, tokens)[:, 0], cfg)
+    for i, block in enumerate(_layers(params)):
+        bp = _block_params(block, cfg, run, cd)
+        h1 = _apply_norm(bp["ln1"], y, cfg)
+        a, wkv = RW.time_mix_step(bp["tm"], dims, h1, cache["x_tm"][i], cache["wkv"][i],
+                                  tp=tp, plain=run.plain_wkv)
+        y = y + a
+        h2 = _apply_norm(bp["ln2"], y, cfg)
+        c, x_cm = RW.channel_mix_step(bp["cm"], h2, cache["x_cm"][i], tp=tp)
+        y = y + c
+        cache["x_tm"][i], cache["wkv"][i], cache["x_cm"][i] = h1, wkv, x_cm
+    y = _apply_norm(top["final_norm"], y[:, None], cfg)
+    return _head_out(top, cfg, run, y), dict(cache, len=int(cache["len"]) + 1)
+
+
 def prefill(cfg: ArchConfig, run: RunCfg, params: Transformer, batch,
             t_max: int = 0):
     """Forward over the prompt; returns the last position's logits
-    (B, 1, vocab) and the cache padded to ``t_max`` with ``len`` = S."""
+    (B, 1, vocab) and the cache padded to ``t_max`` with ``len`` = S (an
+    RWKV cache has no time axis: ``t_max`` does not matter)."""
     logits, cache = forward(cfg, run, params, batch, collect_cache=True,
                             t_max=t_max, last_only=True)
     cache["len"] = batch["tokens"].shape[1]

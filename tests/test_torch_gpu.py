@@ -13,7 +13,7 @@ from repro_torch import dist
 from repro_torch.core import decomposition as dec
 from repro_torch.core import transpose as tr
 from repro_torch.configs import get_config
-from repro_torch.kernels import attention, fft_mxu, fft_radix2, ref, ring_rdma
+from repro_torch.kernels import attention, fft_mxu, fft_radix2, ref, ring_rdma, wkv
 from repro_torch.models import transformer as T
 from repro_torch.solvers import make_solver
 from repro_torch.solvers.base import observables_rel_err
@@ -624,3 +624,68 @@ def test_int8_cache_on_card_tracks_the_float_cache(cuda):
         lo, cache = T.decode_step(cfg, run, model, cache, tok)
         lq, cacheq = T.decode_step(cfgq, run, model, cacheq, tok)
     assert agree >= 7 * 2 and cacheq["len"] == 72
+
+
+def _wkv_inputs(cuda, b, s, h, k, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    r, kk, v = (torch.randn(b, s, h, k, device=cuda, generator=g).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(b, s, h, k, device=cuda, generator=g) - 1))
+    u = torch.randn(h, k, device=cuda, generator=g) * 0.5
+    state = torch.randn(b, h, k, k, device=cuda, generator=g) * 0.3
+    return r, kk, v, w, u, state
+
+
+@pytest.mark.parametrize("s", [1, 37, 300])
+@pytest.mark.parametrize("k", [16, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wkv6_kernel_matches_plain_version(cuda, no_tf32, dtype, k, s):
+    # one step, an odd count (a ragged last chunk of 32), several chunks;
+    # from a nonzero state: y and the final state within 1e-5 of the max
+    args = _wkv_inputs(cuda, 3, s, 5, k, dtype, seed=s + k)
+    launches = wkv.launches
+    y, st = wkv.wkv6(*args)
+    assert wkv.launches == launches + 1
+    yp, sp = wkv.wkv6_plain(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == st.dtype == torch.float32
+    assert float((y - yp).abs().max()) <= 1e-5 * float(yp.abs().max())
+    assert float((st - sp).abs().max()) <= 1e-5 * float(sp.abs().max())
+
+
+def test_wkv6_kernel_carries_its_state_bitwise(cuda):
+    # the recurrence over S steps equals its two halves with the state
+    # carried, bit for bit (the same arithmetic step by step)
+    r, k, v, w, u, state = _wkv_inputs(cuda, 2, 96, 4, 64, torch.bfloat16, seed=3)
+    y, st = wkv.wkv6(r, k, v, w, u, state)
+    y1, s1 = wkv.wkv6(*(x[:, :41].contiguous() for x in (r, k, v, w)), u, state)
+    y2, s2 = wkv.wkv6(*(x[:, 41:].contiguous() for x in (r, k, v, w)), u, s1)
+    assert torch.equal(y, torch.cat([y1, y2], 1)) and torch.equal(st, s2)
+
+
+def test_wkv6_kernel_refuses_other_head_sizes_and_autograd(cuda):
+    r, k, v, w, u, state = _wkv_inputs(cuda, 1, 4, 2, 32, torch.float32, seed=1)
+    with pytest.raises(ValueError, match="head size 32"):
+        wkv.wkv6(r, k, v, w, u, state)
+    r, k, v, w, u, state = _wkv_inputs(cuda, 1, 4, 2, 64, torch.float32, seed=1)
+    launches = wkv.launches
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11.6b"):
+        wkv.wkv6(r.requires_grad_(), k, v, w, u, state)
+    assert wkv.launches == launches
+
+
+def test_rwkv_model_on_card_launches_the_kernel_once_a_layer(cuda, no_tf32):
+    # rwkv6-3b's smoke config (K=16) in f32 on the card: a prefill and each
+    # decode step launch the kernel once a layer; the logits within 1e-4 of
+    # the plain recurrence's run
+    cfg = get_config("rwkv6-3b", smoke=True)
+    model = T.init_model(cfg, seed=0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator().manual_seed(2))
+    run, plain_run = T.RunCfg(), T.RunCfg(plain_wkv=True)
+    launches, plain = wkv.launches, wkv.plain_calls
+    lk, ck = T.prefill(cfg, run, model, {"tokens": tokens.to(cuda)})
+    lk2, ck = T.decode_step(cfg, run, model, ck, lk[:, -1].argmax(-1)[:, None])
+    assert (wkv.launches, wkv.plain_calls) == (launches + 2 * cfg.n_layers, plain)
+    lp, cp = T.prefill(cfg, plain_run, model, {"tokens": tokens.to(cuda)})
+    lp2, cp = T.decode_step(cfg, plain_run, model, cp, lk[:, -1].argmax(-1)[:, None])
+    for a, b in ((lk, lp), (lk2, lp2), (ck["wkv"], cp["wkv"])):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

@@ -271,7 +271,6 @@ def test_what_this_slice_leaves_out_names_its_roadmap_item():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--arch", "rwkv6-3b"], "Queue 1 item 11"),                 # RWKV
     (["--arch", "jamba-1.5-large-398b"], "Queue 1 item 11"),     # hybrid
     (["--arch", "whisper-small"], "Queue 1 item 11"),            # encdec
     (["--arch", "llava-next-34b"], "Queue 1 item 11"),           # embeds
@@ -298,6 +297,14 @@ def test_serve_runs_the_mla_slice(capsys):
     assert "prefill 32 tokens x4" in out and "decode  15 steps" in out and "sample:" in out
 
 
+def test_serve_runs_the_rwkv_slice(capsys):
+    # rwkv6-3b, refused until the RWKV slice, serves and prints its lines
+    toks = serve.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu"])
+    assert toks.shape == (4, 16)
+    out = capsys.readouterr().out
+    assert "prefill 32 tokens x4" in out and "decode  15 steps" in out and "sample:" in out
+
+
 def test_serve_runs_a_mesh():
     # the arguments refused until the sharding slice: 2 rank processes
     argv = ["--smoke", "--device", "cpu"]
@@ -311,6 +318,26 @@ def test_serve_runs_a_mesh():
 def test_train_refuses_what_is_not_ported(argv):
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         train.main(argv + ["--smoke", "--device", "cpu", "--steps", "1"])
+
+
+def test_train_refuses_rwkv_naming_its_item():
+    # RWKV serves, but its training waits for the kernel's backward
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 11\.6b"):
+        train.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu", "--steps", "1"])
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 11\.6b"):
+        T.check_supported(get_config("rwkv6-3b"), training=True)
+    T.check_supported(get_config("rwkv6-3b"))
+
+
+def test_train_runs_a_depth_cut(capsys):
+    # --layers trains the config cut to its first layers, at full width
+    argv = ["--smoke", "--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "16",
+            "--log-every", "1"]
+    losses = train.main(argv + ["--layers", "1"])
+    assert len(losses) == 2 and "[done]" in capsys.readouterr().out
+    assert losses != train.main(argv)  # the smoke config's 2 layers
+    assert train.parse_args(["--layers", "3"]).layers == 3
+    assert train.parse_args([]).layers == 0
 
 
 def test_train_runs_the_moe_slice(capsys):
