@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout (it imports ``src/repro_torch``; nothing of
-JAX or of the JAX package ``repro``).  It covers the seven kernels of the
+JAX or of the JAX package ``repro``).  It covers the eight kernels of the
 port's three main paths.  The solver step: ``fft_radix2`` (backend
 ``"pallas"``), ``fft_mxu`` (backend ``"mxu"``, the four-step FFT on the
 FP64 tensor cores), and the NIC engine's ``ring_payload``, ``ring_send``
@@ -14,7 +14,9 @@ serving and training: ``flash_attention`` (``csrc/flash_attention.cu``),
 the attention of every layer of the prefill and of every forward of a
 training step (deepseek-v2-lite's MLA in its decompressed form, at
 D=192); RWKV-6's recurrence, ``wkv6`` (``csrc/wkv6.cu``), once a
-layer in rwkv6-3b's prefill and each of its decode steps; sharded over a
+layer in rwkv6-3b's prefill and each of its decode steps and once a
+block forward in its training, and its gradient, ``wkv6_bwd`` (same
+source), once a layer a microbatch in the backward; sharded over a
 mesh of rank processes, the LM's collectives run on ``ring_send`` and
 ``ring_land`` too, the MoE's expert-parallel all-to-alls among them.  Phases, each
 fatal on failure:
@@ -118,7 +120,7 @@ fatal on failure:
    by element width shown beside them);
 8. LM serving — ``smollm-360m`` at full width and depth (random weights
    from seed 0, bf16 as configured) through ``repro_torch.launch.serve``:
-   batch 8, prompt 2048, 32 greedy tokens; the ``flash_attention`` counts
+   batch 8, prompt 2048, 16 greedy tokens; the ``flash_attention`` counts
    set to 0 just before and read just after (one launch a layer, no
    plain call, no pad copy); prefill ms, decode ms a step, tok/s, peak
    memory.  Then
@@ -164,12 +166,12 @@ fatal on failure:
    to 0 just before it and read just after.  (a) 1x1, heat N=512 f64
    (``fft512_p1``'s problem) on ``"pallas"`` and on ``"mxu"``: a solo
    step's memory first (``max_batch`` 4, cut where 4 lanes would take more
-   than 70 GiB), then a burst through ``run_load`` of 48 heat requests
+   than 70 GiB), then a burst through ``run_load`` of 24 heat requests
    (scale 1 + 0.25·(i mod 8), 3 steps: 12 batches of 4) and 2 nls N=256
    requests (another fingerprint); (b) the heat requests paced at 16
    requests/s (above what one-lane batches serve) through the scheduler
    thread, on ``"pallas"``; (c) 4 rank processes on 2x2, heat N=512 on run
-   (c)'s plan (``pallas_ring``, fused, chunks=3), 48 requests,
+   (c)'s plan (``pallas_ring``, fused, chunks=3), 24 requests,
    ``max_batch`` 2, rank 0 scheduling.  Gates: no request rejected or
    failed; every lane's streamed history bitwise (exact float equality,
    ``t`` included) a solo run of a request of its case and scale on the
@@ -189,7 +191,7 @@ fatal on failure:
    ``fleet.worker.main`` under ``torch.profiler``, which writes the kernel
    wrappers' counts, the kernels the profiler saw and the time of the
    attempt's first progress line beside the attempt's spec).  (a)
-   ``fft512_p1``'s problem, heat N=512 f64 on 1x1 ``"pallas"``, 2 jobs of 4
+   heat N=256 f64 on 1x1 ``"pallas"``, 2 jobs of 4
    steps at scales 1.0 and 1.25, a snapshot every 2 steps, run clean and
    then with ``kill-at-step:3``: every job completes; each chaos job in 2
    attempts with one crash of exit code 13; ``fleet.jobs.retried`` 2,
@@ -197,7 +199,7 @@ fatal on failure:
    included), the clean ones bitwise a solo in-process run of the same job;
    ``restore_latency_us`` > 0; every finished worker launched
    ``fft_radix2`` as often a step as the solo step and no plain version.
-   (b) one job at nls N=512 f64 on 2x1 ``pallas_ring``, fused (nls: all
+   (b) one job at nls N=256 f64 on 2x1 ``pallas_ring``, fused (nls: all
    its transforms are c2c, so the payload rides both grids; heat's would
    ride neither), run clean and then killed at step 3 and retried on 1x2
    (``reshape_on_retry``): it completes on 1x2, every step within 1e-10 of
@@ -257,13 +259,13 @@ fatal on failure:
    3e-2 of phase 12 (b)'s.  (c) Re-cut to (pod 2, data 1, model 2): 3
    steps with the int8 pod sync, the losses against (a)'s and the largest
    residual.  (d) Re-cut to 2x2: phase 8's prompts (B=8, prompt 2048)
-   for 4 tokens teacher-forced with phase 8's, one launch a layer a rank:
+   for 2 tokens teacher-forced with phase 8's, one launch a layer a rank:
    the dense decode and the sequence-sharded one (``RunCfg.seq_shard_kv``:
    the cache's time axis cut over ``data``, its head_dim over ``model``,
    the batch whole; each decode step's softmaxes combined over ``data`` by
    log-sum-exp), each step's logits within 3e-2·max|logit| of phase 8's
    (and the sequence-sharded of the dense 2x2's), a gate that must refuse
-   a control combining with each rank's local max (4 tokens); then the
+   a control combining with each rank's local max (2 tokens); then the
    int8 cache on 2x2 within 3e-2·max|logit| of phase 8's int8 run.  Each
    run's prefill ms, decode ms/step on rank 0, cache bytes a rank, and one
    more decode step's collectives and wire bytes.
@@ -276,7 +278,7 @@ fatal on failure:
    choices of the run compared to the reference run's
    (``models.moe.routing``: the top-k of bf16 router logits flips under
    one-unit changes); the timed runs take the config's 1.25 and print the
-   share of pairs dropped.  (a) 1x1 serving, B=8, prompt 2048, 32 tokens
+   share of pairs dropped.  (a) 1x1 serving, B=8, prompt 2048, 16 tokens
    through ``launch/serve.py``'s ``generate``: 4 ``flash_attention``
    launches a prefill, no plain call; every step's logits within
    3e-2·max|logit| of the plain attention's, teacher-forced; block 0's MoE
@@ -286,9 +288,9 @@ fatal on failure:
    attention's per leaf (5e-2, phase 12's gate), 4 steps (ms/step,
    tokens/s, peak), 3 steps at 8.0.  (b) and (d): one spawn of 4 rank
    processes on 2x2, expert-parallel (every all-to-all on the peer-mapped
-   wire: ``ring_send``/``ring_land``).  (b) serving 4 tokens at 8.0,
+   wire: ``ring_send``/``ring_land``).  (b) serving 2 tokens at 8.0,
    teacher-forced with (a)'s first 4 there: logits within 3e-2·max|logit|
-   of (a)'s; at 1.25 (4 tokens) prefill and decode ms on rank 0, all-to-alls and wire bytes a
+   of (a)'s; at 1.25 (2 tokens) prefill and decode ms on rank 0, all-to-alls and wire bytes a
    prefill and a decode step.  (d) 3 steps at 8.0 against (c)'s: loss,
    gnorm and the params' change ‖p₃ − p₀‖, gates that must refuse the
    same steps with the experts' gradients left out; at 1.25 ms/step on
@@ -300,7 +302,7 @@ fatal on failure:
    102400), bf16, seed 0; its prefill's attention the flash kernel at
    D=192 (the decompressed form: 16 heads on 16, v zero-padded to 192).
    (a) 1x1 serving at full depth (27 layers, 15.706 B params, 62.83 GB of
-   f32 params on the card), B=8, prompt 2048, 32 tokens through
+   f32 params on the card), B=8, prompt 2048, 16 tokens through
    ``generate``: 27 ``flash_attention`` launches a prefill, no plain call,
    no pad copy; the plain attention's run of its first 8 tokens,
    teacher-forced and its expert choices pinned: the kernel's gates are every layer's kernel output on
@@ -322,7 +324,7 @@ fatal on failure:
    phase 14's spawn,
    after its runs: the 4-layer model on 2x2 (heads over ``model``, the
    latents and the cache whole there, the experts expert-parallel),
-   serving 4 tokens at 11 teacher-forced and pinned, logits within
+   serving 2 tokens at 11 teacher-forced and pinned, logits within
    3e-2·max|logit| of (b)'s first 4 (f32: 1e-4); 3 training steps at 11 against (b)'s: in bf16
    the loss and ‖p₃ − p₀‖ under phase 14's (d) gates (1e-3, 1e-3), the
    gnorm shown; in f32 the loss, gnorm and change under all three (1e-3,
@@ -338,10 +340,10 @@ fatal on failure:
    heads of 64, d_ff 8960, vocab 65536; 3.07 B params, 12.29 GB in f32),
    bf16, seed 0, its recurrence the ``wkv6`` kernel (``wkv6``'s ptxas
    registers and spills in phase 2, fatal on a spill).  (a) After phase 8,
-   its batch, prompt and 32 tokens through ``generate``: one launch a layer
+   its batch, prompt and 16 tokens through ``generate``: one launch a layer
    for the prefill and for each decode step, no plain call (counted in
    the run, and again for one prefill and one step alone); the plain
-   recurrence's run (``RunCfg(plain_wkv=True)``), teacher-forced for 4
+   recurrence's run (``RunCfg(plain_wkv=True)``), teacher-forced for 2
    tokens, in which every call of the recurrence also runs the kernel on
    the same inputs: y and the final state within 1e-5 of max, a gate that
    must refuse the kernel with u = 0 in every call; the bf16 logits within
@@ -359,17 +361,42 @@ fatal on failure:
    the kernel's state there is within 1e-5 of it.  (c) Inside phase 13's
    spawn, after its runs: the model's shards on 2x2 (20 heads a rank and
    their WKV state; FSDP over ``data``), (a)'s prompts teacher-forced with
-   its tokens: bf16 for 4 tokens within max(3e-2, 2 × the gap of a
+   its tokens: bf16 for 2 tokens within max(3e-2, 2 × the gap of a
    correct 1x1 control with 2x2's arithmetic: ``Wo`` and the channel
    mix's ``Wv`` in two halves of their rows, each rounded to bf16, summed
-   in rank order) of (a)'s logits; f32 at prompt 512 for 4 tokens within
+   in rank order) of (a)'s logits; f32 at prompt 512 for 2 tokens within
    1e-4 of (a)'s f32 run, a gate that must refuse the same run with every
    rank taking the first heads' decay (the bf16 run with that fault is
    shown too: it stays within twice a correct run's bf16 drift);
    decode ms a step on rank 0, a decode step's exchanges and wire bytes,
-   the state a rank.  ``--rwkv-only`` runs phases 1 and 16 ((c) in a
-   spawn of its own); ``--lm-only`` runs phases 1, 8, 16, 12, 13, 14 and
-   15.
+   the state a rank.  ``--rwkv-only`` runs phases 1, 16 and 17 ((c) and
+   17 (b) in a spawn of their own); ``--lm-only`` runs phases 1, 8, 16,
+   17, 12, 13, 14 and 15;
+17. RWKV training — (a) right after 16 (b), on its model: step 0's
+   gradients in one microbatch (B=8, the first 256 of S=512) against the plain
+   recurrence's run (torch's autograd through its loop), in bf16 at 12
+   layers (the plain run took 88 s at 32) and in f32 at 4, each leaf
+   within max(floor, 2 x a correct control's largest gap on that kind of
+   leaf, the recurrence in f64 rounded once; floors 5e-2 and 1e-5), bounds
+   that the kernel with dw = 0 must exceed; then 4 steps of rwkv6-3b at
+   full width and depth through ``launch/train.py`` (bf16, f32 params and
+   moments, remat, 2 microbatches; counts from 0: 2 x 92 ``wkv6`` and 2 x
+   32 ``wkv6_bwd`` launches a step, no plain forward; finite losses and
+   gnorms), in whose step 0 the first and last layer of each remat group
+   (16 of the 64 ``wkv6_bwd`` calls: the plain backward takes ~0.26 s a
+   call) are held against ``wkv6_backward_plain`` on the same inputs,
+   each output within 1e-5 of its max, a gate that must refuse dw = 0 and
+   du = 0 (those 16 plain calls the run's only ones); ms/step, tokens/s,
+   peak, the last step profiled; both kernels timed at the training shape
+   against their bounds.  (b) Inside phase 13's spawn
+   after 16 (c): rwkv6-3b cut to 4 layers on 2x2, 3 f32 steps within
+   phase 13's gates (loss 6e-5, gnorm 1e-3, the params' change 1e-4) of
+   the same 1x1 run (made in (a)), 3 bf16 steps shown; after every step
+   each leaf whole over ``model`` the same bits on both ranks of
+   ``model``; two controls refused (the time mix's sliced leaves without
+   their gradients summed over ``model``; the receptance gathered with no
+   autograd); rank 0's ms/step, peak a rank, a step's exchanges and wire
+   bytes.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Full results go to
@@ -468,13 +495,13 @@ PAYLOAD_LANES, LANE_STACK = 3, (8, 43)
 # SERVE_GRID_BATCH.  Every lane bitwise a solo run of a request of its case
 # and scale (the same run as its own: the scale is the one input that varies);
 # B is cut where SERVE_BATCH lanes' step would take more than SERVE_MEM_GIB.
-# 48 requests a run (the script's time limit): every scale 6 times, every
+# 24 requests a run (the script's time limit): every scale 3 times, every
 # lane still checked against its solo run
-SERVE_N, SERVE_REQUESTS, SERVE_STEPS, SERVE_BATCH = 512, 48, 3, 4
+SERVE_N, SERVE_REQUESTS, SERVE_STEPS, SERVE_BATCH = 512, 24, 3, 4
 SERVE_SCALES = 8
 SERVE_NLS = (256, 2)    # (N, requests)
 SERVE_RATE = 16.0
-SERVE_GRID_REQUESTS, SERVE_GRID_BATCH = 48, 2
+SERVE_GRID_REQUESTS, SERVE_GRID_BATCH = 24, 2
 SERVE_MEM_GIB = 70.0
 SERVE_BACKENDS = ("pallas", "mxu")
 
@@ -514,11 +541,12 @@ FLASH_ARCHS = ("qwen1.5-4b", "gemma-2b")
 
 # phase 8, the LM serving main path: smollm-360m at full width and depth
 LM_ARCH = "smollm-360m"
-LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 16
 # the tokens of a serving run on 2x2 (phases 13 (d), 14 (b), 15 (c)): the
 # first MESH_GEN of the 1x1 run compared with, teacher-forced (a 2x2 decode
-# step takes 0.2-1.4 s on rank 0: the script's time limit)
-MESH_GEN = 4
+# step takes 0.2-1.4 s on rank 0: the script's time limit): the prefill
+# and one decode step
+MESH_GEN = 2
 LM_PROMPT_F32 = 512
 # phase 8's f32 runs (kernel and plain attention, free-running) serve
 # LM_GEN_F32 tokens
@@ -733,19 +761,22 @@ def copy_ptxas(log: str) -> list:
 
 
 def wkv_ptxas(log: str) -> list:
-    """Phase 2, ``wkv6``: registers and spill bytes of each instantiation
-    (f32 and bf16 inputs, head sizes 16 and 64); fatal on a spill or a
-    missing one."""
-    ks = _ptxas_entries(log, r"wkv6_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+    """Phase 2, ``wkv6`` and ``wkv6_bwd``: registers and spill bytes of
+    each instantiation (f32 and bf16 inputs, head sizes 16 and 64); fatal
+    on a spill or a missing one."""
     dtype = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
-    say("  ptxas wkv6_kernel, registers / spill bytes: " + ", ".join(
-        f"<{dtype[k['groups'][0]]}, K={k['groups'][1]}>: {k['registers']}/"
-        f"{k['spill_bytes']}" for k in ks))
-    if len(ks) != 4 or any(k["spill_bytes"] != 0 for k in ks):
-        fail(f"wkv6 instantiations: {ks}")
-    return [{"source": "wkv6", "kernel": "wkv6_kernel", "dtype": dtype[k["groups"][0]],
-             "head_size": int(k["groups"][1]), "registers": k["registers"],
-             "spill_bytes": k["spill_bytes"]} for k in ks]
+    out = []
+    for kernel in ("wkv6_kernel", "wkv6_bwd_kernel"):
+        ks = _ptxas_entries(log, rf"\d{kernel}I(f|13__nv_bfloat16)Li(\d+)E")
+        say(f"  ptxas {kernel}, registers / spill bytes: " + ", ".join(
+            f"<{dtype[k['groups'][0]]}, K={k['groups'][1]}>: {k['registers']}/"
+            f"{k['spill_bytes']}" for k in ks))
+        if len(ks) != 4 or any(k["spill_bytes"] != 0 for k in ks):
+            fail(f"{kernel} instantiations: {ks}")
+        out += [{"source": "wkv6", "kernel": kernel, "dtype": dtype[k["groups"][0]],
+                 "head_size": int(k["groups"][1]), "registers": k["registers"],
+                 "spill_bytes": k["spill_bytes"]} for k in ks]
+    return out
 
 
 def _short(mangled: str) -> str:
@@ -1510,40 +1541,59 @@ def main_path():
 
 
 def _kernel_rows(prof) -> list:
-    """``(device ms, launches, name)`` of every kernel a profile saw."""
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", 0) or 0
-        if dev_us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            rows.append((dev_us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
-    return rows
+    """``(device ms, launches, name)`` of every kernel a profile saw, summed
+    by name from the profiler's raw device events: ``key_averages()`` gives
+    the same rows but builds an event tree first, 20 times slower (most of
+    the time a profiled rwkv6-3b training step, 41,000 kernels, took)."""
+    from torch.autograd import DeviceType
+
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_hidden_event():
+            continue
+        ns = e.duration_ns()
+        if ns > 0:
+            row = by_name.setdefault(e.name(), [0, 0])
+            row[0] += ns
+            row[1] += 1
+    return sorted(((ns / 1e6, c, k) for k, (ns, c) in by_name.items()), reverse=True)
 
 
 def _profile(step, label: str, top: int = 8) -> dict:
     """Device time by kernel name over one call of ``step()`` from
     ``torch.profiler`` (this process's kernels), and the host-clock wall
     time around it; busy over wall gives the idle share.  Prints the
-    ``top`` kernels."""
+    ``top`` kernels.  The profiler records the card's activity only: the
+    host's ops too slowed a profiled training step of rwkv6-3b and tripled
+    the time to sum its 41,000 kernels.  Also reports the seconds the
+    profiler took to start (a process's first start is the slow one), to
+    stop, and :func:`_kernel_rows` to sum."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t_start = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+    t2 = time.perf_counter()
     rows = _kernel_rows(prof)
     busy_ms = sum(r[0] for r in rows)
+    start_s, stop_s, sum_s = t0 - t_start, t2 - t1, time.perf_counter() - t2
     lines = [f"breakdown {label}: the profiler saw no device time (not measured)"]
     if rows:
         lines = [f"breakdown {label}: wall {wall_ms:.3f} ms, device busy "
                  f"{busy_ms:.3f} ms, idle {1 - busy_ms / wall_ms:.1%}, "
-                 f"{sum(r[1] for r in rows)} kernels"]
+                 f"{sum(r[1] for r in rows)} kernels (the profiler started in "
+                 f"{start_s:.3f} s, stopped in {stop_s:.3f} s, its kernels summed in "
+                 f"{sum_s:.3f} s)"]
         lines += [f"  {ms:9.3f} ms {ms / busy_ms:6.1%} x{c:<4d} {k[:90]}"
                   for ms, c, k in rows[:top]]
     return {"label": label, "wall_ms": wall_ms, "busy_ms": busy_ms,
+            "start_s": start_s, "stop_s": stop_s, "sum_s": sum_s,
             "kernels": [{"ms": ms, "count": c, "name": k[:120]}
                         for ms, c, k in rows], "lines": lines}
 
@@ -3176,7 +3226,9 @@ def serving(smi):
 # ---------------------------------------------------------------------------
 
 FLEET_DIR = os.path.join(HERE, "build", "chip_smoke_fleet")
-FLEET_N = 512
+# N=256 (the script's time limit): a snapshot is 1/8 of N=512's (the fused payload
+# of (b) still rides: a power-of-two row on the peer-mapped wire)
+FLEET_N = 256
 FLEET_STEPS = 4
 FLEET_SCALES = (1.0, 1.25)
 FLEET_KILL_STEP = 3
@@ -3200,26 +3252,42 @@ RING_PLAIN = ("ref.calls", "payload_plain")
 
 def _write_kernels(path, rc, prof, **extra):
     """The kernel wrappers' counts of this process and the kernels the
-    profiler saw, as ``path``."""
+    profiler saw (none where ``prof`` is None), as ``path``."""
     doc = {"rc": rc, "counts": {**_counts(), **_ring_counts()}, **extra,
            "kernels": [{"ms": ms, "count": c, "name": k[:120]}
-                       for ms, c, k in _kernel_rows(prof)]}
+                       for ms, c, k in (_kernel_rows(prof) if prof else [])]}
     with open(path, "w") as f:
         json.dump(doc, f, indent=1)
 
 
+def _fleet_profiler(profiled: bool):
+    """``torch.profiler`` of the card's kernels, or nothing: its first
+    start costs a process ~8 s (the H100 machine), worth paying only where
+    it sees kernels that a document keeps."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CUDA]) if profiled else \
+        contextlib.nullcontext()
+
+
+def _killed(active) -> bool:
+    """Whether an attempt's faults kill it: it then writes no document."""
+    return any(f.kind == "kill-at-step" for f in active)
+
+
 def _fleet_rank(ctx, spec, attempt, active):
     """The fleet worker's rank function (``repro_torch.fleet.worker.
-    _rank_main``) under ``torch.profiler``, in each rank process of a
-    ``--fleet-worker`` job of several ranks; writes
-    ``<job>.attempt<A>.rank<r>.kernels.json``.  A killed rank writes
-    nothing."""
+    _rank_main``) under ``torch.profiler`` (not in an attempt that its
+    faults kill), in each rank process of a ``--fleet-worker`` job of
+    several ranks; writes ``<job>.attempt<A>.rank<r>.kernels.json``.  A
+    killed rank writes nothing."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.fleet import worker
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _fleet_profiler(not _killed(active)) as prof:
         rc = worker._rank_main(ctx, spec, attempt, active)
         torch.cuda.synchronize(ctx.device)
     base = spec["result_path"][:-len(".result.json")]
@@ -3230,7 +3298,8 @@ def _fleet_rank(ctx, spec, attempt, active):
 def fleet_worker(argv) -> int:
     """``chip_smoke.py --fleet-worker --spec S --attempt A``: the
     controller's worker (``repro_torch.fleet.worker.main``) under
-    ``torch.profiler``, its ranks' function wrapped by :func:`_fleet_rank`.
+    ``torch.profiler`` where it runs the job itself (1x1) and its faults
+    do not kill it, its ranks' function wrapped by :func:`_fleet_rank`.
     Beside the attempt's spec it writes ``<job>.attempt<A>.kernels.json``:
     the kernel wrappers' counts of this process, the kernels the profiler
     saw, and the wall-clock times of this process's start, of the end of
@@ -3255,13 +3324,15 @@ def fleet_worker(argv) -> int:
 
     threading.Thread(target=watch, daemon=True).start()
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.fleet import worker
+    from repro_torch.fleet import faults, worker
 
     t_imported = time.time()
     worker._rank_main = _fleet_rank
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    attempt = int(argv[argv.index("--attempt") + 1]) if "--attempt" in argv else 0
+    alone = all(int(d) == 1 for d in spec["mesh"])
+    killed = _killed(faults.plan_from_env().active(spec["job_id"], attempt))
+    with _fleet_profiler(alone and not killed) as prof:
         rc = worker.main(argv)
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
@@ -3310,7 +3381,7 @@ def _campaign(tag, jobs, **kw):
         with open(path) as f:
             docs[(jid, int(attempt[len("attempt"):]),
                   int(rank[0][len("rank"):]) if rank else None)] = json.load(f)
-    # the snapshots are 1 GiB a field: drop them once the campaign is read
+    # the snapshots are 128 MiB a field: drop them once the campaign is read
     shutil.rmtree(os.path.join(workdir, "ckpt"), ignore_errors=True)
     return results, ctl, wall, docs
 
@@ -3958,7 +4029,7 @@ SHARD_MOVED_TOL = 1e-4
 SHARD_COMP_LOSS_TOL, SHARD_COMP_GNORM_TOL = 2e-3, 3e-2
 # (d): the tokens of the local-max control's run; every other serving run
 # on 2x2 (here and in phases 14 (b) and 15 (c)) serves MESH_GEN tokens
-SHARD_CONTROL_GEN = 4
+SHARD_CONTROL_GEN = 2
 LM_ONLY = "--lm-only"
 
 
@@ -3986,13 +4057,15 @@ def _zero_shard_counts():
         C.calls[k] = 0
 
 
-def _shard_steps(ctx, cfg, steps, *, lr=None, compressed=False, profile=False):
+def _shard_steps(ctx, cfg, steps, *, lr=None, compressed=False, profile=False,
+                 after_step=None):
     """``steps`` steps of ``cfg`` on this rank's mesh (``ctx`` None: on one
     device; the compressed step with ``compressed``), each synchronised
     and timed, from counts set to 0; the counts, the peak, the params'
     change after MOVED_AFTER steps; with ``profile`` one more step under
     ``torch.profiler`` on rank 0.  ``lr`` overrides the learning rate (0:
-    the update left out)."""
+    the update left out).  ``after_step(cfg, run, model)``, read after each
+    step outside the timing, goes to ``after_step``."""
     import dataclasses
 
     import torch
@@ -4020,7 +4093,7 @@ def _shard_steps(ctx, cfg, steps, *, lr=None, compressed=False, profile=False):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _zero_shard_counts()
-    times, losses, gnorms, moved = [], [], [], {}
+    times, losses, gnorms, moved, after = [], [], [], {}, []
     for i in range(steps):
         batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch_for_step(i).items()}
         torch.cuda.synchronize()
@@ -4035,9 +4108,11 @@ def _shard_steps(ctx, cfg, steps, *, lr=None, compressed=False, profile=False):
         gnorms.append(float(metrics["grad_norm"]))
         if i + 1 in MOVED_AFTER:
             moved[i + 1] = _moved_parts(model, start)
+        if after_step is not None:
+            after.append(after_step(cfg, run, model))
     out = {"step_ms": times, "losses": losses, "gnorms": gnorms,
            "counts": _shard_counts(), "peak_bytes": torch.cuda.max_memory_allocated(),
-           "breakdown": None}
+           "breakdown": None, "after_step": after}
     out["moved"] = {n: _moved(parts, cut) for n, parts in moved.items()}
     if compressed:
         out["max_residual"] = _mesh_max(run, [r.abs().max() for r in res.values()])
@@ -4473,7 +4548,7 @@ def sharded_lm(smi, trained, served, rwkv_kept=None):
 # params 12.46 GB, training state 49.8 GB on one 80 GB card)
 MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_LAYERS = 4
-MOE_BATCH, MOE_PROMPT, MOE_GEN = 8, 2048, 32
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 8, 2048, 16
 # every correctness gate runs at this capacity factor, where nothing
 # drops (the reference's EP test's), so that 2x2 and 1x1 compare: their
 # capacity rules differ; the timed runs take the config's 1.25
@@ -4960,7 +5035,7 @@ def moe_lm(smi, mla_kept=None):
 # state with gradients and both moments)
 MLA_ARCH = "deepseek-v2-lite-16b"
 MLA_TRAIN_LAYERS = 4
-MLA_BATCH, MLA_PROMPT, MLA_GEN = 8, 2048, 32
+MLA_BATCH, MLA_PROMPT, MLA_GEN = 8, 2048, 16
 # (a) the plain attention's, the control's and the broken attentions' runs
 # serve the first MLA_CHECK_GEN of the kernel run's tokens, teacher-forced
 MLA_CHECK_GEN = 8
@@ -5691,20 +5766,27 @@ RWKV_LONG, RWKV_LONG_GEN, RWKV_TAIL = 524288, 8, 2048
 # lands within twice a correct run's drift (PERF.md).  f32 at LM_PROMPT_F32
 # for RWKV_MESH_F32_GEN tokens within LM_TOL_F32 of (a)'s f32 run, a gate
 # that the same control must fail: f32 carries the heads' slices
-RWKV_MESH_F32_GEN = 4
+RWKV_MESH_F32_GEN = 2
 RWKV_ONLY = "--rwkv-only"
 
 
 def _wkv_counts() -> dict:
     from repro_torch.kernels import wkv
 
-    return {"wkv6": wkv.launches, "wkv6_plain": wkv.plain_calls}
+    return {"wkv6": wkv.launches, "wkv6_plain": wkv.plain_calls,
+            "wkv6_bwd": wkv.bwd_launches, "wkv6_plain_bwd": wkv.plain_bwd_calls}
 
 
 def _zero_wkv_counts() -> None:
     from repro_torch.kernels import wkv
 
-    wkv.launches = wkv.plain_calls = 0
+    wkv.launches = wkv.plain_calls = wkv.bwd_launches = wkv.plain_bwd_calls = 0
+
+
+def _forward_only(n: int) -> dict:
+    """The counts of a run that launches the forward kernel ``n`` times and
+    nothing else."""
+    return {"wkv6": n, "wkv6_plain": 0, "wkv6_bwd": 0, "wkv6_plain_bwd": 0}
 
 
 def _patched(module, name: str, wrap, body):
@@ -5742,18 +5824,20 @@ def _kernel_beside(gaps: list):
 
 def _wkv_f64(_plain):
     """(a)'s correct control in place of ``wkv6_plain``: the same step loop
-    in f64, its y and state rounded to f32 once."""
+    in f64, its y and state rounded to f32 once (also under autograd: phase
+    17 (a))."""
     import torch
 
     def f64(r, k, v, w, u, state):
-        rd, kd, vd, wd = (x.double() for x in (r, k, v, w))
+        rd, vd = r.double().unsqueeze(-2), v.double().unsqueeze(-2)
+        kd, wd = k.double().unsqueeze(-1), w.double().unsqueeze(-1)
         st, uu = state.double(), u.double()[None, :, :, None]
-        y = torch.empty(r.shape, dtype=torch.float64, device=r.device)
+        ys = []
         for t in range(r.shape[1]):
-            kv = kd[:, t, :, :, None] * vd[:, t, :, None, :]
-            y[:, t] = torch.einsum("bhk,bhkv->bhv", rd[:, t], st + uu * kv)
-            st = wd[:, t, :, :, None] * st + kv
-        return y.float(), st.float()
+            kv = kd[:, t] * vd[:, t]
+            ys.append(torch.matmul(rd[:, t], st + uu * kv))
+            st = wd[:, t] * st + kv
+        return torch.stack(ys, 1).squeeze(-2).float(), st.float()
     return f64
 
 
@@ -5930,7 +6014,7 @@ def _rwkv_long(smi, cfg, model, a) -> dict:
         f"kernel's state: y {out['tail']['y']:.3e}, state {out['tail']['state']:.3e} of max "
         f"(tol {RWKV_LAYER_TOL:g})")
     bad = []
-    if counts != {"wkv6": cfg.n_layers * (chunks + RWKV_LONG_GEN), "wkv6_plain": 0}:
+    if counts != _forward_only(cfg.n_layers * (chunks + RWKV_LONG_GEN)):
         bad.append(f"counts {counts}, want {cfg.n_layers} launches a chunk and a step")
     if not out["finite"]:
         bad.append("non-finite logits")
@@ -5946,8 +6030,9 @@ def _rwkv_long(smi, cfg, model, a) -> dict:
 def rwkv_lm(smi):
     """Phase 16 (a) and (b) on one card: rwkv6-3b at full width and depth
     (32 layers, d 2560, 40 heads of 64, d_ff 8960, vocab 65536; 3.07 B
-    params, 12.29 GB in f32), bf16, random weights from seed 0.  Returns
-    (results, what (c) compares with, the main path's wkv6 launches)."""
+    params, 12.29 GB in f32), bf16, random weights from seed 0; then phase
+    17 (a) (:func:`rwkv_train`).  Returns (results, what 16 (c) and 17 (b)
+    compare with, the main path's launches of ``wkv6`` and ``wkv6_bwd``)."""
     import dataclasses
 
     import torch
@@ -6078,14 +6163,16 @@ def rwkv_lm(smi):
     out["timing"] = _wkv_timing(torch.Generator(device="cuda").manual_seed(16))
     out["long"] = _rwkv_long(smi, cfg, model, out)
     launches += out["long"]["counts"]["wkv6"]
+    t_train = time.perf_counter()
+    checks = _rwkv_train_checks(smi, cfg, model)
     del model
     torch.cuda.empty_cache()
+    out["train"], kept["train_ref"] = rwkv_train(smi, cfg, checks, t_train)
 
     n = cfg.n_layers
     bad = []
-    if counts != {"wkv6": n * LM_GEN, "wkv6_plain": 0} or \
-            out["prefill_counts"] != {"wkv6": n, "wkv6_plain": 0} or \
-            out["step_counts"] != {"wkv6": n, "wkv6_plain": 0}:
+    if counts != _forward_only(n * LM_GEN) or out["prefill_counts"] != _forward_only(n) \
+            or out["step_counts"] != _forward_only(n):
         bad.append(f"counts {counts}, a prefill {out['prefill_counts']}, a step "
                    f"{out['step_counts']}: want {n} launches a prefill and {n} a step, no "
                    "plain call")
@@ -6100,19 +6187,19 @@ def rwkv_lm(smi):
         bad.append(f"logits gap {max(logit_gaps):.3e} > {bound:.3e}, or non-finite")
     if out["u0_gap_max"] <= bound:
         bad.append(f"the logits bound passes the kernel with u = 0 ({out['u0_gap_max']:.3e})")
-    if not same or max(gaps32) > LM_TOL_F32 or n32 != {"wkv6": n * RWKV_F32_GEN,
-                                                       "wkv6_plain": 0}:
+    if not same or max(gaps32) > LM_TOL_F32 or n32 != _forward_only(n * RWKV_F32_GEN):
         bad.append(f"f32: same tokens {same}, gap {max(gaps32):.3e}, counts {n32}")
     if tuple(kept["tokens"].shape) != (LM_BATCH, LM_GEN) or \
             tuple(kept["logits"][0].shape) != (LM_BATCH, 1, cfg.vocab):
         bad.append(f"tokens {tuple(kept['tokens'].shape)}, prefill logits "
                    f"{tuple(kept['logits'][0].shape)}")
     out["phase_s"] = time.perf_counter() - t_phase
-    say(f"[{smi}] RWKV: (a) and (b) on one card in {out['phase_s']:.3f} s")
+    say(f"[{smi}] RWKV: 16 (a), (b) and 17 (a) on one card in {out['phase_s']:.3f} s")
     if bad:
         fail("RWKV (a): " + "; ".join(bad))
     out["max_abs_err"] = layer["max_abs"]
-    return out, kept, launches
+    return out, kept, {"wkv6": launches + out["train"]["counts"]["wkv6"],
+                       "wkv6_bwd": out["train"]["counts"]["wkv6_bwd"]}
 
 
 def _rwkv_ranks(ctx, forced, forced32):
@@ -6120,7 +6207,7 @@ def _rwkv_ranks(ctx, forced, forced32):
     20 heads and their WKV state, FSDP over ``data``), served from phase
     8's prompts teacher-forced with (a)'s tokens: bf16 MESH_GEN tokens, f32
     at LM_PROMPT_F32, and both again with the control taking the first
-    heads' decay."""
+    heads' decay; then phase 17 (b) (:func:`_rwkv_train_ranks`)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -6142,6 +6229,7 @@ def _rwkv_ranks(ctx, forced, forced32):
     out["control"] = _patched(RW, "decay", _first_heads, lambda: _serve_part(
         ctx, cfg32, run, model, t32, forced32, RWKV_MESH_F32_GEN, timed=False))
     del model
+    out["train"] = _rwkv_train_ranks(ctx)
     return out
 
 
@@ -6151,8 +6239,9 @@ def _rwkv_rank_args(kept):
 
 
 def rwkv_mesh(smi, one, kept, ranks):
-    """Phase 16 (c)'s gates, from the ranks' results: returns the launches
-    of the main path's runs summed over the ranks."""
+    """Phase 16 (c)'s gates, then phase 17 (b)'s (:func:`rwkv_train_mesh`),
+    from the ranks' results: returns the launches of the main path's runs
+    summed over the ranks."""
     import torch
 
     from repro_torch.configs import get_config
@@ -6210,7 +6299,604 @@ def rwkv_mesh(smi, one, kept, ranks):
                       for k in ("bf16", "bf16_control", "f32", "control")}}
     if bad:
         fail("RWKV (c): " + "; ".join(bad))
+    one["train"]["mesh"], trained = rwkv_train_mesh(smi, kept["train_ref"], ranks)
+    launches["wkv6_bwd"] = 0
+    for k, n in trained.items():
+        launches[k] += n
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 17: RWKV (rwkv6-3b) trained at full width and depth on one card, and
+# cut to RWKV_MESH_LAYERS layers on 2x2 inside phase 13's spawn
+# ---------------------------------------------------------------------------
+
+# (a) launch/train.py's batch and sequence and the config's 2 microbatches
+# (train_microbatches), bf16 compute, f32 params and moments, remat in
+# groups of 8 (92 block forwards a microbatch).  RWKV_TRAIN_STEPS steps
+# through launch/train.py: the first, the timed ones, the last profiled
+RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ, RWKV_TRAIN_MB = 8, 512, 2
+RWKV_TRAIN_STEPS = 4
+# (a) step 0's wkv6_bwd calls against wkv6_backward_plain on the same
+# inputs, dy and dS: each output within RWKV_BWD_TOL of its max.  The plain
+# backward takes ~0.26 s a call: the first and last layer of each remat
+# group are held (16 of the 64 calls).  A backward with dw = 0, and one
+# with du = 0, must be refused
+RWKV_BWD_TOL = 1e-5
+# (a) step 0's gradients in one microbatch of the batch (RWKV_GATE_SEQ), each leaf's
+# ||g - g_plain|| / ||g_plain|| against the plain recurrence's run
+# (RunCfg(plain_wkv=True): torch's autograd through its step loop) at most
+# max(floor, RWKV_DRIFT_RATIO x a correct control's largest gap on that
+# kind of leaf over the layers, the recurrence in f64 rounded once), bounds
+# that the kernel with dw = 0 must exceed on some leaf: in bf16 (floor
+# RWKV_GRAD_FLOOR) at RWKV_GATE_LAYERS layers, in f32 (floor
+# TRAIN_GRAD_TOL["float32"]) at RWKV_F32_LAYERS.  A correct control is
+# needed in both: on the H100 through 32 random layers in bf16 the bonus's
+# gradient parts from the plain run's by 1.5 of its norm (the control's as
+# far), and in f32 at 4 layers by 2e-5 (so does the control's); one leaf's
+# gap is too noisy a measure in bf16 (at 12 layers one bonus leaf read 1.06
+# against its control's 0.25), the largest over a kind's 12 layers is not.
+# The plain run took 88 s at full depth in two microbatches: hence the
+# gate's 12 layers (two remat groups of 6) in one microbatch.  In bf16 the
+# kinds whose control drifts by half their norm or more (the bonus `u`,
+# the lerps `mu`, `ln1`) get a bound of 1 or more, which a zero gradient
+# passes: there only the decay LoRA's kinds (`w0`, `wA`, `wB`) are checked,
+# so the bf16 gate plants dw = 0 alone; the f32 gate plants dw = 0 and du =
+# 0, so each of the kernel's gradients has a whole-model fault refused
+RWKV_GRAD_FLOOR = TRAIN_GRAD_TOL["bfloat16"]
+RWKV_GATE_LAYERS, RWKV_F32_LAYERS = 12, 4
+RWKV_BF16_CONTROLS = ("dw",)
+# ... and on the first RWKV_GATE_SEQ positions of the batch's rows: the
+# plain run's autograd through its loop costs ~1 s a layer at 512 steps,
+# two such runs (the plain recurrence's, the f64 control's) a gate
+RWKV_GATE_SEQ = 256
+# (b) on 2x2, rwkv6-3b cut to RWKV_MESH_LAYERS layers: RWKV_MESH_STEPS f32
+# steps to phase 13's gates against 1x1 (loss, gnorm, the params' change),
+# RWKV_MESH_STEPS bf16 steps shown; after each step every leaf whole over
+# model the same bits on both ranks of model; two controls refused: the
+# time mix's sliced leaves without their gradients summed over model, and
+# the receptance gathered with no autograd
+RWKV_MESH_LAYERS, RWKV_MESH_STEPS = 4, 3
+
+
+def _rwkv_cut(cfg, model, n: int):
+    """(cfg, model) cut to the first ``n`` layers, sharing the parameters."""
+    import copy
+    import dataclasses
+
+    from torch import nn
+
+    cut = copy.copy(model)
+    cut._modules = dict(model._modules)
+    cut._modules["blocks"] = nn.ModuleList(list(model.blocks)[:n])
+    return dataclasses.replace(cfg, n_layers=n), cut
+
+
+def _rwkv_grads(cfg, run, model, tokens, microbatches: int):
+    """Step 0's (loss, {name: gradient}) as the train step takes them:
+    ``microbatches`` of ``tokens``, the gradients summed in f32 and scaled."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    names, leaves = zip(*model.named_parameters())
+    acc, total = None, 0.0
+    model.requires_grad_(True)
+    try:
+        for part in tokens.chunk(microbatches):
+            loss = T.lm_loss(cfg, run, model, {"tokens": part})
+            grads = torch.autograd.grad(loss, leaves)
+            total += loss.item()
+            if acc is None:
+                acc = list(grads)
+            else:
+                torch._foreach_add_(acc, grads)
+            del grads, loss
+    finally:
+        model.requires_grad_(False)
+    torch._foreach_mul_(acc, 1.0 / microbatches)
+    return total / microbatches, dict(zip(names, acc))
+
+
+def _leaf_gaps(got: dict, want: dict) -> dict:
+    """{name: ||got - want|| / ||want||} of every leaf."""
+    import torch
+
+    names = list(want)
+    gaps = torch.stack([torch.linalg.vector_norm(got[n] - want[n])
+                        / torch.linalg.vector_norm(want[n]).clamp_min(1e-30)
+                        for n in names])
+    return dict(zip(names, gaps.tolist()))
+
+
+def _max_gap(got, want):
+    return (got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+
+
+def _bwd_beside(rec: dict, n_layers: int, first: int):
+    """A wrapper of ``wkv6_bwd`` that holds, among its ``first`` calls, those
+    of the first and last layer of each remat group against
+    ``wkv6_backward_plain`` on the same inputs: each output's max gap over
+    its max, the same with dw and with du set to zero (the controls), and
+    the largest |d| (device scalars)."""
+    import torch
+
+    from repro_torch.kernels import wkv
+    from repro_torch.models import transformer as T
+
+    group = T._remat_group(n_layers)
+
+    def wrap(kernel_bwd):
+        def both(r, k, v, w, u, ck, dy, ds=None):
+            got = kernel_bwd(r, k, v, w, u, ck, dy, ds)
+            layer = n_layers - 1 - rec["calls"] % n_layers  # backward: last layer first
+            rec["calls"] += 1
+            if rec["calls"] <= first and layer % group in (0, group - 1):
+                want = wkv.wkv6_backward_plain(r, k, v, w, u, ck, dy, ds)
+                zero = [_max_gap(torch.zeros_like(want[i]), want[i]) for i in (3, 4)]
+                rec["gaps"].append(torch.stack(
+                    [_max_gap(a, b) for a, b in zip(got, want)] + zero
+                    + [max((a - b).abs().max() for a, b in zip(got, want))]))
+                rec["layers"].append(layer)
+            return got
+        return both
+    return wrap
+
+
+#: (a)'s broken controls in place of ``wkv6_bwd``: the name of the output
+#: each sets to zero and its place in the kernel's outputs
+RWKV_ZEROED = {"dw": 3, "du": 4}
+
+
+def _without(grad: str):
+    """(a)'s broken control ``grad`` = 0 in place of ``wkv6_bwd``."""
+    import torch
+
+    def wrap(kernel_bwd):
+        def bwd(*args):
+            out = list(kernel_bwd(*args))
+            out[RWKV_ZEROED[grad]] = torch.zeros_like(out[RWKV_ZEROED[grad]])
+            return tuple(out)
+        return bwd
+    return wrap
+
+
+def _rwkv_grad_gate(smi, cfg, model, tokens, floor: float, controls) -> dict:
+    """Step 0's gradients of ``cfg`` (one microbatch of ``tokens``) through
+    the kernels against the plain recurrence's run, each leaf's
+    ||g - g_plain|| / ||g_plain|| within max(``floor``, RWKV_DRIFT_RATIO x a
+    correct control's largest gap on that kind of leaf, the recurrence in
+    f64 rounded once); the same bounds must refuse the kernel with each of
+    ``controls`` (names of :data:`RWKV_ZEROED`) set to zero.  A kind whose
+    bound is 1 or more passes a zero gradient: it is listed as
+    unchecked."""
+    import torch
+
+    from repro_torch.kernels import wkv
+    from repro_torch.models import rwkv as RW
+    from repro_torch.models import transformer as T
+
+    run, plain = T.RunCfg(), T.RunCfg(plain_wkv=True)
+    t0 = time.perf_counter()
+    loss_p, want = _rwkv_grads(cfg, plain, model, tokens, 1)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    loss_k, got = _rwkv_grads(cfg, run, model, tokens, 1)
+    kernel = _leaf_gaps(got, want)
+    del got
+    loss_c, ctrl = _patched(RW, "wkv6_plain", _wkv_f64,
+                            lambda: _rwkv_grads(cfg, plain, model, tokens, 1))
+    control = _leaf_gaps(ctrl, want)
+    del ctrl
+    broken = {}
+    for grad in controls:
+        _, zero = _patched(wkv, "wkv6_bwd", _without(grad),
+                           lambda: _rwkv_grads(cfg, run, model, tokens, 1))
+        broken[grad] = _leaf_gaps(zero, want)
+        del zero
+    del want
+    torch.cuda.empty_cache()
+    # one bound a kind of leaf (a block's leaf, any layer), from the control's
+    # largest gap over the layers: one leaf's drift is too noisy a measure
+    kinds: dict = {}
+    for name, gap in control.items():
+        kind = _leaf_kind(name)
+        kinds[kind] = max(kinds.get(kind, 0.0), gap)
+    bound = {n: max(floor, RWKV_DRIFT_RATIO * kinds[_leaf_kind(n)]) for n in control}
+    worst = max(kernel, key=lambda n: kernel[n] / bound[n])
+    caught = {g: max(b, key=lambda n: b[n] / bound[n]) for g, b in broken.items()}
+    table = {}
+    for name in control:
+        row = table.setdefault(_leaf_kind(name), [0.0] * (2 + len(broken)))
+        for i, g in enumerate([kernel[name], control[name]]
+                              + [b[name] for b in broken.values()]):
+            row[i] = max(row[i], g)
+    unchecked = sorted({_leaf_kind(n) for n, b in bound.items() if b >= 1.0})
+    out = {"layers": cfg.n_layers, "dtype": cfg.compute_dtype, "plain_s": plain_s,
+           "loss": loss_k, "loss_plain": loss_p, "loss_f64": loss_c,
+           "kernel_max": max(kernel.values()), "control_max": max(control.values()),
+           "worst_leaf": worst, "worst": [kernel[worst], bound[worst]],
+           "passes": all(kernel[n] <= bound[n] for n in kernel),
+           "controls": {g: {"leaf": caught[g], "gap": [b[caught[g]], bound[caught[g]]],
+                            "refused": any(b[n] > bound[n] for n in b)}
+                        for g, b in broken.items()},
+           "leaves_over_floor": sum(b > floor for b in bound.values()), "leaves": len(bound),
+           "unchecked_kinds": unchecked, "by_kind": table}
+    say(f"[{smi}] RWKV training (a) {cfg.compute_dtype} gradients at {cfg.n_layers} layers, "
+        f"B={tokens.shape[0]} S={tokens.shape[1]} in one microbatch, against the plain "
+        f"recurrence's run ({plain_s:.3f} s; loss {loss_k:.7f} against {loss_p:.7f}, f64 "
+        f"control {loss_c:.7f}): each leaf within max({floor:g}, {RWKV_DRIFT_RATIO:g} x a "
+        f"correct control's largest gap on its kind of leaf, the recurrence in f64 "
+        f"rounded once; "
+        f"{out['leaves_over_floor']} of {out['leaves']} bounds above the floor): the kernel's "
+        f"largest gap {out['kernel_max']:.3e}, the control's {out['control_max']:.3e}; "
+        f"closest to its bound {worst} {kernel[worst]:.3e} of {bound[worst]:.3e}: "
+        f"{'passes' if out['passes'] else 'FAILS'}; " + "; ".join(
+            f"the kernel with {g} = 0 at {c['leaf']} {c['gap'][0]:.3e} against "
+            f"{c['gap'][1]:.3e}: {'refused' if c['refused'] else 'PASSED'}"
+            for g, c in out["controls"].items()))
+    say(f"  by kind of leaf, the largest gap of the kernel / the f64 control / "
+        f"{' / '.join(f'{g} = 0' for g in broken)}: " + "; ".join(
+            f"{k} " + "/".join(f"{x:.2e}" for x in row) for k, row in sorted(table.items())))
+    say(f"  kinds whose bound is 1 or more, where a zero gradient passes and this gate "
+        f"checks nothing: {unchecked or 'none'}")
+    return out
+
+
+def _leaf_kind(name: str) -> str:
+    """A leaf's name without its layer: ``blocks.tm.u`` for ``blocks.6.tm.u``."""
+    parts = name.split(".")
+    return ".".join(p for i, p in enumerate(parts) if not (i == 1 and p.isdigit()))
+
+
+def _rwkv_train_checks(smi, cfg, model) -> dict:
+    """Phase 17 (a)'s gates at step 0 on phase 16's model: every leaf's
+    gradient against the plain recurrence's run (:func:`_rwkv_grad_gate`)
+    in bf16 at RWKV_GATE_LAYERS layers and in f32 at RWKV_F32_LAYERS."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+
+    pipe = Pipeline(DataConfig(vocab=cfg.vocab, seq_len=RWKV_TRAIN_SEQ,
+                               global_batch=RWKV_TRAIN_BATCH))
+    tokens = torch.from_numpy(pipe.batch_for_step(0)["tokens"][:, :RWKV_GATE_SEQ].copy()).cuda()
+    gcfg, gmodel = _rwkv_cut(cfg, model, RWKV_GATE_LAYERS)
+    out = {"bfloat16": _rwkv_grad_gate(smi, gcfg, gmodel, tokens, RWKV_GRAD_FLOOR,
+                                       RWKV_BF16_CONTROLS)}
+    c32, m32 = _rwkv_cut(dataclasses.replace(cfg, compute_dtype="float32"), model,
+                         RWKV_F32_LAYERS)
+    out["float32"] = _rwkv_grad_gate(smi, c32, m32, tokens, TRAIN_GRAD_TOL["float32"],
+                                     tuple(RWKV_ZEROED))
+    del gmodel, m32
+    torch.cuda.empty_cache()
+    bad = []
+    for dt in ("bfloat16", "float32"):
+        if not out[dt]["passes"]:
+            bad.append(f"{dt} gradients: {out[dt]['worst_leaf']} {out[dt]['worst']}")
+        for grad, c in out[dt]["controls"].items():
+            if not c["refused"]:
+                bad.append(f"the {dt} bounds pass the kernel with {grad} = 0")
+    if bad:
+        fail("RWKV training (a): " + "; ".join(bad))
+    return out
+
+
+def _held_calls(smi, rec: dict, n_layers: int) -> dict:
+    """(a)'s gate on the ``wkv6_bwd`` calls held by :func:`_bwd_beside` in
+    step 0 of ``launch/train.py``'s run; fatal if one parts from the plain
+    backward or a control passes."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    g = torch.stack(rec["gaps"]).cpu()
+    calls = {"calls": RWKV_TRAIN_MB * n_layers, "held": len(rec["layers"]),
+             "layers": sorted(set(rec["layers"])),
+             "max": dict(zip(("dr", "dk", "dv", "dw", "du", "dstate0"),
+                             g[:, :6].max(0).values.tolist())),
+             "dw0_min": float(g[:, 6].min()), "du0_min": float(g[:, 7].min()),
+             "max_abs": float(g[:, 8].max()),
+             "dw0_refused": int((g[:, 6] > RWKV_BWD_TOL).sum()),
+             "du0_refused": int((g[:, 7] > RWKV_BWD_TOL).sum())}
+    say(f"[{smi}] RWKV training (a) step 0's wkv6_bwd: {calls['held']} of "
+        f"{calls['calls']} calls (the first and last layer of each remat group: "
+        f"{calls['layers']}) against wkv6_backward_plain on their inputs: max gaps "
+        f"{ {k: f'{v:.3e}' for k, v in calls['max'].items()} } of max (tol "
+        f"{RWKV_BWD_TOL:g}; max |d| {calls['max_abs']:.3e}); controls: dw = 0 refused in "
+        f"{calls['dw0_refused']}, du = 0 in {calls['du0_refused']} of {calls['held']} "
+        f"(smallest gaps {calls['dw0_min']:.3e}, {calls['du0_min']:.3e})")
+    group = T._remat_group(n_layers)
+    bad = []
+    if calls["held"] != RWKV_TRAIN_MB * sum(layer % group in (0, group - 1)
+                                            for layer in range(n_layers)):
+        bad.append(f"{calls['held']} of {calls['calls']} calls held")
+    if max(calls["max"].values()) > RWKV_BWD_TOL:
+        bad.append(f"a wkv6_bwd call parts from the plain backward by {calls['max']}")
+    if calls["dw0_refused"] != calls["held"] or calls["du0_refused"] != calls["held"]:
+        bad.append("the per-call gate passes a backward with dw = 0 or du = 0")
+    if bad:
+        fail("RWKV training (a): " + "; ".join(bad))
+    return calls
+
+
+def _timed_train_steps(rec: dict, label: str):
+    """A wrapper of ``make_train_step`` whose steps are synchronised and
+    timed on the host clock (the last one under ``torch.profiler``), their
+    gnorms kept."""
+    import torch
+
+    def wrap(make):
+        def factory(*args, **kw):
+            step = make(*args, **kw)
+
+            def timed(*a):
+                torch.cuda.synchronize()
+                if len(rec["ms"]) == RWKV_TRAIN_STEPS - 1:
+                    got = {}
+                    rec["prof"] = _profile(lambda: got.setdefault("r", step(*a)), label,
+                                           top=12)
+                    r, ms = got["r"], rec["prof"]["wall_ms"]
+                else:
+                    t0 = time.perf_counter()
+                    r = step(*a)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+                rec["ms"].append(ms)
+                rec["gnorms"].append(float(r[1]["grad_norm"]))
+                return r
+            return timed
+        return factory
+    return wrap
+
+
+def _rwkv_train_steps(smi, cfg) -> dict:
+    """Phase 17 (a): RWKV_TRAIN_STEPS steps of rwkv6-3b at full width and
+    depth through ``launch/train.py``, counts from 0: step 0's held
+    ``wkv6_bwd`` calls (:func:`_held_calls`), finite losses and gnorms, the
+    kernels' launches (the plain backward's calls those of the held ones),
+    ms/step, tokens/s, peak, a profiled step."""
+    import math
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels import wkv
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+
+    argv = ["--arch", RWKV_ARCH, "--steps", str(RWKV_TRAIN_STEPS), "--batch",
+            str(RWKV_TRAIN_BATCH), "--seq", str(RWKV_TRAIN_SEQ), "--microbatches",
+            str(RWKV_TRAIN_MB), "--log-every", "1"]
+    rec = {"ms": [], "gnorms": [], "prof": None}
+    label = f"training step {RWKV_ARCH} B={RWKV_TRAIN_BATCH} S={RWKV_TRAIN_SEQ}"
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_wkv_counts()
+    held = {"calls": 0, "gaps": [], "layers": []}
+    t0 = time.perf_counter()
+    losses = _patched(train, "make_train_step", _timed_train_steps(rec, label),
+                      lambda: _patched(wkv, "wkv6_bwd", _bwd_beside(
+                          held, cfg.n_layers, RWKV_TRAIN_MB * cfg.n_layers),
+                          lambda: train.main(argv)))
+    wall = time.perf_counter() - t0
+    counts = _wkv_counts()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    ms = statistics.median(rec["ms"][1:-1])
+    per_step = T.block_forwards(cfg, T.RunCfg(remat=cfg.remat))
+    want = {"wkv6": RWKV_TRAIN_STEPS * RWKV_TRAIN_MB * per_step, "wkv6_plain": 0,
+            "wkv6_bwd": RWKV_TRAIN_STEPS * RWKV_TRAIN_MB * cfg.n_layers,
+            "wkv6_plain_bwd": len(held["layers"])}
+    out = {"calls": _held_calls(smi, held, cfg.n_layers), "losses": losses, "gnorms": rec["gnorms"], "step_ms": rec["ms"],
+           "ms_per_step": ms, "tokens_per_s": RWKV_TRAIN_BATCH * RWKV_TRAIN_SEQ / (ms / 1e3),
+           "peak_bytes": peak, "wall_s": wall, "counts": counts,
+           "breakdown": rec["prof"]}
+    say(f"[{smi}] RWKV training (a) {RWKV_ARCH} at full width and depth through "
+        f"launch/train.py: {RWKV_TRAIN_STEPS} steps, B={RWKV_TRAIN_BATCH} "
+        f"S={RWKV_TRAIN_SEQ}, {RWKV_TRAIN_MB} microbatches, bf16, remat: {wall:.3f} s; "
+        f"losses {[round(x, 4) for x in losses]}, gnorms "
+        f"{[round(x, 4) for x in rec['gnorms']]}; {ms:.3f} ms/step (steps "
+        f"{', '.join(f'{t:.3f}' for t in rec['ms'])}; the first, then timed, the last "
+        f"profiled), {out['tokens_per_s']:.1f} tokens/s, peak {peak / 2**30:.3f} GiB; "
+        f"counts {counts} (want {want}: the plain backward's calls step 0's held ones)")
+    for line in rec["prof"]["lines"]:
+        say(line)
+    if len(losses) != RWKV_TRAIN_STEPS or \
+            not all(math.isfinite(x) for x in losses + rec["gnorms"]):
+        fail(f"RWKV training (a): losses {losses}, gnorms {rec['gnorms']}")
+    if counts != want:
+        fail(f"RWKV training (a): counts {counts}, want {want}")
+    return out
+
+
+def _wkv_train_timing(gen) -> list:
+    """``wkv6`` with checkpoints and ``wkv6_bwd`` at the training shape (a
+    microbatch's B=4 and the whole batch's B=8, S=512, 40 heads of 64,
+    bf16 r, k, v): each kernel (median of 7 CUDA-event timings), its plain
+    version and its bound (bytes over 3.35 TB/s or f32 flops over 67
+    TFLOP/s, the larger).  No single PyTorch call computes either."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import wkv
+
+    cfg = get_config(RWKV_ARCH)
+    h, k = cfg.n_heads, cfg.d_model // cfg.n_heads
+    s = RWKV_TRAIN_SEQ
+    out = []
+    for b in (RWKV_TRAIN_BATCH // RWKV_TRAIN_MB, RWKV_TRAIN_BATCH):
+        r, kk, v = (_rand((b, s, h, k), torch.float32, gen).bfloat16() for _ in range(3))
+        w = torch.exp(-torch.exp(_rand((b, s, h, k), torch.float32, gen) - 1))
+        u = _rand((h, k), torch.float32, gen) * 0.5
+        st = _rand((b, h, k, k), torch.float32, gen) * 0.3
+        dy = _rand((b, s, h, k), torch.float32, gen)
+        ds = _rand((b, h, k, k), torch.float32, gen)
+        _, _, ck = wkv._kernel(r, kk, v, w, u, st, checkpoints=True)
+        cases = (
+            ("wkv6 with checkpoints", lambda: wkv._kernel(r, kk, v, w, u, st, checkpoints=True),
+             lambda: wkv.wkv6_plain(r, kk, v, w, u, st, checkpoints=True),
+             wkv.wkv6_bytes(b, s, h, k, 2), wkv.wkv6_flops(b, s, h, k)),
+            ("wkv6_bwd", lambda: wkv.wkv6_bwd(r, kk, v, w, u, ck, dy, ds),
+             lambda: wkv.wkv6_backward_plain(r, kk, v, w, u, ck, dy, ds),
+             wkv.wkv6_bwd_bytes(b, s, h, k, 2), wkv.wkv6_bwd_flops(b, s, h, k)))
+        for name, kernel, plain, moved, flops in cases:
+            ms, lo, hi = _median_ms(kernel, 10, 2)
+            plain_ms = _time_ms(plain, 1, 1)
+            bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+            rec = {"kernel": name, "shape": [b, s, h, k], "dtype": "bfloat16", "ms": ms,
+                   "ms_spread": [lo, hi], "plain_ms": plain_ms, "library_ms": None,
+                   "bytes": moved, "flops": flops, "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            say(f"timing {name} B={b} S={s} H={h} K={k} bf16 r, k, v: kernel {ms:.4f} ms "
+                f"({lo:.4f}-{hi:.4f}), plain {plain_ms:.3f} ms, library none; bound "
+                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {moved} B {bytes_ms:.4f} ms, "
+                f"{flops:.4g} flop {ops_ms:.4f} ms), {rec['bound_ms'] / ms:.1%} of the bound")
+            out.append(rec)
+        del r, kk, v, w, st, dy, ds, ck
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rwkv_mesh_cfg(dtype: str):
+    """(b)'s config: rwkv6-3b cut to RWKV_MESH_LAYERS layers, ``dtype`` compute."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(RWKV_ARCH), n_layers=RWKV_MESH_LAYERS,
+                               compute_dtype=dtype)
+
+
+def rwkv_train(smi, cfg, checks: dict, t_phase: float) -> tuple:
+    """Phase 17 (a) on one card after its gates at step 0 (``checks``, on
+    phase 16's model, freed by then: ``launch/train.py`` makes its own),
+    then (b)'s 1x1 runs; returns (the results, (b)'s 1x1 runs)."""
+    import torch
+
+    out = {"checks": checks}
+    out.update(_rwkv_train_steps(smi, cfg))
+    out["timing"] = _wkv_train_timing(torch.Generator(device="cuda").manual_seed(17))
+    refs = {dt: _shard_steps(None, _rwkv_mesh_cfg(dt), RWKV_MESH_STEPS)
+            for dt in ("float32", "bfloat16")}
+    for dt, r in refs.items():
+        say(f"[{smi}] RWKV training (b)'s 1x1 run, {RWKV_MESH_LAYERS} layers {dt}: losses "
+            f"{[round(x, 6) for x in r['losses']]}, gnorms {[round(x, 6) for x in r['gnorms']]}, "
+            f"{r['step_ms'][-1]:.3f} ms the last step")
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"[{smi}] RWKV training: 17 (a) on one card in {out['phase_s']:.3f} s")
+    return out, refs
+
+
+def _whole_over_model(cfg, run, model) -> int:
+    """A fingerprint of this rank's shards of the leaves whole over
+    ``model``: their bits as int32, weighted by position and summed in
+    int64 (one element's change always changes it)."""
+    import torch
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import transformer as T
+
+    specs = T.param_specs(cfg, run.mesh)
+    bits = torch.cat([p.detach().reshape(-1).view(torch.int32).long()
+                      for n, p in model.named_parameters()
+                      if "model" not in SH.spec_axes(specs[n])])
+    pos = torch.arange(1, bits.numel() + 1, device=bits.device, dtype=torch.int64)
+    return int((bits * pos).sum())
+
+
+def _no_grad_gather(_gather_from):
+    """(b)'s control in place of ``gather_from``: ``all_gather``, no autograd."""
+    from repro_torch.distributed import collectives as C
+
+    return lambda x, axes, dim=-1: C.all_gather(x, axes, dim=dim)
+
+
+def _rwkv_train_ranks(ctx) -> dict:
+    """Phase 17 (b) on this rank of 2x2: RWKV_MESH_STEPS steps of the cut
+    model in f32 and in bf16, and the two controls in f32, each leaf whole
+    over ``model`` fingerprinted after every step."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.models import rwkv as RW
+
+    c32 = _rwkv_mesh_cfg("float32")
+    out = {dt: _shard_steps(ctx, _rwkv_mesh_cfg(dt), RWKV_MESH_STEPS,
+                            after_step=_whole_over_model)
+           for dt in ("float32", "bfloat16")}
+    out["unsummed"] = _patched(RW, "SHARED", lambda _: (), lambda: _shard_steps(
+        ctx, c32, RWKV_MESH_STEPS, after_step=_whole_over_model))
+    out["all_gather"] = _patched(C, "gather_from", _no_grad_gather, lambda: _shard_steps(
+        ctx, c32, RWKV_MESH_STEPS, after_step=_whole_over_model))
+    return out
+
+
+def rwkv_train_mesh(smi, refs, ranks) -> tuple:
+    """Phase 17 (b)'s gates, from the ranks' results and (a)'s 1x1 runs:
+    returns (the readings, the launches of the sound runs summed over the
+    ranks)."""
+    import statistics
+
+    from repro_torch.models import transformer as T
+
+    c32 = _rwkv_mesh_cfg("float32")
+    runs = [r["train"] for r in ranks]
+    tols = (SHARD_LOSS_TOL, SHARD_GNORM_TOL, SHARD_MOVED_TOL)
+
+    def same_bits(key):  # ranks 2m and 2m + 1 differ in their model coordinate only
+        return all(runs[i][key]["after_step"] == runs[i + 1][key]["after_step"]
+                   for i in range(0, len(runs), 2))
+
+    r0 = runs[0]
+    b = r0["bfloat16"]
+    steps = RWKV_MESH_STEPS
+    per_step = {k: v / steps for k, v in b["counts"].items()
+                if k.startswith("collectives.") or k in ("wire_bytes", "ring_send")}
+    say(f"[{smi}] RWKV training (b) {RWKV_ARCH} cut to {RWKV_MESH_LAYERS} layers on 2x2 (4 "
+        f"ranks on one card), B={TRAIN_BATCH} S={TRAIN_SEQ}: bf16 "
+        f"{statistics.median(b['step_ms'][1:]):.3f} ms/step on rank 0 (steps "
+        f"{', '.join(f'{t:.3f}' for t in b['step_ms'])}), peak a rank "
+        f"{max(r['bfloat16']['peak_bytes'] for r in runs) / 2**30:.3f} GiB; a step's "
+        f"exchanges and wire bytes {per_step}")
+    say(_steps_line("RWKV training (b) f32 2x2 rank 0", r0["float32"], refs["float32"], "1x1"))
+    say(_steps_line("RWKV training (b) bf16 2x2 rank 0 (shown)", b, refs["bfloat16"], "1x1"))
+    out = {"ms_per_step_bf16": statistics.median(b["step_ms"][1:]),
+           "peak_bytes": max(r["bfloat16"]["peak_bytes"] for r in runs),
+           "per_step": per_step, "same_bits": {k: same_bits(k) for k in r0}}
+    bad = _step_faults("f32 rank 0", r0["float32"], refs["float32"], *tols)
+    for key in ("unsummed", "all_gather"):
+        faults = _step_faults(key, r0[key], refs["float32"], *tols)
+        out[key] = {"refused": bool(faults) or not out["same_bits"][key],
+                    "faults": faults, "losses": r0[key]["losses"],
+                    "gnorms": r0[key]["gnorms"], "moved": r0[key]["moved"]}
+        say(_steps_line(f"RWKV training (b) control, {key}, rank 0", r0[key],
+                        refs["float32"], "1x1")
+            + f"; leaves whole over model the same bits on its ranks: "
+            f"{out['same_bits'][key]}: {'refused' if out[key]['refused'] else 'PASSED'}")
+        if not out[key]["refused"]:
+            bad.append(f"the gates pass the control {key}")
+    say(f"[{smi}] RWKV training (b): leaves whole over model the same bits on both ranks "
+        f"of model after every step: f32 {out['same_bits']['float32']}, bf16 "
+        f"{out['same_bits']['bfloat16']}")
+    for dt in ("float32", "bfloat16"):
+        if not out["same_bits"][dt]:
+            bad.append(f"{dt}: the leaves whole over model part across its ranks")
+    if not all(x == x and abs(x) < float("inf") for x in b["losses"] + b["gnorms"]):
+        bad.append("bf16: a loss or gnorm not finite")
+    fwd = T.block_forwards(c32, T.RunCfg(remat=c32.remat))
+    launches = {"wkv6": 0, "wkv6_bwd": 0, "ring_send": 0, "ring_land": 0}
+    for r in runs:
+        for dt in ("float32", "bfloat16"):
+            c = r[dt]["counts"]
+            if (c["wkv6"], c["wkv6_bwd"], c["wkv6_plain"], c["wkv6_plain_bwd"]) != \
+                    (steps * fwd, steps * RWKV_MESH_LAYERS, 0, 0):
+                bad.append(f"{dt} rank counts {c}")
+            for k in launches:
+                launches[k] += c[k]
+    if bad:
+        fail("RWKV training (b): " + "; ".join(bad))
+    return out, launches
 
 
 REPLACES = {"flash_attention": "src/repro/kernels/attention.py:68",
@@ -6220,7 +6906,9 @@ REPLACES = {"flash_attention": "src/repro/kernels/attention.py:68",
             "ring_send": "src/repro/kernels/ring_rdma.py:88",
             "ring_land": "src/repro/kernels/ring_rdma.py:101",
             # no Pallas kernel: the reference's lax.scan of the recurrence
-            "wkv6": "src/repro/models/rwkv.py:90"}
+            # and, for the backward, jax.grad of it
+            "wkv6": "src/repro/models/rwkv.py:90",
+            "wkv6_bwd": "src/repro/models/rwkv.py:90"}
 
 
 def main(argv) -> int:
@@ -6309,7 +6997,8 @@ def main(argv) -> int:
     lm, lm_kept = timed("8 LM serving", lm_serving, flash_rel)
     launches["flash_attention"] = lm["counts"]["flash_attention"] + \
         lm["int8"]["counts"]["flash_attention"]
-    rwkv, rwkv_kept, launches["wkv6"] = timed("16 RWKV (a), (b)", rwkv_lm, smi)
+    rwkv, rwkv_kept, rwkv_launches = timed("16 RWKV (a), (b) with 17 (a)", rwkv_lm, smi)
+    launches.update(rwkv_launches)
     tuned = timed("9 tuning", tuning, runs, ranks, tune_backends)
     served, serve_launches = timed("10 serving", serving, smi)
     for k, n in serve_launches.items():
@@ -6369,6 +7058,14 @@ def main(argv) -> int:
         "replaces": REPLACES["wkv6"], "launches": launches["wkv6"],
         "max_abs_err": rwkv["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None})
+    # a microbatch of the training step (B=4, S=512)
+    t = next(t for t in rwkv["train"]["timing"] if t["kernel"] == "wkv6_bwd")
+    kernels.append({
+        "name": "wkv6_bwd", "route": "cuda", "source": "src/repro_torch/csrc/wkv6.cu",
+        "replaces": REPLACES["wkv6_bwd"], "launches": launches["wkv6_bwd"],
+        "max_abs_err": rwkv["train"]["calls"]["max_abs"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None})
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump({"card": smi, "device": name,

@@ -60,12 +60,27 @@
 // C interface (no PyTorch headers, bound with ctypes).  Runtime errors come
 // back as their cudaError_t, driver errors as minus their CUresult; entry
 // points that enqueue work take the stream last.
+//
+// The build.  The payload's 108 kernels (f32 and f64, every log2 N, with
+// and without diag, packed or in lanes) take nvcc ~47 s in one unit, the
+// longest build of the port.  kernels/_build.py compiles this file five
+// times at once: RING_RDMA_PART 1-4 each one (dtype, row map) set of
+// payload kernels (payload_set), part 0 the rest; it links the five
+// objects into one library.  Without RING_RDMA_PART the file is the whole
+// library in one unit.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "radix2_stages.cuh"
+
+#ifndef RING_RDMA_PART
+#define RING_RDMA_ALL 1
+#define RING_RDMA_PART 0
+#else
+#define RING_RDMA_ALL 0
+#endif
 
 namespace {
 
@@ -173,35 +188,7 @@ int payload_launch(const Map& map, const void* xr, const void* xi,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int payload(const void* xr, const void* xi, const void* twr, const void* twi,
-            const void* dr, const void* di, void* yr, void* yi,
-            long long rows, long long lane_rows, long long x_lane_stride,
-            long long y_lane_stride, int n, int mode, void* stream) {
-  if (mode != kForward && mode != kInverse && mode != kRoundtrip)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (lane_rows < 1 || rows % lane_rows || rows > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const radix2::Lanes lanes{static_cast<unsigned>(lane_rows), x_lane_stride,
-                            y_lane_stride};
-  int log2n = 0;
-  while ((1 << log2n) < n) ++log2n;
-  // one lane (a solo payload) takes the packed addressing, which finds a
-  // row with no division
-  const bool one_lane = lane_rows == rows;
-  return radix2::with_log2n<radix2::max_log2n<T>()>(log2n, [&](auto l) {
-    constexpr int L = decltype(l)::value;
-    auto launch = [&](auto map) {
-      return mode == kRoundtrip
-                 ? payload_launch<T, true, L>(map, xr, xi, twr, twi, dr, di, yr,
-                                              yi, rows, n, mode, stream)
-                 : payload_launch<T, false, L>(map, xr, xi, twr, twi, dr, di,
-                                               yr, yi, rows, n, mode, stream);
-    };
-    return one_lane ? launch(radix2::Packed{}) : launch(lanes);
-  });
-}
-
+#if RING_RDMA_ALL || RING_RDMA_PART == 0
 // Blocks of `threads` the current card runs at once (looked up once a
 // device), or minus a CUDA error.
 long long resident_blocks(unsigned threads) {
@@ -280,6 +267,78 @@ int send_or_land(bool send, int elem_bytes, const void* const* src,
     return send ? copy(ring_send_kernel<unsigned>, c, n_arrays, stream)
                 : copy(ring_land_kernel<unsigned>, c, n_arrays, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+#endif  // part 0
+
+}  // namespace
+
+// A payload's arguments, as payload() hands them to a payload_set.
+struct PayloadArgs {
+  const void *xr, *xi, *twr, *twi, *dr, *di;
+  void *yr, *yi;
+  long long rows;
+  int n, log2n, mode;
+  void* stream;
+};
+
+// The payload kernels of one dtype and row map: each part 1-4 defines one
+// of the four.
+template <typename T, typename Map>
+int payload_set(const Map& map, const PayloadArgs& a);
+
+#if RING_RDMA_ALL || RING_RDMA_PART > 0
+template <typename T, typename Map>
+int payload_set(const Map& map, const PayloadArgs& a) {
+  return radix2::with_log2n<radix2::max_log2n<T>()>(a.log2n, [&](auto l) {
+    constexpr int L = decltype(l)::value;
+    return a.mode == kRoundtrip
+               ? payload_launch<T, true, L>(map, a.xr, a.xi, a.twr, a.twi, a.dr,
+                                            a.di, a.yr, a.yi, a.rows, a.n, a.mode,
+                                            a.stream)
+               : payload_launch<T, false, L>(map, a.xr, a.xi, a.twr, a.twi, a.dr,
+                                             a.di, a.yr, a.yi, a.rows, a.n, a.mode,
+                                             a.stream);
+  });
+}
+#endif
+#if RING_RDMA_ALL || RING_RDMA_PART == 1
+template int payload_set<float, radix2::Packed>(const radix2::Packed&,
+                                                const PayloadArgs&);
+#endif
+#if RING_RDMA_ALL || RING_RDMA_PART == 2
+template int payload_set<float, radix2::Lanes>(const radix2::Lanes&,
+                                               const PayloadArgs&);
+#endif
+#if RING_RDMA_ALL || RING_RDMA_PART == 3
+template int payload_set<double, radix2::Packed>(const radix2::Packed&,
+                                                 const PayloadArgs&);
+#endif
+#if RING_RDMA_ALL || RING_RDMA_PART == 4
+template int payload_set<double, radix2::Lanes>(const radix2::Lanes&,
+                                                const PayloadArgs&);
+#endif
+
+#if RING_RDMA_ALL || RING_RDMA_PART == 0
+namespace {
+
+template <typename T>
+int payload(const void* xr, const void* xi, const void* twr, const void* twi,
+            const void* dr, const void* di, void* yr, void* yi,
+            long long rows, long long lane_rows, long long x_lane_stride,
+            long long y_lane_stride, int n, int mode, void* stream) {
+  if (mode != kForward && mode != kInverse && mode != kRoundtrip)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (lane_rows < 1 || rows % lane_rows || rows > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const radix2::Lanes lanes{static_cast<unsigned>(lane_rows), x_lane_stride,
+                            y_lane_stride};
+  int log2n = 0;
+  while ((1 << log2n) < n) ++log2n;
+  const PayloadArgs a{xr, xi, twr, twi, dr, di, yr, yi, rows, n, log2n, mode, stream};
+  // one lane (a solo payload) takes the packed addressing, which finds a
+  // row with no division
+  return lane_rows == rows ? payload_set<T>(radix2::Packed{}, a)
+                           : payload_set<T>(lanes, a);
 }
 
 }  // namespace
@@ -385,3 +444,4 @@ extern "C" int wire_wait(void* addr, unsigned value, void* stream) {
                                    CU_STREAM_WAIT_VALUE_GEQ);
   return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
 }
+#endif  // part 0

@@ -37,7 +37,10 @@ Under autograd (``torch.autograd.Function``\\ s):
   all-reduce as its backward (:func:`copy_to_packed` for several
   tensors in one exchange);
 * :func:`all_to_all` has the reverse all-to-all (the same exchange) as
-  its backward.
+  its backward;
+* :func:`gather_from` — a column-parallel output gathered whole where
+  every rank then uses all of it — takes this rank's block of the
+  gradient as its backward.
 
 ``calls`` counts the collectives by kind and ``wire_bytes`` the bytes this
 rank sent; nothing else adds to them.
@@ -299,6 +302,18 @@ class _CopyTo(torch.autograd.Function):
         return (None, *all_reduce_packed([g.contiguous() for g in gs], ctx.axes, "sum"))
 
 
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim):
+        ctx.axes, ctx.dim = axes, dim
+        return _gather_packed([x], [dim], axes)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, count = _block_index(ctx.axes)
+        return torch.chunk(g, count, dim=ctx.dim)[idx], None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axes):
@@ -344,6 +359,38 @@ def copy_to_packed(xs: list, axes) -> list:
     if not xs or not _live(axes):
         return list(xs)
     return list(_CopyTo.apply(axes, *xs))
+
+
+def gather_from(x, axes, dim: int = -1):
+    """The blocks of ``x`` over ``axes`` gathered along ``dim``, as
+    :func:`all_gather`; under autograd its backward is this rank's block
+    of the gradient (Megatron's gather from the model-parallel region).
+
+    That is the backward where every rank of ``axes`` holds the whole
+    gradient of the gathered tensor, the same on each: a product with a
+    tensor that came out of :func:`reduce_from` (RWKV's channel mix,
+    ``sigmoid(xr·Wr) ⊙ kv``).  :func:`all_gather` has no autograd at all,
+    so no gradient would reach ``x`` and what is upstream of it, and
+    :func:`gather_packed`, whose backward reduce-scatters, would sum the
+    P equal copies: P times the gradient."""
+    axes = _axes(axes)
+    if not _live(axes):
+        return x
+    return _GatherFrom.apply(x, axes, dim % x.ndim)
+
+
+def _block_index(axes) -> tuple[int, int]:
+    """``(index, count)`` of this rank's block over ``axes`` (row-major,
+    as :func:`all_gather` concatenates the blocks)."""
+    ctx = _context()
+    grid = ctx.grid()
+    shape = dict(zip(grid.u_axes + grid.v_axes, grid.u_sizes + grid.v_sizes))
+    coords = SH.mesh_coords(ctx.rank, shape)
+    idx, count = 0, 1
+    for a in _axes(axes):
+        idx = idx * shape.get(a, 1) + coords.get(a, 0)
+        count *= shape.get(a, 1)
+    return idx, count
 
 
 def _live(axes) -> bool:

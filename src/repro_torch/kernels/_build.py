@@ -4,9 +4,11 @@ Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
 ``nvcc`` compiles it in seconds into ``build/kernels/<name>-<hash>.so`` at the
 root of the checkout, keyed by a hash of the source, the ``csrc/*.cuh``
 headers it includes and the flags; ``ctypes`` loads it.  A source that
-calls the CUDA driver API links ``libcuda`` (``LINK``).  ``nvcc``'s
-``-Xptxas -v`` report (registers, shared memory, spills) is kept beside the
-library as ``<name>-<hash>.log``.
+calls the CUDA driver API links ``libcuda`` (``LINK``).  A source listed in
+``PARTS`` is compiled once a part (``-D<NAME>_PART=k``), the parts at once,
+and its objects linked into the one library.  ``nvcc``'s ``-Xptxas -v``
+report (registers, shared memory, spills) is kept beside the library as
+``<name>-<hash>.log``.
 
 A missing ``nvcc`` or a failed build raises: nothing here falls back to a
 plain PyTorch version.
@@ -29,6 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: extra link flags of the sources that need them
 LINK = {"ring_rdma": ("-lcuda",), "flash_attention": ("-lcuda",)}
+#: sources compiled in parts at once: ring_rdma's payload kernels in four
+#: sets beside the rest (``csrc/ring_rdma.cu`` says how)
+PARTS = {"ring_rdma": 5}
 _INCLUDE = re.compile(rb'^\s*#include\s+"([\w.]+\.cuh)"', re.MULTILINE)
 
 
@@ -47,11 +52,37 @@ def _flags(name: str) -> tuple[str, ...]:
     return NVCC_FLAGS + LINK.get(name, ())
 
 
+def _compile(compiler: str, name: str, out: Path) -> list:
+    """The ``nvcc`` processes that build ``name`` into ``out``: one, or one
+    a part (objects beside ``out``), started at once."""
+    src = str(CSRC / f"{name}.cu")
+    if name not in PARTS:
+        return [(out, subprocess.Popen(
+            [compiler, *NVCC_FLAGS, "-o", str(out), src, *LINK.get(name, ())],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))]
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    return [(out.with_name(f"{out.stem}.part{k}.o"), subprocess.Popen(
+        [compiler, *flags, f"-D{name.upper()}_PART={k}", "-c", "-o",
+         str(out.with_name(f"{out.stem}.part{k}.o")), src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for k in range(PARTS[name])]
+
+
+def _link(compiler: str, name: str, objects: list, out: Path) -> tuple[int, str]:
+    """Link a source's part objects into ``out``: (exit code, output)."""
+    r = subprocess.run([compiler, "-shared", "-o", str(out), *map(str, objects),
+                        *LINK.get(name, ())], capture_output=True, text=True)
+    for o in objects:
+        o.unlink(missing_ok=True)
+    return r.returncode, r.stdout + r.stderr
+
+
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     headers = b"".join((CSRC / h.decode()).read_bytes()
                        for h in _INCLUDE.findall(src))
-    digest = hashlib.sha256(src + headers + " ".join(_flags(name)).encode())
+    parts = f" parts={PARTS[name]}" if name in PARTS else ""
+    digest = hashlib.sha256(src + headers + (" ".join(_flags(name)) + parts).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -66,19 +97,20 @@ def build_all(names) -> dict[str, Path]:
         procs = {}
         for name, t in todo.items():
             tmp = t.with_name(f"{t.stem}.{os.getpid()}.tmp.so")
-            procs[name] = (tmp, subprocess.Popen(
-                [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
-                 *LINK.get(name, ())],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            procs[name] = (tmp, _compile(compiler, name, tmp))
         failed = []
-        for name, (tmp, proc) in procs.items():
-            out, _ = proc.communicate()
-            t = todo[name]
-            if proc.returncode != 0:
-                failed.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
+        for name, (tmp, parts) in procs.items():
+            outs = [proc.communicate()[0] for _, proc in parts]
+            out = "".join(outs)
+            code = next((proc.returncode for _, proc in parts if proc.returncode), 0)
+            if code == 0 and name in PARTS:
+                code, linked = _link(compiler, name, [o for o, _ in parts], tmp)
+                out += linked
+            if code != 0:
+                failed.append(f"{name}.cu (exit {code}):\n{out}")
                 continue
-            t.with_suffix(".log").write_text(out)
-            os.replace(tmp, t)
+            todo[name].with_suffix(".log").write_text(out)
+            os.replace(tmp, todo[name])
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return targets

@@ -34,14 +34,18 @@ does what the reference's does on such a mesh: nothing (it has no
 dense decoders do, its experts over ``model`` (expert-parallel on a mesh:
 :mod:`repro_torch.models.moe`); so does deepseek-v2-lite, its MLA's heads
 over ``model`` (:mod:`repro_torch.models.mla`) and its leading dense block
-a stack of its own (``first_blocks``); the architectures other than the
-uniform decoders are not ported yet (ROADMAP Queue 1 item 11; RWKV, which
-the port serves, trains with item 11.6b)::
+a stack of its own (``first_blocks``); so does rwkv6-3b, its time mix's
+heads over ``model`` and its recurrence's gradient the ``wkv6_bwd`` kernel
+(:mod:`repro_torch.models.rwkv`, :mod:`repro_torch.kernels.wkv`).  The
+hybrid, the encoder–decoder and the VLM are not ported yet (ROADMAP Queue
+1 item 11)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b \
         --smoke --device cpu --steps 4 --batch 4 --seq 32 --mesh 2x2
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-lite-16b \
         --smoke --device cpu --steps 4 --batch 4 --seq 32 --mesh 2x2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \
+        --smoke --device cpu --steps 2 --mesh 2x2
 """
 
 from __future__ import annotations
@@ -191,7 +195,7 @@ def train(args, ctx=None) -> list:
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    check_supported(cfg, training=True)
+    check_supported(cfg)
     run, model, device = M.rank_setup(cfg, ctx, args.device, seed=args.seed,
                                       remat=cfg.remat)
     lead = ctx is None or ctx.rank == 0

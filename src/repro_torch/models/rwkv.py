@@ -24,10 +24,17 @@ On a mesh (:class:`RWKVTP`) each rank computes its block of the heads:
 ``Wr``/``Wk``/``Wv``/``Wg`` column-parallel, ``Wo`` row-parallel (summed
 over the model axes).  ``w0``, ``wB``'s output, ``u``, ``ln_w`` and ``ln_b``
 are labelled ``embed``, which the model axes do not cut: each rank takes
-its own heads' columns of them.  In the channel mix ``Wk`` is
-column-parallel and ``Wv`` row-parallel over ``mlp`` (the product summed
-over the model axes), while ``sigmoid(xr·Wr)`` comes out cut over
-``embed_out``: it is gathered whole before the product.
+its own heads' columns of them.  Those leaves and ``wA`` (whose product
+reaches only this rank's columns) are whole on every rank of the model
+axes, so they go through ``copy_to`` first: under autograd each rank's
+gradient of them, non-zero in its own heads' columns only (``wA``'s a
+partial sum), is summed over those axes, and their replicas stay equal.
+In the channel mix ``Wk`` is column-parallel and ``Wv`` row-parallel over
+``mlp`` (the product summed over the model axes), while ``sigmoid(xr·Wr)``
+comes out cut over ``embed_out``: it is gathered whole before the product
+(``gather_from``: its gradient, whole on every rank, cut back to this
+rank's block).  Both are the identity forward: serving's bits are those
+of the collectives alone.
 """
 
 from __future__ import annotations
@@ -43,6 +50,9 @@ from repro_torch.kernels.wkv import wkv6, wkv6_plain
 
 #: the group norm's epsilon (``rwkv.py:50``; the layer norms' is 1e-5)
 GN_EPS = 64e-5
+#: the time mix's leaves whole on every rank of the model axes whose
+#: product reaches this rank's heads only: their gradients summed there
+SHARED = ("w0", "wA", "wB", "u", "ln_w", "ln_b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,6 +174,8 @@ def _time_mix(p, r: RWKVDims, xs: list, state, tp: RWKVTP, plain: bool):
     heads, the recurrence, the group norm, the gate and ``Wo`` (summed over
     ``tp.axes``).  Returns (out (B, S, D), new state)."""
     xr, xk, xv, xw, xg = (C.copy_to(x, tp.axes) for x in xs)
+    if tp.axes:
+        p = dict(p, **dict(zip(SHARED, C.copy_to_packed([p[n] for n in SHARED], tp.axes))))
     b, s = xr.shape[:2]
     h0, hl = _heads(r, tp)
     hs = r.head_size
@@ -206,9 +218,7 @@ def _channel_mix(p, xk, xr, tp: RWKVTP):
     k = torch.square(F.relu(C.copy_to(xk, tp.mlp_axes) @ p["Wk"]))
     kv = row_parallel(k, p["Wv"], tp.mlp_axes)
     rr = torch.sigmoid(C.copy_to(xr, tp.out_axes) @ p["Wr"])
-    if tp.out_axes:
-        rr = C.all_gather(rr, tp.out_axes, dim=-1)
-    return rr * kv
+    return C.gather_from(rr, tp.out_axes, dim=-1) * kv
 
 
 def channel_mix_seq(p, x, x_prev0, *, tp: RWKVTP = NO_TP):

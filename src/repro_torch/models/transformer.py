@@ -8,7 +8,7 @@ qwen3-moe: a Mixture of Experts as every block's feed-forward,
 :mod:`repro_torch.models.moe`; deepseek-v2-lite: Multi-head Latent
 Attention, :mod:`repro_torch.models.mla`, its ``first_dense`` leading
 dense blocks and its shared experts; rwkv6-3b: RWKV-6 blocks,
-:mod:`repro_torch.models.rwkv`, served only).
+:mod:`repro_torch.models.rwkv`).
 Layers run as a Python loop over an ``nn.ModuleList`` a stack
 (``first_blocks``, then ``blocks``: :data:`repro_torch.models.common.STACKS`)
 where JAX scans over each stack's layer-stacked params; each block's
@@ -62,9 +62,12 @@ activations, not the whole prompt's.  On a mesh each rank computes its
 block of the heads (:func:`rwkv_tp`) and holds its heads' part of
 ``wkv``: the cache's heads are cut over ``model`` beside the reference's
 ``cache_specs``, which cut the states over the data axes only.  That
-changes memory, not values.  RWKV training is not ported (the kernel's
-backward: ``lm_loss`` and ``launch/train.py`` raise, naming ROADMAP Queue 1
-item 11.6b).
+changes memory, not values.  Under autograd (:func:`lm_loss`) the blocks
+run through :func:`_scan_blocks` with two-level remat, as the reference's
+``_scan_blocks`` runs them, and the recurrence through ``wkv6``'s
+``torch.autograd.Function`` (its backward the ``wkv6_bwd`` kernel, from
+states kept every 16 steps: the reference's chunked remat of the time
+scan); the chunks of the time axis carry the state's gradient back.
 
 Configs outside this path raise ``NotImplementedError`` naming ROADMAP
 Queue 1 item 11: the Jamba hybrid (MoE every other layer), Whisper's
@@ -149,9 +152,8 @@ class RunCfg:
         return SH.mesh_axes(self.mesh)[1] if self.mesh is not None else ("model",)
 
 
-def check_supported(cfg: ArchConfig, *, training: bool = False) -> None:
-    """Raise for what this slice does not run (with ``training``, for what
-    it does not train: RWKV)."""
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise for what this slice does not run (it trains all it runs)."""
     left = []
     if cfg.moe is not None and cfg.moe.every != 1:
         left.append("MoE with dense blocks among its layers")
@@ -164,11 +166,7 @@ def check_supported(cfg: ArchConfig, *, training: bool = False) -> None:
     if left:
         raise NotImplementedError(
             f"{cfg.arch_id}: {', '.join(left)} not ported yet ({LM_ITEM}); the "
-            "port runs the uniform decoder, dense or MoE, GQA or MLA, and serves RWKV")
-    if training and cfg.mixer == "rwkv":
-        raise NotImplementedError(
-            f"{cfg.arch_id}: RWKV training (the wkv6 kernel's backward) not ported yet "
-            f"({LM_ITEM}.6b); the port serves it")
+            "port runs the uniform decoder, dense or MoE, GQA or MLA, and RWKV")
     if _quantized(cfg) and stack_sizes(cfg)["first_blocks"]:
         raise ValueError(
             f"{cfg.arch_id}: the int8 KV cache (kv_quant) with first_dense leading "
@@ -983,7 +981,6 @@ def lm_loss(cfg: ArchConfig, run: RunCfg, params: Transformer, batch):
     reduce-scatter sums the shares).  On a vocab block the log-softmax is
     distributed: the max and the sum of exponentials all-reduced over the
     model axes, the gold logit taken where it lies."""
-    check_supported(cfg, training=True)
     logits, _ = forward(cfg, run, params, batch)
     logits = logits.float()[:, :-1]
     targets = batch["tokens"][:, 1:].long()
@@ -1153,7 +1150,7 @@ def _rwkv_block_fwd(p, cfg: ArchConfig, run: RunCfg, x, state: dict):
     b, s = x.shape[:2]
     step = max(1, SEQ_CHUNK_TOKENS // b)
     x_tm, wkv, x_cm = state["x_tm"], state["wkv"], state["x_cm"]
-    out = torch.empty_like(x)
+    outs = []
     for c0 in range(0, s, step):
         xc = x[:, c0:c0 + step]
         h = _apply_norm(p["ln1"], xc, cfg)
@@ -1162,7 +1159,8 @@ def _rwkv_block_fwd(p, cfg: ArchConfig, run: RunCfg, x, state: dict):
         xc = xc + y
         h = _apply_norm(p["ln2"], xc, cfg)
         y, x_cm = RW.channel_mix_seq(p["cm"], h, x_cm, tp=tp)
-        out[:, c0:c0 + step] = xc + y
+        outs.append(xc + y)
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out, {"x_tm": x_tm, "wkv": wkv, "x_cm": x_cm}
 
 
@@ -1170,23 +1168,35 @@ def _rwkv_forward(cfg: ArchConfig, run: RunCfg, params: Transformer, batch, *,
                   collect_cache: bool, last_only: bool):
     """RWKV's forward (``transformer.py:378``): ``ln0`` after the
     embedding, then each block from a zero state; the cache (this rank's
-    part, :func:`cache_layout`) holds each layer's final state."""
+    part, :func:`cache_layout`) holds each layer's final state.  Without
+    a cache the blocks run through :func:`_scan_blocks`, rematerialised
+    under autograd where ``run.remat`` and ``cfg.remat`` are both on."""
     cd = _dt(cfg)
     top = _top_params(params, cfg, run)
     x = _apply_norm(top["ln0"], _embed_tokens(top, cfg, run, batch["tokens"]), cfg)
     shapes = _cache_shapes(cfg, run, x.shape[0], 1)
     dtypes = cache_dtypes(cfg)
+
+    def zero():
+        return {k: torch.zeros(shape[1:], dtype=dtypes[k], device=x.device)
+                for k, shape in shapes.items()}
+
     cache = None
     if collect_cache:
         cache = {k: torch.empty(shape, dtype=dtypes[k], device=x.device)
                  for k, shape in shapes.items()}
-    for i, block in enumerate(_layers(params)):
-        zero = {k: torch.zeros(shape[1:], dtype=dtypes[k], device=x.device)
-                for k, shape in shapes.items()}
-        x, state = _rwkv_block_fwd(_block_params(block, cfg, run, cd), cfg, run, x, zero)
-        if cache is not None:
+        for i, block in enumerate(_layers(params)):
+            x, state = _rwkv_block_fwd(_block_params(block, cfg, run, cd), cfg, run, x,
+                                       zero())
             for k, t in state.items():
                 cache[k][i] = t
+    else:
+        def body(block, y):
+            return _rwkv_block_fwd(_block_params(block, cfg, run, cd), cfg, run, y,
+                                   zero())[0]
+        remat = run.remat and cfg.remat and torch.is_grad_enabled()
+        for stack in STACKS:
+            x = _scan_blocks(getattr(params, stack), x, body, remat)
     if last_only:
         x = x[:, -1:]
     x = _apply_norm(top["final_norm"], x, cfg)

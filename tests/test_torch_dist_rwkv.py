@@ -19,7 +19,15 @@ rank), greedy:
 * ``launch/serve.py`` as each rank of ``--mesh 2x2``: one device's tokens;
 * in bf16, every rank's logits bit for bit those of one device whose
   row-parallel products (``Wo``, the channel mix's ``Wv``) run in two
-  halves of their rows, each rounded to bf16 and summed in rank order.
+  halves of their rows, each rounded to bf16 and summed in rank order;
+* training: one AdamW step of the global batch (2 rows a rank over
+  ``data``), its loss within 1e-6 and its gradients and updated params
+  (gathered whole) within 1e-5 of one device's and of JAX's; every leaf
+  whole over ``model`` (the time mix's decay, bonus and group norm, whose
+  products reach one rank's heads only, the lerps, the layer norms) with
+  the same gradient and params, bit for bit, on the two ranks of each
+  ``model`` pair; ``launch/train.py`` as each rank of ``--mesh 2x2``: one
+  device's losses.
 """
 
 import dataclasses
@@ -34,11 +42,14 @@ from repro_torch import dist
 from repro_torch.configs import get_config
 from repro_torch.distributed import collectives as C
 from repro_torch.launch import mesh as M
-from repro_torch.launch import serve
+from repro_torch.distributed import sharding as SH
+from repro_torch.launch import serve, train
 from repro_torch.models import rwkv as RW
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import (params_from_jax, params_from_jax_sharded,
-                                        params_to_jax_tree)
+                                        params_to_jax_tree, port_leaves)
+from repro_torch.optim import adamw
+from repro_torch.training import train_loop
 
 ARCH = "rwkv6-3b"
 GEN, PROMPT = 4, 12
@@ -46,6 +57,10 @@ TOL = 1e-5
 STATES = ("x_tm", "wkv", "x_cm")
 SERVE = ["--arch", ARCH, "--smoke", "--device", "cpu", "--batch", "4", "--prompt-len", "8",
          "--gen", "4"]
+TRAIN = ["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "2", "--batch", "4",
+         "--seq", "16", "--log-every", "1"]
+#: one AdamW step of launch/train.py's schedule for 3 steps
+ADAMW = dict(lr=3e-4, warmup_steps=5, total_steps=3)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -106,16 +121,44 @@ def _rows_in_halves(x, w, axes):
     return x[..., :n].contiguous() @ w[:n] + x[..., n:].contiguous() @ w[n:]
 
 
+def _train_step(cfg, run, model, toks):
+    """One AdamW step of the global batch ``toks``: the loss, the gradients
+    and the updated params, whole (gathered on a mesh), and this rank's
+    shards of the leaves whole over ``model``."""
+    model.requires_grad_(True)
+    loss = T.lm_loss(cfg, run, model, {"tokens": T.local_rows(toks, run)})
+    names, leaves = zip(*model.named_parameters())
+    grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    model.requires_grad_(False)
+    tc = train_loop.TrainCfg(adamw=adamw.AdamWConfig(**ADAMW))
+    state = adamw.init(tc.adamw, dict(model.named_parameters()))
+    train_loop.make_train_step(cfg, run, tc)(model, state, {"tokens": toks})
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    out = {"loss": float(loss.detach())}
+    if run.mesh is None:
+        return dict(out, grads={n: g.numpy() for n, g in grads.items()},
+                    params={n: p.numpy() for n, p in params.items()})
+    specs = T.param_specs(cfg, run.mesh)
+    whole = [n for n in names if "model" not in SH.spec_axes(specs[n])]
+    return dict(out, grads={n: g.numpy() for n, g in C.gather_full(grads, specs).items()},
+                params={n: p.numpy() for n, p in C.gather_full(params, specs).items()},
+                local_grads={n: grads[n].numpy() for n in whole},
+                local_params={n: params[n].numpy() for n in whole})
+
+
 def _ranks(ctx, tree):
     M.share_host(ctx)
     cfg = get_config(ARCH, smoke=True)
     run = T.RunCfg(mesh=M.mesh_of(ctx), remat=False)
     model = params_from_jax_sharded(cfg, tree, run.mesh, device="cpu")
-    return {"serve": _serving(cfg, run, model, _tokens(cfg)),
-            "bf16": _bf16_logits(cfg, run, model),
-            "tp": T.rwkv_tp(cfg, run),
-            "Wr": tuple(model.blocks[0].tm.Wr.shape), "u": tuple(model.blocks[0].tm.u.shape),
-            "main": serve.serve(serve.parse_args(SERVE + ["--mesh", "2x2"]), ctx)}
+    out = {"serve": _serving(cfg, run, model, _tokens(cfg)),
+           "bf16": _bf16_logits(cfg, run, model),
+           "tp": T.rwkv_tp(cfg, run),
+           "Wr": tuple(model.blocks[0].tm.Wr.shape), "u": tuple(model.blocks[0].tm.u.shape),
+           "main": serve.serve(serve.parse_args(SERVE + ["--mesh", "2x2"]), ctx)}
+    out["train"] = _train_step(cfg, run, model, torch.from_numpy(_tokens(cfg)))
+    out["train_main"] = train.train(train.parse_args(TRAIN + ["--mesh", "2x2"]), ctx)
+    return out
 
 
 def _jax_side(tree, toks):
@@ -148,6 +191,30 @@ def _jax_side(tree, toks):
     return served
 
 
+def _jax_train_step(tree, toks):
+    """JAX on one device: the loss and gradients of ``toks`` and the params
+    after one step of the reference's train step (for one microbatch its
+    ``value_and_grad`` of ``lm_loss``, then ``adamw.update``), as the
+    port's names."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as jax_config
+    from repro.models.transformer import RunCfg as JaxRun
+    from repro.models.transformer import lm_loss as jax_lm_loss
+    from repro.optim import adamw as jax_adamw
+
+    jcfg, run = jax_config(ARCH, smoke=True), JaxRun(mesh=None, remat=False)
+    jp = jax.tree.map(jnp.asarray, tree)
+    batch = {"tokens": jnp.asarray(toks)}
+    loss, grads = jax.jit(jax.value_and_grad(lambda p: jax_lm_loss(jcfg, run, p, batch)))(jp)
+    acfg = jax_adamw.AdamWConfig(**ADAMW)
+    params, _, _ = jax.jit(lambda g, s, p: jax_adamw.update(acfg, g, s, p))(
+        grads, jax_adamw.init(acfg, jp), jp)
+    return {"loss": float(loss), "grads": port_leaves(jax.tree.map(np.asarray, grads)),
+            "params": port_leaves(jax.tree.map(np.asarray, params))}
+
+
 @pytest.fixture(scope="module")
 def runs():
     cfg = get_config(ARCH, smoke=True)
@@ -157,13 +224,16 @@ def runs():
     _vary_per_head_leaves(tree)
     model = params_from_jax(cfg, tree, device="cpu")
     jres = _jax_side(tree, toks)
+    jres["train"] = _jax_train_step(tree, toks)
     one = {"serve": _serving(cfg, T.RunCfg(remat=False), model, toks),
            "main": serve.main(SERVE).numpy(),
-           "bf16": _bf16_logits(cfg, T.RunCfg(remat=False), model)}
+           "bf16": _bf16_logits(cfg, T.RunCfg(remat=False), model),
+           "train_main": train.main(TRAIN), "tree": tree}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(RW, "row_parallel", _rows_in_halves)
         one["bf16_halves"] = _bf16_logits(cfg, T.RunCfg(remat=False), model)
     got = dist.run_ranks(_ranks, 2, 2, device="cpu", args=(tree,))
+    one["train"] = _train_step(cfg, T.RunCfg(remat=False), model, torch.from_numpy(toks))
     return got, one, jres
 
 
@@ -240,3 +310,70 @@ def test_bf16_on_2x2_is_one_device_with_its_row_parallel_sums_in_halves(runs):
         for a, b, c in zip(r["bf16"], one["bf16_halves"], one["bf16"]):
             assert np.array_equal(a, b)
             assert _rel(a, c) <= 3e-2
+
+
+def _first_step_f64(grads, before):
+    """The params after AdamW's first step from ``grads`` (every leaf),
+    in f64: clipped by the global norm, m / sqrt(v) = g / |g| up to eps,
+    weight decay, the schedule's lr at count 1."""
+    c = adamw.AdamWConfig(**ADAMW)
+    g = {n: x.astype(np.float64) for n, x in grads.items()}
+    gnorm = np.sqrt(sum(float((x * x).sum()) for x in g.values()))
+    scale = min(1.0, c.clip_norm / max(gnorm, 1e-9))
+    lr = float(adamw.schedule(c, 1))
+    out = {}
+    for n, x in g.items():
+        p = before[n].astype(np.float64)
+        gs = x * scale
+        out[n] = p - lr * (gs / (np.abs(gs) + c.eps) + c.weight_decay * p)
+    return out
+
+
+def _params_close(got, want, grad, mine):
+    """The params after a step within TOL of their max: against ``want``
+    where the gradient is far above AdamW's eps (1e-8); elsewhere the first
+    step, g / (|g| + eps) times lr, hinges on the gradient's last bits (|g|
+    ~ 1e-8 in the decay's LoRA), so there against ``mine``, the f64 step
+    from this rank's own gradient (:func:`_first_step_f64`)."""
+    tol = TOL * np.abs(want).max()
+    well = np.abs(grad) > 1e-6
+    assert not well.any() or np.abs(got - want)[well].max() <= tol
+    assert well.all() or np.abs(got - mine)[~well].max() <= tol
+
+
+def test_training_step_on_2x2_matches_one_device_and_jax(runs):
+    # the loss, the gradients and the params after one AdamW step, every
+    # rank's gathered whole
+    got, one, jres = runs
+    before = port_leaves(one["tree"])
+    for want in (one["train"], jres["train"]):
+        for r in got:
+            t = r["train"]
+            assert abs(t["loss"] - want["loss"]) <= 1e-6 * abs(want["loss"])
+            assert set(t["grads"]) == set(want["grads"]) == set(t["params"])
+            mine = _first_step_f64(t["grads"], before)
+            for name in t["grads"]:
+                assert _rel(t["grads"][name], want["grads"][name]) <= TOL, name
+                _params_close(t["params"][name], want["params"][name],
+                              want["grads"][name], mine[name])
+
+
+def test_leaves_whole_over_model_stay_equal_on_its_ranks(runs):
+    # ranks 2m and 2m + 1 differ in their model coordinate only: each leaf
+    # whole over model has the same gradient and update there, bit for bit
+    got, _, _ = runs
+    names = set(got[0]["train"]["local_params"])
+    assert {"blocks.0.tm.w0", "blocks.0.tm.wA", "blocks.0.tm.wB", "blocks.0.tm.u",
+            "blocks.0.tm.ln_w", "blocks.0.tm.ln_b", "blocks.0.cm.mu"} <= names
+    for a, b in ((got[0], got[1]), (got[2], got[3])):
+        for key in ("local_grads", "local_params"):
+            for name in names:
+                assert np.array_equal(a["train"][key][name], b["train"][key][name]), \
+                    (key, name)
+
+
+def test_train_launcher_on_2x2_gives_one_devices_losses(runs):
+    got, one, _ = runs
+    assert len(one["train_main"]) == 2
+    for r in got:
+        assert np.allclose(r["train_main"], one["train_main"], rtol=0, atol=1e-5)

@@ -663,14 +663,89 @@ def test_wkv6_kernel_carries_its_state_bitwise(cuda):
 
 
 def test_wkv6_kernel_refuses_other_head_sizes_and_autograd(cuda):
+    # other head sizes are refused; under autograd the forward and the
+    # backward each launch their kernel once, and the gradients reach r
     r, k, v, w, u, state = _wkv_inputs(cuda, 1, 4, 2, 32, torch.float32, seed=1)
     with pytest.raises(ValueError, match="head size 32"):
         wkv.wkv6(r, k, v, w, u, state)
     r, k, v, w, u, state = _wkv_inputs(cuda, 1, 4, 2, 64, torch.float32, seed=1)
-    launches = wkv.launches
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11.6b"):
-        wkv.wkv6(r.requires_grad_(), k, v, w, u, state)
-    assert wkv.launches == launches
+    counts = (wkv.launches, wkv.bwd_launches, wkv.plain_calls, wkv.plain_bwd_calls)
+    y, _ = wkv.wkv6(r.requires_grad_(), k, v, w, u, state)
+    y.sum().backward()
+    assert (wkv.launches, wkv.bwd_launches, wkv.plain_calls, wkv.plain_bwd_calls) == \
+        (counts[0] + 1, counts[1] + 1, counts[2], counts[3])
+    assert r.grad is not None and bool(r.grad.abs().max() > 0)
+
+
+def _wkv_grad_inputs(cuda, b, s, h, k, dtype, seed):
+    """The forward's inputs, its checkpoints (the kernel's), dy and dS."""
+    args = _wkv_inputs(cuda, b, s, h, k, dtype, seed)
+    _, _, ck = wkv._kernel(*args, checkpoints=True)
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    dy = torch.randn(b, s, h, k, device=cuda, generator=g)
+    ds = torch.randn(b, h, k, k, device=cuda, generator=g)
+    return args[:5], ck, dy, ds
+
+
+@pytest.mark.parametrize("s", [1, 37, 300])
+@pytest.mark.parametrize("k", [16, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wkv6_bwd_kernel_matches_plain_version(cuda, no_tf32, dtype, k, s):
+    # one step, a ragged last chunk of 16, many chunks; from a nonzero
+    # state with a nonzero dS: each gradient within 1e-5 of its max
+    ins, ck, dy, ds = _wkv_grad_inputs(cuda, 3, s, 5, k, dtype, seed=s + k)
+    launches = wkv.bwd_launches
+    got = wkv.wkv6_bwd(*ins, ck, dy, ds)
+    assert wkv.bwd_launches == launches + 1
+    want = wkv.wkv6_backward_plain(*ins, ck, dy, ds)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "dstate0"), got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), name
+
+
+def test_wkv6_bwd_kernel_gives_the_same_bits_twice(cuda):
+    ins, ck, dy, ds = _wkv_grad_inputs(cuda, 2, 70, 4, 64, torch.bfloat16, seed=5)
+    one, two = wkv.wkv6_bwd(*ins, ck, dy, ds), wkv.wkv6_bwd(*ins, ck, dy, ds)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.parametrize("k", [16, 64])
+def test_wkv6_kernel_with_checkpoints_gives_the_same_bits(cuda, k):
+    # keeping the states changes no bit of y or the final state; the
+    # states kept are the plain loop's within 1e-5
+    args = _wkv_inputs(cuda, 2, 75, 4, k, torch.bfloat16, seed=6)
+    y, st = wkv.wkv6(*args)
+    yc, sc, ck = wkv._kernel(*args, checkpoints=True)
+    assert torch.equal(y, yc) and torch.equal(st, sc)
+    assert torch.equal(ck[:, 0], args[5])
+    _, _, cp = wkv.wkv6_plain(*args, checkpoints=True)
+    assert float((ck - cp).abs().max()) <= 1e-5 * float(cp.abs().max())
+
+
+def test_rwkv_training_step_on_card_launches_both_kernels(cuda, no_tf32):
+    # rwkv6-3b's smoke config (K=16, f32) trained one step on the card: a
+    # forward and a backward launch a layer, no plain call, the loss within
+    # 1e-4 of the CPU's
+    cfg = get_config("rwkv6-3b", smoke=True)
+    from repro_torch.optim import adamw
+    from repro_torch.training.train_loop import TrainCfg, make_train_step
+
+    tokens = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator().manual_seed(2))
+    losses = {}
+    for dev in ("cpu", cuda):
+        model = T.init_model(cfg, seed=0, device="cpu").to(dev)
+        acfg = adamw.AdamWConfig(warmup_steps=1, total_steps=2)
+        state = adamw.init(acfg, dict(model.named_parameters()))
+        step = make_train_step(cfg, T.RunCfg(), TrainCfg(adamw=acfg))
+        counts = (wkv.launches, wkv.bwd_launches, wkv.plain_calls, wkv.plain_bwd_calls)
+        losses[str(dev)] = [float(step(model, state, {"tokens": tokens.to(dev)})[0])
+                            for _ in range(2)]
+        if dev != "cpu":
+            n = 2 * cfg.n_layers
+            assert (wkv.launches, wkv.bwd_launches, wkv.plain_calls, wkv.plain_bwd_calls) \
+                == (counts[0] + n, counts[1] + n, counts[2], counts[3])
+    assert losses["cpu"] == pytest.approx(losses["cuda"], abs=1e-4)
 
 
 def test_rwkv_model_on_card_launches_the_kernel_once_a_layer(cuda, no_tf32):

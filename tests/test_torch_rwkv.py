@@ -16,8 +16,9 @@ inputs made from seeds and carried across as numpy arrays:
   ``init_cache``'s zeros, the cache's entries, shapes and dtypes, and bf16
   compute within 3e-2·max|logit|;
 * the prefill in chunks of the time axis equal to one pass; ``wkv6``'s
-  refusals (head size, autograd); the launchers (serving runs, training
-  refused naming ROADMAP Queue 1 item 11.6b).
+  refusal of other head sizes, and its gradients under autograd; the
+  launchers (serving and training run; ``tests/test_torch_rwkv_train.py``
+  holds the training to the JAX package).
 """
 
 import dataclasses
@@ -177,14 +178,21 @@ def test_wkv6_plain_at_one_step_is_the_references_step():
 
 
 def test_wkv6_refuses_other_head_sizes_and_autograd():
+    # other head sizes are refused; under autograd the gradients reach
+    # every input, through the backward's plain version on the CPU
     r = torch.zeros(1, 2, 3, 32)
     w = torch.zeros_like(r)
     with pytest.raises(ValueError, match="head size 32"):
         wkv.wkv6(r, r, r, w, torch.zeros(3, 32), torch.zeros(1, 3, 32, 32))
-    r = torch.zeros(1, 2, 3, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11.6b"):
-        wkv.wkv6(r, r, r, torch.zeros(1, 2, 3, 16), torch.zeros(3, 16),
-                 torch.zeros(1, 3, 16, 16))
+    gen = torch.Generator().manual_seed(3)
+    ins = [torch.randn(1, 2, 3, 16, generator=gen) for _ in range(4)] + \
+        [torch.randn(3, 16, generator=gen), torch.randn(1, 3, 16, 16, generator=gen)]
+    ins = [x.requires_grad_() for x in ins]
+    calls = wkv.plain_bwd_calls
+    y, st = wkv.wkv6(*ins)
+    (y.sum() + st.sum()).backward()
+    assert wkv.plain_bwd_calls == calls + 1
+    assert all(x.grad is not None and bool(x.grad.abs().max() > 0) for x in ins)
 
 
 # --------------------------------------------------------------------------
@@ -347,13 +355,17 @@ def test_prefill_in_chunks_of_the_time_axis_is_one_pass(smoke, monkeypatch):
 
 
 def test_launchers_serve_rwkv_and_refuse_its_training(capsys):
+    # both launchers run rwkv6-3b (its training was refused until the
+    # kernel's backward was ported)
     toks = serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--batch", "2",
                        "--prompt-len", "8", "--gen", "3"])
     assert toks.shape == (2, 3)
     assert "prefill 8 tokens x2" in capsys.readouterr().out
     cfg = get_config(ARCH, smoke=True)
     model = T.init_model(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11.6b"):
-        T.lm_loss(cfg, T.RunCfg(), model, {"tokens": torch.zeros(2, 4, dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11.6b"):
-        train.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "1"])
+    loss = T.lm_loss(cfg, T.RunCfg(), model, {"tokens": torch.zeros(2, 4, dtype=torch.long)})
+    assert bool(torch.isfinite(loss))
+    losses = train.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "1",
+                         "--batch", "2", "--seq", "16"])
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    assert "[done]" in capsys.readouterr().out
