@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout (it imports ``src/repro_torch``; nothing of
-JAX or of the JAX package ``repro``).  It covers the eight kernels of the
+JAX or of the JAX package ``repro``).  It covers the nine kernels of the
 port's three main paths.  The solver step: ``fft_radix2`` (backend
 ``"pallas"``), ``fft_mxu`` (backend ``"mxu"``, the four-step FFT on the
 FP64 tensor cores), and the NIC engine's ``ring_payload``, ``ring_send``
@@ -16,13 +16,15 @@ training step (deepseek-v2-lite's MLA in its decompressed form, at
 D=192); RWKV-6's recurrence, ``wkv6`` (``csrc/wkv6.cu``), once a
 layer in rwkv6-3b's prefill and each of its decode steps and once a
 block forward in its training, and its gradient, ``wkv6_bwd`` (same
-source), once a layer a microbatch in the backward; sharded over a
+source), once a layer a microbatch in the backward; Mamba's selective
+scan, ``selective_scan`` (``csrc/selective_scan.cu``), once a Mamba layer
+in the Jamba hybrid's prefill and each of its decode steps; sharded over a
 mesh of rank processes, the LM's collectives run on ``ring_send`` and
 ``ring_land`` too, the MoE's expert-parallel all-to-alls among them.  Phases, each
 fatal on failure:
 
 1. card — ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
-2. build — the five CUDA sources, ``nvcc`` processes started together,
+2. build — the six CUDA sources, ``nvcc`` processes started together,
    with each one's register, shared-memory and spill report (for the
    radix-2 row engine, one line of registers / spill bytes / static shared
    memory for each instantiation of ``fft_radix2_kernel<T, L>`` and
@@ -170,9 +172,10 @@ fatal on failure:
    (scale 1 + 0.25·(i mod 8), 3 steps: 12 batches of 4) and 2 nls N=256
    requests (another fingerprint); (b) the heat requests paced at 16
    requests/s (above what one-lane batches serve) through the scheduler
-   thread, on ``"pallas"``; (c) 4 rank processes on 2x2, heat N=512 on run
-   (c)'s plan (``pallas_ring``, fused, chunks=3), 24 requests,
-   ``max_batch`` 2, rank 0 scheduling.  Gates: no request rejected or
+   thread, on ``"pallas"``; (c) 4 rank processes on 2x2 (phase 13's, after
+   its runs: no spawn of its own), heat N=512 on run (c)'s plan
+   (``pallas_ring``, fused, chunks=3), 24 requests, ``max_batch`` 2, rank 0
+   scheduling.  Gates: no request rejected or
    failed; every lane's streamed history bitwise (exact float equality,
    ``t`` included) a solo run of a request of its case and scale on the
    same grid, and ``validate()`` passing; the backend's kernel launched (on
@@ -371,7 +374,7 @@ fatal on failure:
    decode ms a step on rank 0, a decode step's exchanges and wire bytes,
    the state a rank.  ``--rwkv-only`` runs phases 1, 16 and 17 ((c) and
    17 (b) in a spawn of their own); ``--lm-only`` runs phases 1, 8, 16,
-   17, 12, 13, 14 and 15;
+   17, 18, 12, 13, 14 and 15;
 17. RWKV training — (a) right after 16 (b), on its model: step 0's
    gradients in one microbatch (B=8, the first 256 of S=512) against the plain
    recurrence's run (torch's autograd through its loop), in bf16 at 12
@@ -397,6 +400,44 @@ fatal on failure:
    their gradients summed over ``model``; the receptance gathered with no
    autograd); rank 0's ms/step, peak a rank, a step's exchanges and wire
    bytes.
+18. Jamba — right after 17 (a), in the main process:
+   ``jamba-1.5-large-398b`` at full width (d 8192, 64 heads on 8 kv heads
+   of 128, d_ff 24576, 16 experts top-2 at d_ff 24576 every other layer,
+   Mamba d_state 16, d_conv 4, d_inner 16384, vocab 65536), one superblock
+   (72 -> 8 layers: 1 attention, 7 Mamba, 4 MoE and 4 dense MLP
+   sub-layers), the card holding experts 0-7 of each MoE layer's 16 (one
+   chip of a deployment that puts them over 2, expert-parallel:
+   ``init_model(experts=(0, 8))``; 25.91 B params, 51.8 GB), bf16, seed 0,
+   capacity factor 1.25; its recurrence the ``selective_scan`` kernel
+   (``csrc/selective_scan.cu``; its ptxas registers and spills in phase 2,
+   fatal on a spill).  First the launcher's own command, ``python3 -m
+   repro_torch.launch.serve --arch jamba-1.5-large-398b --layers 8
+   --experts 0:8 --batch 8 --prompt-len 2048 --gen 16``, in this process:
+   its counts as (a)'s, its tokens against (a)'s.  (a) Phase 8's batch,
+   prompt and 16 tokens through ``generate``: 7 scan launches a prefill
+   and 7 a decode step, 1
+   ``flash_attention`` launch a prefill, no plain call (counted in the
+   run, and again for one prefill and one step alone); prefill ms, decode
+   ms a step, tok/s, peak, the decode state's bytes (the Mamba layers'
+   conv and ssm states against the attention layer's k and v), a profiled
+   prefill and decode step.  (b) The plain scan's and plain attention's
+   run, teacher-forced for 2 tokens, the expert choices pinned to (a)'s;
+   every call of the recurrence in it also runs the kernel on the same
+   inputs: y and the final state within 1e-5 of max, a gate that must
+   refuse the kernel reading B of the step before in every call; the bf16
+   logits within max(3e-2, 2 × the gap of a correct control, the scan in
+   f64 rounded once) of the plain run's, a bound that the kernel reading
+   B of the step before in every layer must exceed.  (c) f32 at prompt
+   512, 8 tokens, each sub-layer's params cast as it runs: the plain run,
+   pinned to the kernel run's routing and teacher-forced with its tokens,
+   within 1e-4 of its logits; the peak.  The kernel timed at the prefill
+   shape and at S=1 against its bound (the larger of its bytes and its
+   arithmetic: its f32 flops on the FMA pipes and its exponentials split
+   between the special function units and a polynomial on the FMA pipes,
+   at the card's max SM clock, which ``nvidia-smi`` reads; the
+   exponentials on the special function units alone printed beside it)
+   and its plain time.
+   ``--jamba-only`` runs phases 1, 2 and 18.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Full results go to
@@ -425,7 +466,7 @@ FP32_FLOPS = 67e12            # H100 SXM data sheet, FP32 without tensor cores
 TOL = {"float64": 1e-12, "float32": 1e-5}
 KERNELS = ("fft_radix2", "fft_mxu")
 BACKEND = {"fft_radix2": "pallas", "fft_mxu": "mxu"}
-SOURCES = KERNELS + ("ring_rdma", "flash_attention", "wkv6")
+SOURCES = KERNELS + ("ring_rdma", "flash_attention", "wkv6", "selective_scan")
 RADIX2_SOURCES = ("fft_radix2", "ring_rdma")  # the radix-2 row engine's users
 RING_KERNELS = ("ring_payload", "ring_send", "ring_land")
 BF16_TC_FLOPS = 989e12        # H100 SXM data sheet, dense bf16 tensor cores
@@ -630,8 +671,9 @@ def build():
     mxu = mxu_ptxas(_build.build_log("fft_mxu"))
     copies = copy_ptxas(_build.build_log("ring_rdma"))
     wkv = wkv_ptxas(_build.build_log("wkv6"))
+    scan = scan_ptxas(_build.build_log("selective_scan"))
     return flash_sass(libs["flash_attention"], _build.build_log("flash_attention"),
-                      _build.nvcc()), radix2 + mxu + copies + wkv
+                      _build.nvcc()), radix2 + mxu + copies + wkv + scan
 
 
 def _radix2_log2ns(dtype: str) -> list:
@@ -3119,6 +3161,7 @@ def _serve_ranks(ctx):
     from repro_torch.serving import SimServer, run_load
 
     dev = ctx.device
+    t0 = time.perf_counter()
     reqs = _serve_requests("heat", SERVE_N, SERVE_GRID_REQUESTS,
                            MULTI_RANK_CFG[CKPT_RUN])
     server = SimServer(ctx.grid(), device=dev, max_batch=SERVE_GRID_BATCH,
@@ -3151,18 +3194,14 @@ def _serve_ranks(ctx):
                                 profile_step=True)
     del server, solver
     torch.cuda.empty_cache()
+    out["serve_s"] = time.perf_counter() - t0
     return out
 
 
-def _serve_grid(smi):
-    """Phase 10 (c): the 2x2 spawn and its gates."""
-    import torch
-
-    from repro_torch import dist
-
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = dist.run_ranks(_serve_ranks, 2, 2, device="cuda", timeout=600)
+def serve_grid_gates(smi, ranks):
+    """Phase 10 (c)'s gates, on the results of its 4 ranks (run last in
+    phase 13's spawn, :func:`_sharded_ranks`); returns the kernels'
+    launches summed over the ranks."""
     tag = f"serving 2x2 {MULTI_RANK_CFG[CKPT_RUN]}"
     r0 = ranks[0]
     for rank, r in enumerate(ranks):
@@ -3186,8 +3225,8 @@ def _serve_grid(smi):
     if len(r0["results"]) != SERVE_GRID_REQUESTS or r0["load"]["n_rejected"]:
         fail(f"{tag}: {len(r0['results'])} results, {r0['load']['n_rejected']} rejected")
     st = r0["load"]
-    say(f"[{smi}] {tag}: 4 rank processes in {time.perf_counter() - t0:.1f} s; "
-        f"{st['n_requests']} requests in {st['wall_s']:.3f} s, "
+    say(f"[{smi}] {tag}: 4 rank processes (phase 13's, after its runs) in "
+        f"{r0['serve_s']:.1f} s; {st['n_requests']} requests in {st['wall_s']:.3f} s, "
         f"{st['requests_per_s']:.3f} requests/s, latency p50 / p95 / p99 "
         f"{st['p50_us'] / 1e3:.1f} / {st['p95_us'] / 1e3:.1f} / "
         f"{st['p99_us'] / 1e3:.1f} ms, batches by lanes {st['batch_sizes']}; "
@@ -3198,12 +3237,17 @@ def _serve_grid(smi):
         f"roundtrip payloads with the multiplier shared by the lanes "
         f"{r0['counts']['shared_diag']} on rank 0")
     _step_line(smi, f"{tag} rank 0", r0["step"])
-    return ranks
+    launches = dict.fromkeys(SERVE_KERNELS, 0)
+    for r in ranks:
+        for k in SERVE_KERNELS:
+            launches[k] += r["counts"][k]
+    return [{k: v for k, v in r.items() if k != "solos"} for r in ranks], launches
 
 
 def serving(smi):
-    """Phase 10: serving on the card; returns the results and the kernel
-    launches of its runs (the bursts, the paced run, the 2x2 burst)."""
+    """Phase 10 (a), (b): serving on the card; returns the results and the
+    kernel launches of its runs (the bursts, the paced run).  (c), the 2x2
+    burst, runs in phase 13's spawn (:func:`serve_grid_gates`)."""
     out = {"1x1": []}
     solos = None
     for backend in SERVE_BACKENDS:
@@ -3211,11 +3255,8 @@ def serving(smi):
         out["1x1"].append(r)
         solos = solos or s
     out["threaded"] = _serve_threaded(smi, solos)
-    ranks = _serve_grid(smi)
-    out["2x2"] = [{k: v for k, v in r.items() if k != "solos"} for r in ranks]
     launches = dict.fromkeys(SERVE_KERNELS, 0)
-    for counts in ([r["counts"] for r in out["1x1"]] + [out["threaded"]["counts"]]
-                   + [r["counts"] for r in ranks]):
+    for counts in [r["counts"] for r in out["1x1"]] + [out["threaded"]["counts"]]:
         for k in SERVE_KERNELS:
             launches[k] += counts[k]
     return out, launches
@@ -4254,9 +4295,10 @@ def _shard_serve(ctx, cfg, forced):
     return out
 
 
-def _sharded_ranks(ctx, forced, rwkv_args=None):
+def _sharded_ranks(ctx, forced, rwkv_args=None, serve_grid=False):
     """Everything phase 13's 4 rank processes do, (a) to (e), and then
-    phase 16 (c) (with ``rwkv_args``)."""
+    phase 16 (c) (with ``rwkv_args``) and phase 10 (c) (with
+    ``serve_grid``), in the processes already started."""
     import torch.distributed as tdist
 
     from repro_torch.configs import get_config
@@ -4284,6 +4326,8 @@ def _sharded_ranks(ctx, forced, rwkv_args=None):
     out["serve"] = _shard_serve(ctx, get_config(TRAIN_ARCH), forced)
     if rwkv_args is not None:
         out["rwkv"] = _rwkv_ranks(ctx, *rwkv_args)
+    if serve_grid:
+        out["serve_grid"] = _serve_ranks(ctx)
     wires.update({("serve",) + k: w for k, w in ctx.wires().items()})
     out["wires"] = sorted(f"{k}: {type(w).__name__}" for k, w in wires.items())
     out["wires_ipc"] = all(isinstance(w, ring_rdma.IpcWire) for w in wires.values())
@@ -4336,13 +4380,15 @@ def _steps_line(label, run, ref, ref_label) -> str:
             f"{ {n: f'{g:.2e}' for n, g in moved.items()} }")
 
 
-def sharded_lm(smi, trained, served, rwkv_kept=None):
+def sharded_lm(smi, trained, served, rwkv_kept=None, serve_grid=False):
     """Phase 13: smollm-360m at full width sharded over a 2x2 mesh of rank
     processes on the one card (one spawn, re-cut between meshes), against
     phases 12 and 8; returns the results and the kernels' launches summed
     over the ranks.  Every reading is printed before the gates fail.  With
     ``rwkv_kept`` (phase 16 (a)'s), the spawn runs phase 16 (c) last, its
-    ranks' results under ``rwkv_ranks`` (gated by :func:`rwkv_mesh`)."""
+    ranks' results under ``rwkv_ranks`` (gated by :func:`rwkv_mesh`); with
+    ``serve_grid``, phase 10 (c) after it, under ``serve_ranks`` (gated by
+    :func:`serve_grid_gates`)."""
     import torch
 
     from repro_torch import dist
@@ -4365,8 +4411,10 @@ def sharded_lm(smi, trained, served, rwkv_kept=None):
     t0 = time.perf_counter()
     rwkv_args = None if rwkv_kept is None else _rwkv_rank_args(rwkv_kept)
     ranks = dist.run_ranks(_sharded_ranks, 2, 2, device="cuda",
-                           args=(served["tokens"].numpy(), rwkv_args), timeout=1200)
+                           args=(served["tokens"].numpy(), rwkv_args, serve_grid),
+                           timeout=1200)
     rwkv_ranks = [r.pop("rwkv") for r in ranks] if rwkv_kept is not None else None
+    serve_ranks = [r.pop("serve_grid") for r in ranks] if serve_grid else None
     spawn_s = time.perf_counter() - t0
     # (b) the 2x2 run's step-3 checkpoint resumed on one device, steps 4-5
     t0 = time.perf_counter()
@@ -4374,7 +4422,8 @@ def sharded_lm(smi, trained, served, rwkv_kept=None):
                                      "--halt-after", "6"))
     resume_1x1_s = time.perf_counter() - t0
     out = {"spawn_s": spawn_s, "ranks": ranks, "resume_1x1": resumed,
-           "resume_1x1_s": resume_1x1_s, "rwkv_ranks": rwkv_ranks}
+           "resume_1x1_s": resume_1x1_s, "rwkv_ranks": rwkv_ranks,
+           "serve_ranks": serve_ranks}
     bad = []
     r0 = ranks[0]
     a = r0["train"]
@@ -6899,6 +6948,451 @@ def rwkv_train_mesh(smi, refs, ranks) -> tuple:
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: Jamba (jamba-1.5-large-398b) served at full width on one card:
+# one superblock, the card holding 8 of each MoE layer's 16 experts
+# ---------------------------------------------------------------------------
+
+JAMBA_ARCH = "jamba-1.5-large-398b"
+# one superblock of its 72 layers (the least depth that keeps the 1:7
+# attention:Mamba period and the MoE every other layer) holds 45.24 B
+# params with the embedding and head, 90.5 GB in bf16 against the card's
+# 80: the card holds experts 0-7 of each MoE layer's 16, its share of a
+# deployment that puts them over 2 chips, expert-parallel, everything else
+# whole on both (25.91 B params, 51.8 GB); capacity factor 1.25 (the
+# config's)
+JAMBA_LAYERS = 8
+JAMBA_EXPERTS = (0, 8)
+# (a) phase 8's batch, prompt and gen.  (b) the plain scan's and plain
+# attention's run, teacher-forced for JAMBA_CHECK_GEN tokens with the
+# expert choices pinned to (a)'s (``moe.routing``: bf16 routing flips
+# under roundoff); every call of the recurrence in it also runs the kernel
+# on the same inputs: y and the final state within JAMBA_LAYER_TOL of max
+# (both f32: roundoff and ex2), a gate that must refuse the kernel reading
+# B of the step before (the likely fault of a staged chunk) in every call.
+# The bf16 logits within max(LM_TOL_BF16, JAMBA_DRIFT_RATIO x the gap of a
+# correct control, the scan in f64 rounded once) of the plain run's, a
+# bound that the off-by-one kernel in every layer must exceed.  (c) f32 at
+# LM_PROMPT_F32, JAMBA_F32_GEN tokens, the plain run pinned to the
+# kernel run's routing and teacher-forced with its tokens: logits within
+# LM_TOL_F32
+JAMBA_LAYER_TOL = 1e-5
+JAMBA_DRIFT_RATIO = 2.0
+JAMBA_CHECK_GEN = MESH_GEN  # _first_steps cuts the routing to MESH_GEN
+JAMBA_F32_GEN = 8
+JAMBA_ONLY = "--jamba-only"
+# the special function units' ex2 rate, 16 a clock an SM (CUDA C++
+# Programming Guide, arithmetic instructions, compute capability 9.0)
+SFU_PER_CLOCK = 16
+H100_SMS = 132
+# FMA-pipe instructions of a 2^x at f32 accuracy without the special
+# function units: a round and a subtract to split off the exponent, a
+# degree-6 polynomial of the fraction by Horner (the exponent's scaling
+# an integer add, on the integer pipe)
+POLY_EXP2_FMA_INSTR = 8
+
+
+def _arith_ms(flops_ms: float, sfu_ms: float, poly_ms: float) -> float:
+    """The least time of the arithmetic when each exponential may run on
+    the special function units (``sfu_ms`` for all of them) or as a
+    polynomial on the FMA pipes (``poly_ms`` for all), beside the other f32
+    work there (``flops_ms``): the share moved to the FMA pipes that
+    levels the two."""
+    moved = min(1.0, max(0.0, (sfu_ms - flops_ms) / (poly_ms + sfu_ms)))
+    return max(flops_ms + moved * poly_ms, (1 - moved) * sfu_ms)
+
+
+def scan_ptxas(log: str) -> list:
+    """Phase 2, ``selective_scan``: registers and spill bytes of each
+    instantiation (f32 and bf16 x, d_state 8 and 16); fatal on a spill or
+    a missing one."""
+    dtype = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
+    ks = _ptxas_entries(log, r"\dselective_scan_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+    say("  ptxas selective_scan_kernel, registers / spill bytes: " + ", ".join(
+        f"<{dtype[k['groups'][0]]}, d_state={k['groups'][1]}>: {k['registers']}/"
+        f"{k['spill_bytes']}" for k in ks))
+    if len(ks) != 4 or any(k["spill_bytes"] != 0 for k in ks):
+        fail(f"selective_scan_kernel instantiations: {ks}")
+    return [{"source": "selective_scan", "kernel": "selective_scan_kernel",
+             "dtype": dtype[k["groups"][0]], "d_state": int(k["groups"][1]),
+             "registers": k["registers"], "spill_bytes": k["spill_bytes"]} for k in ks]
+
+
+def _scan_counts() -> dict:
+    from repro_torch.kernels import attention
+    from repro_torch.kernels import selective_scan as SS
+
+    return {"selective_scan": SS.launches, "selective_scan_plain": SS.plain_calls,
+            "flash_attention": attention.launches,
+            "flash_attention_plain": attention.plain_calls}
+
+
+def _zero_scan_counts() -> None:
+    from repro_torch.kernels import attention
+    from repro_torch.kernels import selective_scan as SS
+
+    SS.launches = SS.plain_calls = attention.launches = attention.plain_calls = 0
+
+
+def _scan_only(scans: int, flash: int) -> dict:
+    """The counts of a run that launches the scan ``scans`` times and the
+    flash kernel ``flash`` times, and calls no plain version."""
+    return {"selective_scan": scans, "selective_scan_plain": 0, "flash_attention": flash,
+            "flash_attention_plain": 0}
+
+
+def _b_of_the_step_before(b):
+    """B (rows, S, d_state) as the off-by-one control reads it: each step
+    B of the step before, zeros before the first."""
+    import torch
+
+    return torch.cat([torch.zeros_like(b[:, :1]), b[:, :-1]], 1)
+
+
+def _scan_beside(gaps: list):
+    """A wrapper of ``selective_scan_plain`` that also runs the kernel on
+    the same inputs, and the kernel reading B of the step before (the
+    control), and records each call's gaps to the plain version (device
+    scalars: no synchronisation a call)."""
+    import torch
+
+    from repro_torch.kernels import selective_scan as SS
+
+    def wrap(plain):
+        def both(dt, x, b, c, a_log, d, h0):
+            y, h = plain(dt, x, b, c, a_log, d, h0)
+            yk, hk = SS.selective_scan(dt, x, b, c, a_log, d, h0)
+            yo, _ = SS.selective_scan(dt, x, _b_of_the_step_before(b), c, a_log, d, h0)
+            ym, hm = y.abs().max(), h.abs().max()
+            dy, dh = (yk - y).abs().max(), (hk - h).abs().max()
+            gaps.append(torch.stack([dy / ym, dh / hm, (yo - y).abs().max() / ym,
+                                     torch.maximum(dy, dh),
+                                     torch.tensor(float(dt.shape[1]), device=y.device)]))
+            return y, h
+        return both
+    return wrap
+
+
+def _scan_f64(_plain):
+    """(b)'s correct control in place of ``selective_scan_plain``: the same
+    step loop in f64, its y and state rounded to f32 once."""
+    import torch
+
+    def f64(dt, x, b, c, a_log, d, h0):
+        dtd, xd, bd, cd = dt.double(), x.double(), b.double(), c.double()
+        a, h = -torch.exp(a_log.double()), h0.double()
+        dtx = dtd * xd
+        ys = []
+        for t in range(dt.shape[1]):
+            h = torch.exp(dtd[:, t, :, None] * a) * h + dtx[:, t, :, None] * bd[:, t, None, :]
+            ys.append(torch.matmul(h, cd[:, t, :, None])[..., 0])
+        return (torch.stack(ys, 1) + xd * d.double()).float(), h.float()
+    return f64
+
+
+def _off_by_one(kernel):
+    """(b)'s broken control in place of ``selective_scan``: the kernel
+    reading B of the step before."""
+    return lambda dt, x, b, c, a_log, d, h0: kernel(dt, x, _b_of_the_step_before(b), c,
+                                                    a_log, d, h0)
+
+
+def _sm_clock_mhz() -> tuple:
+    """(max, current) SM clock in MHz, as ``nvidia-smi`` reads them."""
+    got = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    top, now = (float(v) for v in got.split(","))
+    return top, now
+
+
+def _scan_timing(gen, clock_mhz: float) -> list:
+    """``selective_scan`` at the prefill shape (B=8, S=2048, d_inner 16384,
+    d_state 16, bf16 x) and at a decode step's (S=1): the kernel (median of
+    7 CUDA-event timings), its plain version, and the bound: the larger of
+    :func:`selective_scan_bytes` over 3.35 TB/s and the arithmetic
+    (:func:`_arith_ms`: :func:`selective_scan_flops` over the f32 CUDA
+    cores' 67 TFLOP/s, :func:`selective_scan_exps` split between the
+    special function units' ex2 rate at the card's max SM clock and
+    :data:`POLY_EXP2_FMA_INSTR` FMA-pipe instructions each; ``bound_by``
+    "operations" where it decides).  The exponentials on the special
+    function units alone (``exps_sfu``) are printed beside it.  No single
+    PyTorch call computes the recurrence: no library time."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import selective_scan as SS
+    from repro_torch.models import transformer as T
+
+    md = T.mamba_dims(get_config(JAMBA_ARCH))
+    di, ds = md.d_inner, md.d_state
+    sfu_per_s = SFU_PER_CLOCK * H100_SMS * clock_mhz * 1e6
+    out = []
+    for s in (LM_PROMPT, 1):
+        b = LM_BATCH
+        dt = torch.nn.functional.softplus(_rand((b, s, di), torch.float32, gen) - 1)
+        x = _rand((b, s, di), torch.float32, gen).bfloat16()
+        bm, cm = (_rand((b, s, ds), torch.float32, gen) for _ in range(2))
+        a_log = _rand((di, ds), torch.float32, gen) * 0.5
+        d = _rand((di,), torch.float32, gen)
+        h0 = _rand((b, di, ds), torch.float32, gen) * 0.3
+        args = (dt, x, bm, cm, a_log, d, h0)
+        ms, lo, hi = _median_ms(lambda: SS.selective_scan(*args), 10, 2)
+        plain_ms = _time_ms(lambda: SS.selective_scan_plain(*args), 1, 1)
+        moved = SS.selective_scan_bytes(b, s, di, ds, 2)
+        flops, exps = SS.selective_scan_flops(b, s, di, ds), SS.selective_scan_exps(b, s, di, ds)
+        terms = {"bytes": moved / HBM_BYTES_PER_S * 1e3, "flops": flops / FP32_FLOPS * 1e3,
+                 "exps_sfu": exps / sfu_per_s * 1e3,
+                 "exps_poly": exps * 2 * POLY_EXP2_FMA_INSTR / FP32_FLOPS * 1e3}
+        terms["arith"] = _arith_ms(terms["flops"], terms["exps_sfu"], terms["exps_poly"])
+        decides = "bytes" if terms["bytes"] >= terms["arith"] else "arith"
+        rec = {"kernel": "selective_scan", "shape": [b, s, di, ds], "dtype": "bfloat16",
+               "ms": ms, "ms_spread": [lo, hi], "plain_ms": plain_ms, "library_ms": None,
+               "bytes": moved, "flops": flops, "exps": exps, "clock_mhz": clock_mhz,
+               "terms_ms": terms, "decides": decides, "bound_ms": terms[decides],
+               "bound_by": "bytes" if decides == "bytes" else "operations"}
+        say(f"timing selective_scan B={b} S={s} d_inner={di} d_state={ds} bf16 x: kernel "
+            f"{ms:.4f} ms ({lo:.4f}-{hi:.4f}), plain {plain_ms:.3f} ms, library none; bound "
+            f"{rec['bound_ms']:.4f} ms ({decides}: {moved} B {terms['bytes']:.4f} ms; "
+            f"arithmetic {terms['arith']:.4f} ms: {flops:.4g} flop {terms['flops']:.4f} ms "
+            f"beside {exps:.4g} exps split between the SFU, {SFU_PER_CLOCK} a clock on "
+            f"{H100_SMS} SMs at {clock_mhz:.0f} MHz ({terms['exps_sfu']:.4f} ms for all), "
+            f"and the FMA pipes, {POLY_EXP2_FMA_INSTR} instructions each "
+            f"({terms['exps_poly']:.4f} ms for all)), {rec['bound_ms'] / ms:.1%} of the "
+            f"bound, {terms['exps_sfu'] / ms:.1%} of the exps' time on the SFU alone")
+        out.append(rec)
+        del args, dt, x, bm, cm, h0
+    torch.cuda.empty_cache()
+    return out
+
+
+def _state_bytes(cache) -> dict:
+    """A Jamba decode cache's bytes: the Mamba layers' states (conv and
+    ssm) and the attention layer's k and v."""
+    nbytes = {k: t.numel() * t.element_size() for k, t in cache.items() if k != "len"}
+    return {"mamba": nbytes["conv"] + nbytes["ssm"], "conv": nbytes["conv"],
+            "ssm": nbytes["ssm"], "kv": nbytes["k"] + nbytes["v"]}
+
+
+def jamba_lm(smi):
+    """Phase 18 on one card: jamba-1.5-large-398b at full width (d 8192, 64
+    heads on 8 kv heads of 128, d_ff 24576, 16 experts top-2 at d_ff 24576
+    every other layer, Mamba d_state 16, d_conv 4, d_inner 16384, vocab
+    65536), one superblock (72 -> 8 layers), experts 0-7 of each MoE
+    layer's 16 held, bf16, random weights from seed 0.  Returns (results,
+    the main path's launches of ``selective_scan`` and
+    ``flash_attention``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import mamba as MB
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    clock_mhz, clock_now = _sm_clock_mhz()
+    cfg = dataclasses.replace(get_config(JAMBA_ARCH), n_layers=JAMBA_LAYERS)
+    run = T.RunCfg()
+    nm = T.stack_sizes(cfg)["blocks"] * (cfg.hybrid_period - 1)  # its Mamba layers
+    # the launcher's own command (README's), in this process: its model made
+    # and freed before (a)'s
+    argv = ["--arch", JAMBA_ARCH, "--layers", str(JAMBA_LAYERS), "--experts",
+            f"{JAMBA_EXPERTS[0]}:{JAMBA_EXPERTS[1]}", "--batch", str(LM_BATCH),
+            "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN)]
+    _zero_scan_counts()
+    t0 = time.perf_counter()
+    launched = serve.main(argv).cpu()
+    launcher = {"argv": argv, "counts": _scan_counts(), "s": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
+    plain_run = dataclasses.replace(run, plain_scan=True, plain_attention=True)
+    t0 = time.perf_counter()
+    model = T.init_model(cfg, seed=0, device="cuda", experts=JAMBA_EXPERTS)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    tokens = serve.prompt_tokens(cfg, LM_BATCH, LM_PROMPT, "cuda")
+    serve.generate(cfg, run, model, tokens[:, :64], 2)  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_scan_counts()
+    r, record = _record(lambda: serve.generate(cfg, run, model, tokens, LM_GEN,
+                                               keep_logits=True))
+    counts = _scan_counts()
+    steps = LM_GEN - 1
+    out = {"arch": JAMBA_ARCH, "layers": JAMBA_LAYERS, "experts_held": list(JAMBA_EXPERTS),
+           "params": n_params, "param_bytes": param_bytes, "init_s": init_s,
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN, "counts": counts,
+           "prefill_ms": r["prefill_ms"], "decode_ms_per_step": r["decode_ms"] / steps,
+           "tok_per_s": steps * LM_BATCH / (r["decode_ms"] / 1e3),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "held_before": before, "state_bytes": _state_bytes(r["cache"]),
+           "sample": r["tokens"][0, :16].tolist(), "clock_mhz": [clock_mhz, clock_now]}
+    launcher["agree"] = float((launched == r["tokens"].cpu()).float().mean())
+    out["launcher"] = launcher
+    say(f"[{smi}] Jamba launcher: python3 -m repro_torch.launch.serve {' '.join(argv)} in "
+        f"{launcher['s']:.1f} s: counts {launcher['counts']}; its tokens {tuple(launched.shape)} "
+        f"agree with (a)'s on {launcher['agree']:.2%}")
+    # one more prefill and one decode step, each counted alone and profiled
+    _zero_scan_counts()
+    prof_prefill = _profile(lambda: T.prefill(cfg, run, model, {"tokens": tokens},
+                                              t_max=LM_PROMPT + LM_GEN),
+                            f"Jamba prefill {JAMBA_ARCH} 1 superblock B={LM_BATCH} "
+                            f"S={LM_PROMPT}")
+    out["prefill_counts"] = _scan_counts()
+    cache, tok = r["cache"], r["tokens"][:, -1:]
+    _zero_scan_counts()
+    prof_decode = _profile(lambda: T.decode_step(cfg, run, model, cache, tok),
+                           f"Jamba decode step {JAMBA_ARCH} B={LM_BATCH}")
+    out["step_counts"] = _scan_counts()
+    out["breakdown"] = [prof_prefill, prof_decode]
+    st = out["state_bytes"]
+    say(f"[{smi}] Jamba (a) {JAMBA_ARCH}, 1 superblock ({JAMBA_LAYERS} of 72 layers), "
+        f"experts {JAMBA_EXPERTS[0]}-{sum(JAMBA_EXPERTS) - 1} of each MoE layer's "
+        f"{cfg.moe.n_experts} held: {n_params} params, {param_bytes / 1e9:.2f} GB bf16 "
+        f"(made in {init_s:.1f} s; {before / 2**30:.2f} GiB held before); bf16 "
+        f"B={LM_BATCH} prompt={LM_PROMPT} gen={LM_GEN}: prefill {out['prefill_ms']:.3f} ms, "
+        f"decode {out['decode_ms_per_step']:.3f} ms/step ({out['tok_per_s']:.1f} tok/s), "
+        f"peak {out['peak_bytes'] / 2**30:.3f} GiB; decode state: Mamba's conv + ssm "
+        f"{st['mamba']} B ({st['conv']} + {st['ssm']}) at any length, the attention "
+        f"layer's k + v {st['kv']} B at {LM_PROMPT + LM_GEN} positions; counts {counts}, "
+        f"a prefill {out['prefill_counts']}, a decode step {out['step_counts']}; sample "
+        f"{out['sample']}")
+    for line in prof_prefill["lines"] + prof_decode["lines"]:
+        say(line)
+    del cache, tok
+
+    # (b) the plain run, teacher-forced, the routing pinned to (a)'s; every
+    # call of the recurrence in it also runs the kernel on the same inputs
+    forced, pinned = r["tokens"][:, :JAMBA_CHECK_GEN], _first_steps(record, LM_GEN)
+    kernel_logits = r["logits"][:JAMBA_CHECK_GEN]
+    kept_tokens = r["tokens"].cpu()
+    del r, record
+
+    def teacher(run_):
+        return serve.generate(cfg, run_, model, tokens, JAMBA_CHECK_GEN, forced=forced,
+                              keep_logits=True)
+
+    gaps = []
+    p, flips = _replay(lambda: _patched(MB, "selective_scan_plain", _scan_beside(gaps),
+                                        lambda: teacher(plain_run)), pinned)
+    g = torch.stack(gaps).cpu()
+    prefill_rows = g[:, 4] > 1
+    layer = {"calls": len(gaps), "prefill_calls": int(prefill_rows.sum()),
+             "y_max": float(g[:, 0].max()), "state_max": float(g[:, 1].max()),
+             "prefill_y_max": float(g[prefill_rows, 0].max()),
+             "max_abs": float(g[:, 3].max()), "shifted_min": float(g[:, 2].min()),
+             "shifted_refused": int((g[:, 2] > JAMBA_LAYER_TOL).sum()),
+             "pinned_flips": flips}
+    # a correct recurrence in other roundings (f64; the flash kernel's
+    # attention, as the kernel run's) and a broken one (B of the step
+    # before in every layer's kernel), the same tokens forced and routing
+    # pinned
+    c, _ = _replay(lambda: _patched(MB, "selective_scan_plain", _scan_f64, lambda: teacher(
+        dataclasses.replace(run, plain_scan=True))), pinned)
+    o, _ = _replay(lambda: _patched(MB, "selective_scan", _off_by_one,
+                                    lambda: teacher(run)), pinned)
+    logit_gaps = _logit_gaps(p["logits"], kernel_logits)
+    drift = _logit_gaps(p["logits"], c["logits"])
+    broken = _logit_gaps(p["logits"], o["logits"])
+    bound = max(LM_TOL_BF16, JAMBA_DRIFT_RATIO * max(drift))
+    finite = all(bool(torch.isfinite(x).all()) for x in kernel_logits)
+    out.update(layer=layer, gap_prefill=logit_gaps[0], gap_max=max(logit_gaps),
+               drift_prefill=drift[0], drift_max=max(drift), shifted_gap_max=max(broken),
+               bound=bound, plain_prefill_ms=p["prefill_ms"],
+               plain_decode_ms_per_step=p["decode_ms"] / (JAMBA_CHECK_GEN - 1))
+    del p, c, o, kernel_logits
+    say(f"[{smi}] Jamba (b) every call of the recurrence in the plain run ({layer['calls']}: "
+        f"{layer['prefill_calls']} at S={LM_PROMPT}, the rest decode steps; expert choices "
+        f"pinned to (a)'s, its own differing on {flips:.2%} of the tokens) against the "
+        f"kernel on the same inputs: y {layer['y_max']:.3e} (the prefill's "
+        f"{layer['prefill_y_max']:.3e}), state {layer['state_max']:.3e} of max (tol "
+        f"{JAMBA_LAYER_TOL:g}; max |d| {layer['max_abs']:.3e}); control, B of the step "
+        f"before: the smallest gap {layer['shifted_min']:.3e}, refused in "
+        f"{layer['shifted_refused']} of {layer['calls']} calls")
+    say(f"[{smi}] Jamba (b) bf16 logits against the plain run (plain scan and attention, "
+        f"{JAMBA_CHECK_GEN} tokens, teacher-forced, routing pinned): the kernel run prefill "
+        f"{logit_gaps[0]:.3e}, max {max(logit_gaps):.3e}; a correct control (the scan in "
+        f"f64, rounded once) prefill {drift[0]:.3e}, max {max(drift):.3e}; bound max("
+        f"{LM_TOL_BF16:g}, {JAMBA_DRIFT_RATIO:g} x the control's) = {bound:.3e}; the kernel "
+        f"reading B of the step before in every layer {max(broken):.3e}: "
+        f"{'refused' if max(broken) > bound else 'PASSED'}; plain prefill "
+        f"{out['plain_prefill_ms']:.1f} ms, decode {out['plain_decode_ms_per_step']:.1f} "
+        f"ms/step")
+
+    # (c) f32 at LM_PROMPT_F32: the kernel run, then the plain run pinned to
+    # its routing and teacher-forced with its tokens
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    t32 = tokens[:, :LM_PROMPT_F32]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_scan_counts()
+    k32, rec32 = _record(lambda: serve.generate(cfg32, run, model, t32, JAMBA_F32_GEN,
+                                                keep_logits=True))
+    n32 = _scan_counts()
+    peak32 = torch.cuda.max_memory_allocated()
+    p32, flips32 = _replay(lambda: serve.generate(
+        cfg32, plain_run, model, t32, JAMBA_F32_GEN, forced=k32["tokens"],
+        keep_logits=True), rec32)
+    gaps32 = _logit_gaps(k32["logits"], p32["logits"])
+    same = bool(torch.equal(k32["tokens"], p32["tokens"]))
+    out["f32"] = {"prompt": LM_PROMPT_F32, "gen": JAMBA_F32_GEN, "counts": n32,
+                  "prefill_ms": k32["prefill_ms"], "plain_prefill_ms": p32["prefill_ms"],
+                  "decode_ms_per_step": k32["decode_ms"] / (JAMBA_F32_GEN - 1),
+                  "peak_bytes": peak32, "same_tokens": same, "gap_max": max(gaps32),
+                  "pinned_flips": flips32}
+    del k32, p32, rec32
+    say(f"[{smi}] Jamba (c) f32 (prompt {LM_PROMPT_F32}, {JAMBA_F32_GEN} tokens; each "
+        f"sub-layer's params cast to f32 as it runs): kernel prefill "
+        f"{out['f32']['prefill_ms']:.3f} ms, decode {out['f32']['decode_ms_per_step']:.3f} "
+        f"ms/step, plain prefill {out['f32']['plain_prefill_ms']:.3f} ms, peak "
+        f"{peak32 / 2**30:.3f} GiB; the plain run pinned to the kernel run's routing (its "
+        f"own differing on {flips32:.2%}) and teacher-forced: greedy tokens "
+        f"{'identical' if same else 'DIFFER'}, logits gap max {max(gaps32):.3e} of "
+        f"max|logit| (tol {LM_TOL_F32:g}); counts {n32}")
+    del model
+    torch.cuda.empty_cache()
+    out["timing"] = _scan_timing(torch.Generator(device="cuda").manual_seed(18), clock_mhz)
+
+    bad = []
+    if launcher["counts"] != _scan_only(nm * LM_GEN, 1) \
+            or tuple(launched.shape) != (LM_BATCH, LM_GEN):
+        bad.append(f"the launcher: counts {launcher['counts']}, tokens "
+                   f"{tuple(launched.shape)}: want {nm * LM_GEN} scan launches, 1 flash "
+                   f"launch, no plain call, ({LM_BATCH}, {LM_GEN}) tokens")
+    if counts != _scan_only(nm * LM_GEN, 1) or out["prefill_counts"] != _scan_only(nm, 1) \
+            or out["step_counts"] != _scan_only(nm, 0):
+        bad.append(f"counts {counts}, a prefill {out['prefill_counts']}, a step "
+                   f"{out['step_counts']}: want {nm} scan launches a prefill and {nm} a "
+                   "step, 1 flash launch a prefill, no plain call")
+    if layer["y_max"] > JAMBA_LAYER_TOL or layer["state_max"] > JAMBA_LAYER_TOL:
+        bad.append(f"a layer's kernel output parts from the plain recurrence by "
+                   f"{max(layer['y_max'], layer['state_max']):.3e}")
+    if layer["shifted_refused"] != layer["calls"]:
+        bad.append(f"the gate passes the kernel reading B of the step before in "
+                   f"{layer['calls'] - layer['shifted_refused']} calls")
+    if max(logit_gaps) > bound or not finite:
+        bad.append(f"logits gap {max(logit_gaps):.3e} > {bound:.3e}, or non-finite")
+    if out["shifted_gap_max"] <= bound:
+        bad.append(f"the logits bound passes the off-by-one kernel "
+                   f"({out['shifted_gap_max']:.3e})")
+    if max(gaps32) > LM_TOL_F32 or n32 != _scan_only(nm * JAMBA_F32_GEN, 1):
+        bad.append(f"f32: gap {max(gaps32):.3e}, counts {n32}")
+    if tuple(kept_tokens.shape) != (LM_BATCH, LM_GEN):
+        bad.append(f"tokens {tuple(kept_tokens.shape)}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"[{smi}] Jamba: phase 18 on one card in {out['phase_s']:.3f} s")
+    if bad:
+        fail("Jamba: " + "; ".join(bad))
+    out["max_abs_err"] = layer["max_abs"]
+    main = [launcher["counts"], counts, out["prefill_counts"], out["step_counts"], n32]
+    return out, {k: sum(c[k] for c in main) for k in ("selective_scan", "flash_attention")}
+
+
 REPLACES = {"flash_attention": "src/repro/kernels/attention.py:68",
             "fft_radix2": "src/repro/kernels/fft_radix2.py:90",
             "fft_mxu": "src/repro/kernels/fft_mxu.py:80",
@@ -6908,7 +7402,9 @@ REPLACES = {"flash_attention": "src/repro/kernels/attention.py:68",
             # no Pallas kernel: the reference's lax.scan of the recurrence
             # and, for the backward, jax.grad of it
             "wkv6": "src/repro/models/rwkv.py:90",
-            "wkv6_bwd": "src/repro/models/rwkv.py:90"}
+            "wkv6_bwd": "src/repro/models/rwkv.py:90",
+            # the reference's lax.scan of Mamba's step (mamba.py:102)
+            "selective_scan": "src/repro/models/mamba.py:102"}
 
 
 def main(argv) -> int:
@@ -6928,6 +7424,7 @@ def main(argv) -> int:
     if argv == [LM_ONLY]:
         lm, lm_kept = lm_serving(float("nan"))
         rwkv, rwkv_kept, _ = rwkv_lm(smi)
+        jamba_lm(smi)
         trained, _ = training(smi)
         sharded, _ = sharded_lm(smi, trained, lm_kept, rwkv_kept)
         rwkv_mesh(smi, rwkv, rwkv_kept, sharded.pop("rwkv_ranks"))
@@ -6937,6 +7434,10 @@ def main(argv) -> int:
         return 0
     if argv == [MOE_ONLY]:
         moe_lm(smi)
+        return 0
+    if argv == [JAMBA_ONLY]:
+        build()
+        jamba_lm(smi)
         return 0
     if argv == [RWKV_ONLY]:
         from repro_torch import dist
@@ -6999,6 +7500,9 @@ def main(argv) -> int:
         lm["int8"]["counts"]["flash_attention"]
     rwkv, rwkv_kept, rwkv_launches = timed("16 RWKV (a), (b) with 17 (a)", rwkv_lm, smi)
     launches.update(rwkv_launches)
+    jamba, jamba_launches = timed("18 Jamba", jamba_lm, smi)
+    launches["flash_attention"] += jamba_launches["flash_attention"]
+    launches["selective_scan"] = jamba_launches["selective_scan"]
     tuned = timed("9 tuning", tuning, runs, ranks, tune_backends)
     served, serve_launches = timed("10 serving", serving, smi)
     for k, n in serve_launches.items():
@@ -7008,9 +7512,13 @@ def main(argv) -> int:
         launches[k] += n
     trained, launches_trained = timed("12 training", training, smi)
     launches["flash_attention"] += launches_trained
-    sharded, sharded_launches = timed("13 sharded LM with 16 (c)", sharded_lm, smi, trained,
-                                      lm_kept, rwkv_kept)
+    sharded, sharded_launches = timed("13 sharded LM with 16 (c), 10 (c)", sharded_lm, smi,
+                                      trained, lm_kept, rwkv_kept, True)
     for k, n in sharded_launches.items():
+        launches[k] += n
+    served["2x2"], serve_grid_launches = timed("10 (c) gates", serve_grid_gates, smi,
+                                               sharded.pop("serve_ranks"))
+    for k, n in serve_grid_launches.items():
         launches[k] += n
     rwkv_mesh_launches = timed("16 (c) gates", rwkv_mesh, smi, rwkv, rwkv_kept,
                                sharded.pop("rwkv_ranks"))
@@ -7066,6 +7574,13 @@ def main(argv) -> int:
         "max_abs_err": rwkv["train"]["calls"]["max_abs"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None})
+    t = jamba["timing"][0]  # the prefill shape
+    kernels.append({
+        "name": "selective_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/selective_scan.cu",
+        "replaces": REPLACES["selective_scan"], "launches": launches["selective_scan"],
+        "max_abs_err": jamba["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None})
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump({"card": smi, "device": name,
@@ -7077,7 +7592,7 @@ def main(argv) -> int:
                    "staged": staged_ranks, "flash_bf16_gaps": flash_gaps, "lm": lm,
                    "tuning": tuned, "serving": served, "fleet": fleeted,
                    "training": trained, "sharded_lm": sharded, "moe": moe,
-                   "mla": mla, "rwkv": rwkv, "phase_s": phase_s},
+                   "mla": mla, "rwkv": rwkv, "jamba": jamba, "phase_s": phase_s},
                   f, indent=1)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

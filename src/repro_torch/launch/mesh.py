@@ -82,13 +82,15 @@ def mesh_of(ctx=None) -> Mesh | None:
     return Mesh(shape=shape, coords=mesh_coords(ctx.rank, shape))
 
 
-def rank_setup(cfg, ctx, device, *, seed: int = 0, remat: bool = True):
+def rank_setup(cfg, ctx, device, *, seed: int = 0, remat: bool = True,
+               experts: tuple | None = None):
     """``(run, model, device)`` of a launcher's run: on one device
     (``ctx`` None; ``device`` as given, :func:`resolve_device`), or as the
     rank ``ctx`` of its mesh (its device; the model's parameters this
     rank's shards, each cut as its block is made).  The parameters are
-    ``init_model``'s from ``seed``."""
+    ``init_model``'s from ``seed``; ``experts`` (one device): the block of
+    every MoE layer's experts held (:func:`init_model`'s ``experts``)."""
     mesh = mesh_of(ctx) if ctx is not None else None
     dev = ctx.device if ctx is not None else resolve_device(device)
-    model = init_model(cfg, seed=seed, device=dev, mesh=mesh)
+    model = init_model(cfg, seed=seed, device=dev, mesh=mesh, experts=experts)
     return RunCfg(mesh=mesh, remat=remat), model, dev

@@ -35,6 +35,20 @@ a mesh each rank computes its heads and holds their WKV state::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --smoke --device cpu --mesh 2x2
 
+jamba-1.5-large-398b (the Jamba hybrid: Mamba and attention 7:1, its
+recurrence the ``selective_scan`` kernel, :mod:`repro_torch.models.mamba`)
+serves on one device.  Its one superblock (8 layers, 45.2 B parameters)
+does not fit an 80 GB card at full width; ``--experts FIRST:COUNT`` serves
+from one card's share of every MoE layer's experts, the deployment that
+puts each MoE layer's 16 experts over 2 chips, expert-parallel, everything
+else whole on both (this card holds 8: ``--experts 0:8``); each MoE layer
+gives the held experts' part of its output::
+
+    PYTHONPATH=src python3 -m repro_torch.launch.serve --arch jamba-1.5-large-398b \
+        --layers 8 --experts 0:8 --batch 8 --prompt-len 2048 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large-398b \
+        --smoke --device cpu
+
 The int8 KV cache and the sequence-sharded decode take no flag, as in the
 reference: :func:`generate` serves a config with ``kv_quant`` from an int8
 cache (``dataclasses.replace(cfg, kv_quant=True)``), and on a mesh a
@@ -130,11 +144,9 @@ def serve(args, ctx=None) -> torch.Tensor:
     """The LM serving run of ``args`` in this process: on one device, or
     with ``ctx`` (a rank of the mesh ``args.mesh``) as one rank of it.
     Returns the (B, gen) tokens."""
-    cfg = get_config(args.arch, smoke=args.smoke)
-    if args.dtype:
-        cfg = dataclasses.replace(cfg, compute_dtype=args.dtype)
-    check_supported(cfg)
-    run, model, device = M.rank_setup(cfg, ctx, args.device)
+    cfg = _config(args)
+    check_supported(cfg, mesh=ctx is not None)
+    run, model, device = M.rank_setup(cfg, ctx, args.device, experts=args.experts)
     b, s = args.batch, args.prompt_len
     tokens = prompt_tokens(cfg, b, s, device)
     r = generate(cfg, run, model, tokens, args.gen)
@@ -146,6 +158,23 @@ def serve(args, ctx=None) -> torch.Tensor:
         print("sample:", r["tokens"][0, :16].cpu().numpy(), flush=True)
     # a rank's result crosses to the parent pickled: numpy, not a tensor
     return r["tokens"].cpu().numpy() if ctx is not None else r["tokens"]
+
+
+def _config(args):
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, compute_dtype=args.dtype)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    return cfg
+
+
+def _experts(text: str) -> tuple:
+    try:
+        first, count = (int(t) for t in text.split(":"))
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"--experts must look like 0:8, got {text!r}")
+    return first, count
 
 
 def _rank_main(ctx, argv):
@@ -172,6 +201,14 @@ def parse_args(argv):
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--dtype", default=None,
                     help="compute dtype overriding the config's (e.g. float32)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="bring-up runs only: serve the config cut to its first N "
+                         "layers, full width (0: all of them; the reference's "
+                         "launcher has no such option)")
+    ap.add_argument("--experts", type=_experts, default=None, metavar="FIRST:COUNT",
+                    help="hold only this block of every MoE layer's experts, one "
+                         "card's share of an expert-parallel deployment (one "
+                         "device; default: all)")
     return ap.parse_args(argv)
 
 
@@ -185,6 +222,7 @@ def main(argv=None):
     dm, mm = M.parse_mesh_arg(args.mesh)
     if dm * mm == 1:
         return serve(args)
+    check_supported(_config(args), mesh=True)
     return torch.from_numpy(M.run_on_mesh(
         _rank_main, {"data": dm, "model": mm}, device=args.device,
         args=(argv,))[0])

@@ -195,7 +195,7 @@ def train(args, ctx=None) -> list:
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    check_supported(cfg)
+    check_supported(cfg, training=True)
     run, model, device = M.rank_setup(cfg, ctx, args.device, seed=args.seed,
                                       remat=cfg.remat)
     lead = ctx is None or ctx.rank == 0
@@ -259,6 +259,7 @@ def main(argv=None):
     dm, mm = M.parse_mesh_arg(args.mesh)
     if dm * mm == 1:
         return train(args)
+    check_supported(get_config(args.arch, smoke=args.smoke), training=True, mesh=True)
     return M.run_on_mesh(_rank_main, {"data": dm, "model": mm}, device=args.device,
                          args=(argv,))[0]
 

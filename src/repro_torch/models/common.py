@@ -69,6 +69,42 @@ class Initializer:
                                      generator=self.generator)).to(self.dtype)
         return torch.nn.Parameter(w, requires_grad=False)
 
+    def stacked(self, n: int) -> "Stacked":
+        """An initializer of ``n`` sub-layers' parameters stacked on a
+        leading ``sub`` axis (the reference's ``_stack_inits`` inside a
+        Jamba superblock)."""
+        return Stacked(self, n)
+
+
+class Stacked:
+    """:meth:`Initializer.stacked`: ``param(shape)`` makes an (n, *shape)
+    parameter, each sub-layer drawn at its own shape's scale.  Its normal
+    values are drawn a slab of rows at a time, so that the f32 draw of a
+    large stack (a Jamba MoE layer's experts) is never held whole."""
+
+    #: the most f32 values drawn at once
+    SLAB = 1 << 26
+
+    def __init__(self, ini: Initializer, n: int):
+        self.ini = ini
+        self.n = n
+
+    def param(self, shape, scale: float | None = None, mode: str = "normal"):
+        ini, shape = self.ini, tuple(shape)
+        full = (self.n,) + shape
+        if ini.device.type == "meta" or mode != "normal":
+            return ini.param(full, mode=mode)
+        if scale is None:
+            scale = 1.0 / max(shape[0], 1) ** 0.5
+        w = torch.empty(full, dtype=ini.dtype, device=ini.device)
+        flat = w.view(-1, shape[-1]) if shape else w.view(-1, 1)
+        step = max(1, self.SLAB // flat.shape[1])
+        for r in range(0, flat.shape[0], step):
+            rows = flat[r:r + step]
+            rows.copy_(scale * torch.randn(rows.shape, dtype=torch.float32,
+                                           device=ini.device, generator=ini.generator))
+        return torch.nn.Parameter(w, requires_grad=False)
+
 
 def rms_norm(x, w, eps: float = 1e-6, plus_one: bool = False):
     """RMSNorm in f32, cast back to x's dtype (``common.py:63``)."""

@@ -9,8 +9,10 @@ keeps every other layout
 as it is (``wq`` (d, H, Dh), ``wo`` (H, Dh, d), ...), so that the port's
 einsums match the JAX ones term for term; RWKV's tree (``ln0``,
 ``blocks.<i>.tm.*``, ``blocks.<i>.cm.*``) too, its ``u`` and ``w0`` (d,) as
-the reference keeps them.  :func:`params_to_jax_tree` is
-its inverse: the JAX tree of any ``{port name: tensor}`` mapping (the
+the reference keeps them; Jamba's superblocks (``blocks.<i>.{ln1, ln2,
+attn, mamba, moe, mlp}``) with the ``sub`` axis of their stacked
+sub-layers kept, as the reference stacks them after the depth.
+:func:`params_to_jax_tree` is its inverse: the JAX tree of any ``{port name: tensor}`` mapping (the
 parameters, or an optimizer moment beside them), the layout in which the
 trainer writes checkpoints, so that either package resumes the other's
 training.
@@ -24,7 +26,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.common import STACKS, split_stacked
-from repro_torch.models.transformer import Transformer, init_model, shard_model
+from repro_torch.models.transformer import Transformer, init_model, model_axes, shard_model
 
 
 def _flatten(tree, prefix=""):
@@ -51,12 +53,22 @@ def port_leaves(tree) -> dict:
     return out
 
 
-def params_from_jax(cfg: ArchConfig, tree, device="cuda") -> Transformer:
+def params_from_jax(cfg: ArchConfig, tree, device="cuda",
+                    experts: tuple | None = None) -> Transformer:
     """The port's model on ``device`` holding the JAX params ``tree``;
-    raises when a name or a shape does not match."""
+    raises when a name or a shape does not match.  ``experts`` (first,
+    count): the model holds that block of every MoE layer's experts (its
+    ``experts`` axis cut from the whole tree's), the router whole."""
     dev = resolve_device(device)
-    model = init_model(cfg, device="meta").to_empty(device=dev)
+    model = init_model(cfg, device="meta", experts=experts).to_empty(device=dev)
     leaves = port_leaves(tree)
+    if experts is not None:
+        first, count = experts
+        axes = model_axes(cfg)
+        for name in leaves:
+            if ".experts." in name:
+                leaves[name] = np.take(np.asarray(leaves[name]), range(first, first + count),
+                                       axis=axes[name].index("experts"))
     names = dict(model.named_parameters())
     if set(names) != set(leaves):
         raise ValueError("parameter names differ: port only "

@@ -80,28 +80,36 @@ class MoEDims:
 
 class Experts(nn.Module):
     """``init_moe``'s ``experts``: one gated MLP an expert, stacked on a
-    leading expert axis."""
+    leading expert axis; ``count`` of them (None: all)."""
 
     AXES = {"wi_gate": ("experts", "embed", "expert_mlp"),
             "wi_up": ("experts", "embed", "expert_mlp"),
             "wo": ("experts", "expert_mlp", "embed")}
 
-    def __init__(self, ini, m: MoEDims):
+    def __init__(self, ini, m: MoEDims, count: int | None = None):
         super().__init__()
-        self.wi_gate = ini.param((m.n_experts, m.d_model, m.d_ff_expert))
-        self.wi_up = ini.param((m.n_experts, m.d_model, m.d_ff_expert))
-        self.wo = ini.param((m.n_experts, m.d_ff_expert, m.d_model))
+        e = m.n_experts if count is None else count
+        self.wi_gate = ini.param((e, m.d_model, m.d_ff_expert))
+        self.wi_up = ini.param((e, m.d_model, m.d_ff_expert))
+        self.wo = ini.param((e, m.d_ff_expert, m.d_model))
 
 
 class MoE(nn.Module):
-    """``init_moe``: the router, the experts and the shared MLP."""
+    """``init_moe``: the router, the experts and the shared MLP.  ``held``
+    (first, count) makes only that block of the experts (one card's share
+    of an expert-parallel deployment, :func:`apply_moe`'s ``first``), the
+    router whole; None makes them all."""
 
     AXES = {"router": ("embed", "experts")}
 
-    def __init__(self, ini, m: MoEDims):
+    def __init__(self, ini, m: MoEDims, held: tuple | None = None):
         super().__init__()
+        if held is not None and not (0 <= held[0] and held[1] >= 1
+                                     and held[0] + held[1] <= m.n_experts):
+            raise ValueError(f"held experts {held}: a block (first, count) of "
+                             f"{m.n_experts}")
         self.router = ini.param((m.d_model, m.n_experts), scale=0.02)
-        self.experts = Experts(ini, m)
+        self.experts = Experts(ini, m, None if held is None else held[1])
         if m.n_shared:
             self.shared = L.MLP(ini, m.d_model, m.d_ff_shared or m.d_ff_expert * m.n_shared,
                                 m.mlp_type)

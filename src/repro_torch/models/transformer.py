@@ -69,9 +69,30 @@ run through :func:`_scan_blocks` with two-level remat, as the reference's
 states kept every 16 steps: the reference's chunked remat of the time
 scan); the chunks of the time axis carry the state's gradient back.
 
+Jamba (``mixer="hybrid"``, the reference's hybrid branches): superblocks
+of ``hybrid_period`` sub-layers (:class:`JambaBlock`), each a mixer and a
+feed-forward after its RMSNorm: the attention at ``hybrid_attn_pos`` and a
+Mamba layer (:mod:`repro_torch.models.mamba`) at the others, the MoE at
+every ``moe.every``-th and the dense MLP at the rest; each kind's layers
+stacked on a ``sub`` axis, as the reference stacks them.  A superblock's
+parameters are cast to the compute dtype one sub-layer at a time, where
+the reference casts the whole superblock (103.6 GB at f32 compute and
+jamba-1.5-large's widths).  Its decode cache is the attention layer's k
+and v (nb, B, T, Hkv, Dh), and each Mamba layer's conv tail ``conv`` (nb,
+period − 1, B, d_conv − 1, d_inner; compute dtype) and SSM state ``ssm``
+(nb, period − 1, B, d_inner, d_state; f32).  Its recurrence is the
+``selective_scan`` kernel (:mod:`repro_torch.kernels.selective_scan`), one
+launch a Mamba layer for the prefill and one a decode step.
+:func:`init_model`'s ``experts`` makes one card's share of every MoE
+layer's experts (:attr:`Transformer.held`): jamba-1.5-large's one
+superblock, 45.2 B parameters, does not fit an 80 GB card, and the
+deployment it is cut from puts each MoE layer's 16 experts over 2 chips,
+expert-parallel, everything else whole on both; this card holds 8.  Jamba
+is served on one device; its training and its mesh wait (ROADMAP Queue 1
+items 11.6d, 11.6e).
+
 Configs outside this path raise ``NotImplementedError`` naming ROADMAP
-Queue 1 item 11: the Jamba hybrid (MoE every other layer), Whisper's
-encoder–decoder and the VLM ``embeds`` input.
+Queue 1 item 11: Whisper's encoder–decoder and the VLM ``embeds`` input.
 """
 
 from __future__ import annotations
@@ -91,6 +112,7 @@ from repro_torch.distributed import sharding as SH
 from repro_torch.models import common as cm
 from repro_torch.models import kvquant as KQ
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as MB
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RW
@@ -116,7 +138,8 @@ class RunCfg:
     forward's attention through the kernel's plain version on any device;
     it is off on the main path and exists to compare the two.
     ``plain_wkv`` sends RWKV's recurrence through the ``wkv6`` kernel's
-    plain version on any device, likewise to compare the two.
+    plain version on any device, and ``plain_scan`` Mamba's through the
+    ``selective_scan`` kernel's, likewise to compare the two.
     ``split_batch`` (on a mesh): the batch's rows are cut over the data
     axes; off, every rank holds the whole batch (serving a batch that does
     not divide over them, :func:`batch_run`; :func:`local_rows` and
@@ -128,6 +151,7 @@ class RunCfg:
     per_pod: bool = False
     plain_attention: bool = False
     plain_wkv: bool = False
+    plain_scan: bool = False
     remat: bool = True
     split_batch: bool = True
     seq_shard_kv: bool = False
@@ -152,13 +176,21 @@ class RunCfg:
         return SH.mesh_axes(self.mesh)[1] if self.mesh is not None else ("model",)
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for what this slice does not run (it trains all it runs)."""
+def check_supported(cfg: ArchConfig, *, mesh: bool = False,
+                    training: bool = False) -> None:
+    """Raise for what this slice does not run: on one device, or with
+    ``mesh`` on a mesh; with ``training``, trained.  It serves all it runs
+    and trains all but Jamba."""
     left = []
-    if cfg.moe is not None and cfg.moe.every != 1:
+    if cfg.moe is not None and cfg.moe.every != 1 and cfg.mixer != "hybrid":
         left.append("MoE with dense blocks among its layers")
-    if cfg.mixer not in ("attn", "rwkv"):
+    if cfg.mixer not in ("attn", "rwkv", "hybrid"):
         left.append(f"mixer {cfg.mixer!r}")
+    if cfg.mixer == "hybrid" and training:
+        left.append("the Jamba hybrid's training (item 11.6d: the selective scan's "
+                    "backward kernel)")
+    if cfg.mixer == "hybrid" and mesh:
+        left.append("the Jamba hybrid on a mesh (item 11.6e)")
     if cfg.encdec:
         left.append("encoder-decoder")
     if cfg.embed_mode != "tokens":
@@ -166,7 +198,8 @@ def check_supported(cfg: ArchConfig) -> None:
     if left:
         raise NotImplementedError(
             f"{cfg.arch_id}: {', '.join(left)} not ported yet ({LM_ITEM}); the "
-            "port runs the uniform decoder, dense or MoE, GQA or MLA, and RWKV")
+            "port runs the uniform decoder, dense or MoE, GQA or MLA, RWKV, and "
+            "serves the Jamba hybrid on one device")
     if _quantized(cfg) and stack_sizes(cfg)["first_blocks"]:
         raise ValueError(
             f"{cfg.arch_id}: the int8 KV cache (kv_quant) with first_dense leading "
@@ -216,9 +249,18 @@ def rwkv_dims(cfg: ArchConfig) -> RW.RWKVDims:
     return RW.RWKVDims(d_model=cfg.d_model, n_heads=cfg.n_heads, d_ff=cfg.d_ff)
 
 
+def mamba_dims(cfg: ArchConfig) -> MB.MambaDims:
+    mc = cfg.mamba
+    return MB.MambaDims(d_model=cfg.d_model, d_state=mc.d_state, d_conv=mc.d_conv,
+                        expand=mc.expand)
+
+
 def stack_sizes(cfg: ArchConfig) -> dict:
-    """``{stack: its layers}`` in :data:`STACKS` order: a MoE config's
-    ``first_dense`` leading dense blocks, then the rest."""
+    """``{stack: its blocks}`` in :data:`STACKS` order: a MoE config's
+    ``first_dense`` leading dense blocks, then the rest (Jamba's: its
+    superblocks of ``hybrid_period`` layers)."""
+    if cfg.mixer == "hybrid":
+        return {"first_blocks": 0, "blocks": cfg.n_layers // cfg.hybrid_period}
     nd = cfg.moe.first_dense if cfg.moe is not None else 0
     return {"first_blocks": nd, "blocks": cfg.n_layers - nd}
 
@@ -262,11 +304,12 @@ def _apply_norm(p, x, cfg: ArchConfig):
 
 class Block(nn.Module):
     """``_init_uniform_block`` of ``stack``: GQA or MLA as ``attn``; the
-    MoE as ``ff`` in a MoE config's ``blocks``, else the dense MLP (a MoE
-    config's ``first_blocks`` and every block of a dense one).  ``stack``
-    names the specs its parameters are cut by."""
+    MoE as ``ff`` in a MoE config's ``blocks`` (``held``: its block of the
+    experts, :class:`repro_torch.models.moe.MoE`), else the dense MLP (a
+    MoE config's ``first_blocks`` and every block of a dense one).
+    ``stack`` names the specs its parameters are cut by."""
 
-    def __init__(self, ini, cfg: ArchConfig, stack: str):
+    def __init__(self, ini, cfg: ArchConfig, stack: str, held: tuple | None = None):
         super().__init__()
         self.stack = stack
         self.ln1 = Norm(ini, cfg)
@@ -276,7 +319,7 @@ class Block(nn.Module):
         else:
             self.attn = L.Attention(ini, attn_dims(cfg))
         if cfg.moe is not None and stack == "blocks":
-            self.ff = MOE.MoE(ini, moe_dims(cfg))
+            self.ff = MOE.MoE(ini, moe_dims(cfg), held)
         else:
             self.ff = L.MLP(ini, cfg.d_model, cfg.d_ff, cfg.mlp_type)
 
@@ -294,22 +337,61 @@ class RWKVBlock(nn.Module):
         self.cm = RW.RWKVChannelMix(ini, rwkv_dims(cfg))
 
 
+def _on_sub(module: nn.Module) -> nn.Module:
+    """Mark ``module`` and its submodules as stacked on a superblock's
+    ``sub`` axis (made by :meth:`repro_torch.models.common.Initializer.stacked`):
+    :func:`model_axes` puts ``sub`` before their axes."""
+    for m in module.modules():
+        m.on_sub = True
+    return module
+
+
+class JambaBlock(nn.Module):
+    """``_init_jamba_superblock`` (``transformer.py:143``): one period of
+    ``hybrid_period`` sub-layers, their RMSNorm weights ``ln1``, ``ln2``
+    (period, d); the attention ``attn``; the period − 1 Mamba layers
+    ``mamba``, the period / ``moe.every`` MoE layers ``moe`` (``held``: the
+    block of each one's experts) and the dense MLPs ``mlp``, each kind's
+    leaves stacked on ``sub``."""
+
+    AXES = {"ln1": ("sub", "embed"), "ln2": ("sub", "embed")}
+
+    def __init__(self, ini, cfg: ArchConfig, stack: str, held: tuple | None = None):
+        super().__init__()
+        self.stack = stack
+        per, d = cfg.hybrid_period, cfg.d_model
+        n_moe = per // cfg.moe.every
+        self.ln1 = ini.param((per, d), mode="ones")
+        self.ln2 = ini.param((per, d), mode="ones")
+        self.attn = L.Attention(ini, attn_dims(cfg))
+        self.mamba = _on_sub(MB.Mamba(ini.stacked(per - 1), mamba_dims(cfg)))
+        self.moe = _on_sub(MOE.MoE(ini.stacked(n_moe), moe_dims(cfg), held))
+        self.mlp = _on_sub(L.MLP(ini.stacked(per - n_moe), d, cfg.d_ff, cfg.mlp_type))
+
+
 class Transformer(nn.Module):
-    """``init_model``'s uniform and RWKV branches: ``embed`` (vocab, d),
-    ``final_norm``, ``head`` (d, vocab) unless tied, RWKV's ``ln0``,
+    """``init_model``'s uniform, RWKV and hybrid branches: ``embed`` (vocab,
+    d), ``final_norm``, ``head`` (d, vocab) unless tied, RWKV's ``ln0``,
     ``first_blocks`` (a MoE config's ``first_dense`` dense blocks; empty
-    otherwise) and ``blocks`` (one :class:`Block`, or :class:`RWKVBlock`, a
-    layer where JAX stacks each on a leading axis).  With
-    ``mesh`` each parameter is cut to this rank's shard
-    (:func:`shard_model`) as soon as its block (or the top-level leaves) is
-    made, so that no more than a block's whole parameters are ever held."""
+    otherwise) and ``blocks`` (one :class:`Block`, :class:`RWKVBlock` or
+    :class:`JambaBlock` a layer or superblock, where JAX stacks each on a
+    leading axis).  ``held`` (first, count): the block of every MoE
+    layer's experts it holds (None: all).  With ``mesh`` each parameter is
+    cut to this rank's shard (:func:`shard_model`) as soon as its block
+    (or the top-level leaves) is made, so that no more than a block's
+    whole parameters are ever held."""
 
     AXES = {"embed": ("vocab", "embed"), "head": ("embed", "vocab")}
 
-    def __init__(self, cfg: ArchConfig, ini, mesh: SH.Mesh | None = None):
+    def __init__(self, cfg: ArchConfig, ini, mesh: SH.Mesh | None = None,
+                 held: tuple | None = None):
         super().__init__()
-        check_supported(cfg)
+        check_supported(cfg, mesh=mesh is not None)
+        if held is not None and (cfg.moe is None or mesh is not None):
+            raise ValueError(f"{cfg.arch_id}: held experts {held} are one card's share of "
+                             "a MoE model's experts (on a mesh the model axes cut them)")
         self.cfg = cfg
+        self.held = None if held is None else tuple(held)
         d = cfg.d_model
         specs = None if mesh is None else param_specs(cfg, mesh)
         self.embed = ini.param((cfg.vocab, d), scale=1.0 / d ** 0.5)
@@ -320,38 +402,55 @@ class Transformer(nn.Module):
             self.ln0 = Norm(ini, cfg)
         if specs is not None:
             _shard_params(self, "", specs, mesh)
-        kind = RWKVBlock if cfg.mixer == "rwkv" else Block
         for stack, n in stack_sizes(cfg).items():
             blocks = nn.ModuleList()
             setattr(self, stack, blocks)
             for i in range(n):
-                blocks.append(kind(ini, cfg, stack))
+                if cfg.mixer == "rwkv":
+                    blocks.append(RWKVBlock(ini, cfg, stack))
+                else:
+                    kind = JambaBlock if cfg.mixer == "hybrid" else Block
+                    blocks.append(kind(ini, cfg, stack, self.held))
                 if specs is not None:
                     _shard_params(blocks[i], f"{stack}.{i}.", specs, mesh)
 
+    @property
+    def first_expert(self) -> int:
+        """The first of the experts each MoE layer holds (0 where it holds
+        them all)."""
+        return 0 if self.held is None else self.held[0]
+
 
 def init_model(cfg: ArchConfig, seed: int = 0, device="cuda",
-               mesh: SH.Mesh | None = None) -> Transformer:
+               mesh: SH.Mesh | None = None, experts: tuple | None = None) -> Transformer:
     """Random parameters from ``seed`` on ``device`` (``"meta"`` for shapes
     only), in ``cfg.param_dtype``; with ``mesh``, this rank's shards of
-    them (the same values as :func:`shard_model` of the whole model)."""
+    them (the same values as :func:`shard_model` of the whole model).
+    ``experts`` (first, count), on one device: only that block of every MoE
+    layer's experts, the router whole: one card's share of an
+    expert-parallel deployment, jamba-1.5-large's 16 experts over 2 chips,
+    of which this card holds 8.  Each MoE layer then gives the share of its
+    output of the pairs routed to them (routing and capacity those of all
+    its experts), and that partial result goes on to the next layer."""
     dev = torch.device(device)
     gen = None if dev.type == "meta" else torch.Generator(
         device=resolve_device(dev)).manual_seed(seed)
     return Transformer(cfg, cm.Initializer(gen, cm.dtype_of(cfg.param_dtype), dev),
-                       mesh=mesh)
+                       mesh=mesh, held=experts)
 
 
 def model_axes(cfg: ArchConfig) -> dict:
     """Each parameter's logical axes, ``{port name: axes}``: the
     reference's ``model_axes`` (``transformer.py:216``) under the port's
     names, a block's without the leading ``layers`` axis that JAX stacks
-    (:func:`repro_torch.models.convert.axes_to_jax_tree` stacks them)."""
+    (:func:`repro_torch.models.convert.axes_to_jax_tree` stacks them); a
+    superblock's stacked sub-layers with ``sub`` first."""
     model = init_model(cfg, device="meta")
     out = {}
     for mname, module in model.named_modules():
+        sub = ("sub",) if getattr(module, "on_sub", False) else ()
         for pname, _ in module.named_parameters(recurse=False):
-            out[f"{mname}.{pname}" if mname else pname] = type(module).AXES[pname]
+            out[f"{mname}.{pname}" if mname else pname] = sub + type(module).AXES[pname]
     return out
 
 
@@ -617,7 +716,14 @@ def cache_shapes(cfg: ArchConfig, b: int, t: int) -> dict:
     1); MLA's k the latents (L, B, T, kv_lora_rank) and v the RoPE keys
     (L, B, T, qk_rope_dim), the first stack's layers before the rest;
     RWKV's states, no time axis: ``x_tm``, ``x_cm`` (L, B, d) and ``wkv``
-    (L, B, H, K, K)."""
+    (L, B, H, K, K); Jamba's k and v a superblock (nb, B, T, Hkv, Dh) and
+    its Mamba layers' states, ``conv`` (nb, period − 1, B, d_conv − 1,
+    d_inner) and ``ssm`` (nb, period − 1, B, d_inner, d_state)."""
+    if cfg.mixer == "hybrid":
+        md, (nb, per) = mamba_dims(cfg), (stack_sizes(cfg)["blocks"], cfg.hybrid_period)
+        kv = (nb, b, t, cfg.n_kv_heads, cfg.head_dim_)
+        return {"k": kv, "v": kv, "conv": (nb, per - 1, b, md.d_conv - 1, md.d_inner),
+                "ssm": (nb, per - 1, b, md.d_inner, md.d_state)}
     if cfg.mixer == "rwkv":
         hs = rwkv_dims(cfg).head_size
         d = (cfg.n_layers, b, cfg.d_model)
@@ -635,7 +741,9 @@ def cache_shapes(cfg: ArchConfig, b: int, t: int) -> dict:
 
 def cache_dtypes(cfg: ArchConfig) -> dict:
     """Each cache entry's dtype: the compute dtype; with ``kv_quant`` int8
-    k and v and f32 scales; RWKV's ``wkv`` f32."""
+    k and v and f32 scales; RWKV's ``wkv`` and Jamba's ``ssm`` f32."""
+    if cfg.mixer == "hybrid":
+        return {"k": _dt(cfg), "v": _dt(cfg), "conv": _dt(cfg), "ssm": torch.float32}
     if cfg.mixer == "rwkv":
         return {"x_tm": _dt(cfg), "wkv": torch.float32, "x_cm": _dt(cfg)}
     if _quantized(cfg):
@@ -683,7 +791,7 @@ def _live_data_axes(run: RunCfg) -> tuple:
     return tuple(a for a in run.data_axes if run.mesh.shape.get(a, 1) > 1)
 
 
-def _ff_apply(p, cfg: ArchConfig, run: RunCfg, x):
+def _ff_apply(p, cfg: ArchConfig, run: RunCfg, x, first: int = 0):
     """The feed-forward of a block (``transformer.py:233``):
     the MLP (a block without a router), or the MoE.  On a mesh, a MoE's router is gathered whole over the model axes
     (its gradient, a share on each rank, summed back by the gather's
@@ -693,7 +801,9 @@ def _ff_apply(p, cfg: ArchConfig, run: RunCfg, x):
     batch (the rows gathered over the data axes where they are cut), each
     rank its experts' share, summed over the model axes.  Where
     ``moe.routing`` replays a recorded run, its next expert choices (the
-    global batch's) are cut to the rows this rank routes."""
+    global batch's) are cut to the rows this rank routes.  ``first``, on one
+    device: the first of the experts the model holds
+    (:attr:`Transformer.first_expert`)."""
     if "router" not in p:
         return L.apply_mlp(p, x, cfg.mlp_type, tp=mlp_tp(cfg, run, "ff."))
     m = moe_dims(cfg)
@@ -701,7 +811,7 @@ def _ff_apply(p, cfg: ArchConfig, run: RunCfg, x):
     if pinned is not None:
         pinned = pinned.to(x.device)
     if run.mesh is None:
-        return MOE.apply_moe(p, m, x, pinned=_flat_rows(pinned))
+        return MOE.apply_moe(p, m, x, first=first, pinned=_flat_rows(pinned))
     axes, first, raxes = expert_block(cfg, run)
     if raxes:
         p = dict(p, router=C.gather_packed([p["router"]], [1], raxes)[0])
@@ -725,7 +835,7 @@ def _flat_rows(t):
     return None if t is None else t.reshape(-1, t.shape[-1])
 
 
-def _uniform_block_fwd(p, cfg: ArchConfig, run: RunCfg, x, positions):
+def _uniform_block_fwd(p, cfg: ArchConfig, run: RunCfg, x, positions, first: int):
     h = _apply_norm(p["ln1"], x, cfg)
     if cfg.attn_kind == "mla":
         a, kv = MLA.apply_mla(p["attn"], mla_dims(cfg), h, positions,
@@ -735,7 +845,7 @@ def _uniform_block_fwd(p, cfg: ArchConfig, run: RunCfg, x, positions):
                                   plain=run.plain_attention, tp=attn_tp(cfg, run))
     x = x + a
     h = _apply_norm(p["ln2"], x, cfg)
-    x = x + _ff_apply(p["ff"], cfg, run, h)
+    x = x + _ff_apply(p["ff"], cfg, run, h, first)
     return x, kv
 
 
@@ -921,11 +1031,14 @@ def forward(cfg: ArchConfig, run: RunCfg, params: Transformer, batch, *,
     cache and with grad enabled, the blocks are rematerialised where
     ``run.remat`` and ``cfg.remat`` are both on (:func:`_scan_blocks`).  On
     a vocab block the logits are this rank's block of the vocab.  RWKV:
-    :func:`_rwkv_forward`."""
-    check_supported(cfg)
+    :func:`_rwkv_forward`; Jamba: :func:`_hybrid_forward`."""
+    check_supported(cfg, mesh=run.mesh is not None)
     if cfg.mixer == "rwkv":
         return _rwkv_forward(cfg, run, params, batch, collect_cache=collect_cache,
                              last_only=last_only)
+    if cfg.mixer == "hybrid":
+        return _hybrid_forward(cfg, run, params, batch, collect_cache=collect_cache,
+                               t_max=t_max, last_only=last_only)
     cd = _dt(cfg)
     tokens = batch["tokens"]
     top = _top_params(params, cfg, run)
@@ -945,13 +1058,13 @@ def forward(cfg: ArchConfig, run: RunCfg, params: Transformer, batch, *,
         hi = min(lo + cache["k"].shape[2], s)
         for i, block in enumerate(_layers(params)):
             x, (k, v) = _uniform_block_fwd(_block_params(block, cfg, run, cd), cfg, run,
-                                           x, positions)
+                                           x, positions, params.first_expert)
             if hi > lo:
                 _write_entries(cache, i, slice(0, hi - lo), k[:, lo:hi], v[:, lo:hi], ctp)
     else:
         def body(block, y):
             return _uniform_block_fwd(_block_params(block, cfg, run, cd), cfg, run, y,
-                                      positions)[0]
+                                      positions, params.first_expert)[0]
         remat = run.remat and cfg.remat and torch.is_grad_enabled()
         for stack in STACKS:
             x = _scan_blocks(getattr(params, stack), x, body, remat)
@@ -981,6 +1094,7 @@ def lm_loss(cfg: ArchConfig, run: RunCfg, params: Transformer, batch):
     reduce-scatter sums the shares).  On a vocab block the log-softmax is
     distributed: the max and the sum of exponentials all-reduced over the
     model axes, the gold logit taken where it lies."""
+    check_supported(cfg, training=True)
     logits, _ = forward(cfg, run, params, batch)
     logits = logits.float()[:, :-1]
     targets = batch["tokens"][:, 1:].long()
@@ -1017,14 +1131,12 @@ def init_cache(cfg: ArchConfig, b: int, t_max: int, device="cuda",
 
 def pad_cache(cfg: ArchConfig, cache, s: int, t_max: int):
     """Pad a prefill cache's time axis (dim 2, whatever the entries' rank:
-    5 for GQA, 4 for MLA) to t_max and set len=s: every entry, the int8
+    5 for GQA, 4 for MLA) to t_max and set len=s: k and v, the int8
     cache's scales too (the reference pads k and v only); RWKV's states
-    have no time axis: only ``len``."""
-    if cfg.mixer == "rwkv":
-        return dict(cache, len=s)
+    and Jamba's Mamba states have no time axis."""
     out = dict(cache)
     for key, a in cache.items():
-        if key != "len":
+        if key in ("k", "v", "k_scale", "v_scale"):
             out[key] = torch.nn.functional.pad(
                 a, (0, 0) * (a.ndim - 3) + (0, t_max - a.shape[2]))
     out["len"] = s
@@ -1110,10 +1222,13 @@ def decode_step(cfg: ArchConfig, run: RunCfg, params: Transformer, cache, tokens
     """One greedy-decode step. tokens: (B, 1) (on a mesh this rank's
     rows).  Returns (logits, cache); the cache's entries are updated in
     place, ``len`` grows by one.  On a vocab block the logits are this
-    rank's block of the vocab.  RWKV: :func:`_rwkv_decode`."""
-    check_supported(cfg)
+    rank's block of the vocab.  RWKV: :func:`_rwkv_decode`; Jamba:
+    :func:`_hybrid_decode`."""
+    check_supported(cfg, mesh=run.mesh is not None)
     if cfg.mixer == "rwkv":
         return _rwkv_decode(cfg, run, params, cache, tokens)
+    if cfg.mixer == "hybrid":
+        return _hybrid_decode(cfg, run, params, cache, tokens)
     cd = _dt(cfg)
     b = tokens.shape[0]
     clen = int(cache["len"])
@@ -1134,7 +1249,7 @@ def decode_step(cfg: ArchConfig, run: RunCfg, params: Transformer, cache, tokens
             y = y + _attn_decode(bp["attn"], cfg, run, h, cache["k"][i], cache["v"][i],
                                  clen, positions, atp)
         h = _apply_norm(bp["ln2"], y, cfg)
-        y = y + _ff_apply(bp["ff"], cfg, run, h)
+        y = y + _ff_apply(bp["ff"], cfg, run, h, params.first_expert)
     y = _apply_norm(top["final_norm"], y, cfg)
     return _head_out(top, cfg, run, y), dict(cache, len=clen + 1)
 
@@ -1223,6 +1338,110 @@ def _rwkv_decode(cfg: ArchConfig, run: RunCfg, params: Transformer, cache, token
         cache["x_tm"][i], cache["wkv"][i], cache["x_cm"][i] = h1, wkv, x_cm
     y = _apply_norm(top["final_norm"], y[:, None], cfg)
     return _head_out(top, cfg, run, y), dict(cache, len=int(cache["len"]) + 1)
+
+
+def _sub(tree: dict, j: int, dtype: torch.dtype) -> dict:
+    """Sub-layer ``j`` of a superblock's stacked leaves (``tree`` as
+    :func:`_cast_f` gives it, dtypes kept), floating ones cast to
+    ``dtype``."""
+    return {k: _sub(v, j, dtype) if isinstance(v, dict)
+            else v[j].to(dtype) if v.is_floating_point() else v[j] for k, v in tree.items()}
+
+
+def _superblock(block: JambaBlock, cfg: ArchConfig, run: RunCfg, x, attend, scan,
+                first: int):
+    """x through one superblock's sub-layers (``transformer.py:275``): at
+    each, RMSNorm ``ln1``, the mixer added, RMSNorm ``ln2``, the
+    feed-forward added.  The mixer is ``attend(p, h)`` at
+    ``hybrid_attn_pos`` and ``scan(mi, p, h)`` (Mamba layer ``mi``)
+    elsewhere, ``p`` its parameters in the compute dtype; the feed-forward
+    the MoE at every ``moe.every``-th (its experts from ``first`` on),
+    else the dense MLP.  Each sub-layer's
+    parameters are cast as it runs (the reference casts the whole
+    superblock)."""
+    cd, every = _dt(cfg), cfg.moe.every
+    ln1, ln2 = block.ln1.to(cd), block.ln2.to(cd)
+    mam, moe, mlp = (_cast_f(m, None) for m in (block.mamba, block.moe, block.mlp))
+    mi = 0
+    for j in range(cfg.hybrid_period):
+        h = cm.rms_norm(x, ln1[j])
+        if j == cfg.hybrid_attn_pos:
+            x = x + attend(_cast_f(block.attn, cd), h)
+        else:
+            x = x + scan(mi, _sub(mam, mi, cd), h)
+            mi += 1
+        h = cm.rms_norm(x, ln2[j])
+        if j % every == 1 % every:
+            x = x + _ff_apply(_sub(moe, j // every, cd), cfg, run, h, first)
+        else:
+            x = x + L.apply_mlp(_sub(mlp, j // every, cd), h, cfg.mlp_type)
+    return x
+
+
+def _hybrid_forward(cfg: ArchConfig, run: RunCfg, params: Transformer, batch, *,
+                    collect_cache: bool, t_max: int, last_only: bool):
+    """Jamba's forward (``transformer.py:394``): each superblock's Mamba
+    layers from zero states; the cache (:func:`cache_shapes` at T = max(S,
+    t_max), zeros past S) holds each superblock's k and v and its Mamba
+    layers' final states."""
+    md = mamba_dims(cfg)
+    top = _top_params(params, cfg, run)
+    x = _embed_tokens(top, cfg, run, batch["tokens"])
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    shapes, dtypes = cache_shapes(cfg, b, max(s, t_max)), cache_dtypes(cfg)
+    zero = {k: torch.zeros(shapes[k][1:], dtype=dtypes[k], device=x.device)
+            for k in ("conv", "ssm")}
+    cache = None
+    if collect_cache:
+        cache = {k: torch.zeros(shape, dtype=dtypes[k], device=x.device)
+                 for k, shape in shapes.items()}
+    for i, block in enumerate(_layers(params)):
+        def attend(p, h, i=i):
+            a, (k, v) = L.apply_attention(p, attn_dims(cfg), h, positions,
+                                          plain=run.plain_attention)
+            if cache is not None:
+                cache["k"][i, :, :s], cache["v"][i, :, :s] = k, v
+            return a
+
+        def scan(mi, p, h, i=i):
+            a, (conv, ssm) = MB.mamba_seq(p, md, h, zero["conv"][mi], zero["ssm"][mi],
+                                          plain=run.plain_scan)
+            if cache is not None:
+                cache["conv"][i, mi], cache["ssm"][i, mi] = conv, ssm
+            return a
+
+        x = _superblock(block, cfg, run, x, attend, scan, params.first_expert)
+    if last_only:
+        x = x[:, -1:]
+    x = _apply_norm(top["final_norm"], x, cfg)
+    return _head_out(top, cfg, run, x), cache
+
+
+def _hybrid_decode(cfg: ArchConfig, run: RunCfg, params: Transformer, cache, tokens):
+    """Jamba's decode step (``transformer.py:603``): the attention over its
+    cache, each Mamba layer one step from its states (the recurrence at S
+    = 1); the cache's entries updated in place."""
+    md = mamba_dims(cfg)
+    clen = int(cache["len"])
+    positions = torch.full((tokens.shape[0], 1), clen, dtype=torch.long,
+                           device=tokens.device)
+    top = _top_params(params, cfg, run)
+    y = _embed_tokens(top, cfg, run, tokens)
+    for i, block in enumerate(_layers(params)):
+        def attend(p, h, i=i):
+            return _attn_decode(p, cfg, run, h, cache["k"][i], cache["v"][i], clen,
+                                positions, L.NO_TP)
+
+        def scan(mi, p, h, i=i):
+            a, (conv, ssm) = MB.mamba_step(p, md, h[:, 0], cache["conv"][i, mi],
+                                           cache["ssm"][i, mi], plain=run.plain_scan)
+            cache["conv"][i, mi], cache["ssm"][i, mi] = conv, ssm
+            return a[:, None]
+
+        y = _superblock(block, cfg, run, y, attend, scan, params.first_expert)
+    y = _apply_norm(top["final_norm"], y, cfg)
+    return _head_out(top, cfg, run, y), dict(cache, len=clen + 1)
 
 
 def prefill(cfg: ArchConfig, run: RunCfg, params: Transformer, batch,

@@ -20,7 +20,7 @@ RUN = T.RunCfg(remat=False)
 B, S = 2, 16
 #: the SMOKE configs compute in f32: prefill and decode against the forward
 TOL = 1e-4
-REFUSED = ("llava-next-34b", "whisper-small", "jamba-1.5-large-398b")
+REFUSED = ("llava-next-34b", "whisper-small")
 RUNS = [a for a in ARCH_IDS if a not in REFUSED]
 
 
@@ -49,7 +49,8 @@ def _rel(got, want) -> float:
 
 
 def test_the_port_runs_seven_archs_and_refuses_three():
-    assert len(RUNS) == 7 and "rwkv6-3b" in RUNS and set(REFUSED) < set(ARCH_IDS)
+    # named when jamba was refused: eight run now, two are refused
+    assert len(RUNS) == 8 and "jamba-1.5-large-398b" in RUNS and set(REFUSED) < set(ARCH_IDS)
 
 
 @pytest.mark.parametrize("arch", RUNS)

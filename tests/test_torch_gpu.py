@@ -14,6 +14,7 @@ from repro_torch.core import decomposition as dec
 from repro_torch.core import transpose as tr
 from repro_torch.configs import get_config
 from repro_torch.kernels import attention, fft_mxu, fft_radix2, ref, ring_rdma, wkv
+from repro_torch.kernels import selective_scan as SS
 from repro_torch.models import transformer as T
 from repro_torch.solvers import make_solver
 from repro_torch.solvers.base import observables_rel_err
@@ -763,4 +764,73 @@ def test_rwkv_model_on_card_launches_the_kernel_once_a_layer(cuda, no_tf32):
     lp, cp = T.prefill(cfg, plain_run, model, {"tokens": tokens.to(cuda)})
     lp2, cp = T.decode_step(cfg, plain_run, model, cp, lk[:, -1].argmax(-1)[:, None])
     for a, b in ((lk, lp), (lk2, lp2), (ck["wkv"], cp["wkv"])):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def _scan_inputs(cuda, b, s, di, ds, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, di, device=cuda, generator=g) - 1)
+    x = torch.randn(b, s, di, device=cuda, generator=g).to(dtype)
+    bm, cm = (torch.randn(b, s, ds, device=cuda, generator=g) for _ in range(2))
+    a_log = torch.randn(di, ds, device=cuda, generator=g) * 0.5
+    d = torch.randn(di, device=cuda, generator=g)
+    h0 = torch.randn(b, di, ds, device=cuda, generator=g) * 0.3
+    return dt, x, bm, cm, a_log, d, h0
+
+
+@pytest.mark.parametrize("s", [1, 37, 300])
+@pytest.mark.parametrize("ds", [8, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_selective_scan_kernel_matches_plain_version(cuda, no_tf32, dtype, ds, s):
+    # one step, an odd count (a ragged last chunk of 64), several chunks;
+    # d_inner 200 (a ragged last block of 128 channels) from a nonzero
+    # state: y and the final state within 1e-5 of the max
+    args = _scan_inputs(cuda, 3, s, 200, ds, dtype, seed=s + ds)
+    launches, plain = SS.launches, SS.plain_calls
+    y, h = SS.selective_scan(*args)
+    assert (SS.launches, SS.plain_calls) == (launches + 1, plain)
+    yp, hp = SS.selective_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == h.dtype == torch.float32
+    assert float((y - yp).abs().max()) <= 1e-5 * float(yp.abs().max())
+    assert float((h - hp).abs().max()) <= 1e-5 * float(hp.abs().max())
+
+
+def test_selective_scan_kernel_carries_its_state_bitwise(cuda):
+    # the recurrence over S steps equals its two halves with the state
+    # carried, bit for bit (the same arithmetic step by step)
+    dt, x, bm, cm, a_log, d, h0 = _scan_inputs(cuda, 2, 150, 256, 16, torch.bfloat16, seed=3)
+    y, h = SS.selective_scan(dt, x, bm, cm, a_log, d, h0)
+    cut = [t[:, :41].contiguous() for t in (dt, x, bm, cm)]
+    y1, h1 = SS.selective_scan(*cut, a_log, d, h0)
+    y2, h2 = SS.selective_scan(*(t[:, 41:].contiguous() for t in (dt, x, bm, cm)), a_log, d, h1)
+    assert torch.equal(y, torch.cat([y1, y2], 1)) and torch.equal(h, h2)
+
+
+def test_selective_scan_kernel_refuses_other_state_sizes_and_autograd(cuda):
+    args = _scan_inputs(cuda, 1, 4, 128, 4, torch.float32, seed=1)
+    with pytest.raises(ValueError, match="d_state 4"):
+        SS.selective_scan(*args)
+    dt, *rest = _scan_inputs(cuda, 1, 4, 128, 16, torch.float32, seed=1)
+    launches = SS.launches
+    with pytest.raises(NotImplementedError, match="item 11.6d"):
+        SS.selective_scan(dt.requires_grad_(), *rest)
+    assert SS.launches == launches
+
+
+def test_jamba_model_on_card_launches_the_scan_once_a_mamba_layer(cuda, no_tf32):
+    # jamba's smoke config (d_state 8) in f32 on the card: a prefill and a
+    # decode step launch the kernel once a Mamba layer; the logits and the
+    # states within 1e-4 of the plain scan's run
+    cfg = get_config("jamba-1.5-large-398b", smoke=True)
+    model = T.init_model(cfg, seed=0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator().manual_seed(2))
+    run, plain_run = T.RunCfg(), T.RunCfg(plain_scan=True)
+    launches, plain = SS.launches, SS.plain_calls
+    lk, ck = T.prefill(cfg, run, model, {"tokens": tokens.to(cuda)}, t_max=41)
+    lk2, ck = T.decode_step(cfg, run, model, ck, lk[:, -1].argmax(-1)[:, None])
+    assert (SS.launches, SS.plain_calls) == (launches + 2 * (cfg.n_layers - 1), plain)
+    lp, cp = T.prefill(cfg, plain_run, model, {"tokens": tokens.to(cuda)}, t_max=41)
+    lp2, cp = T.decode_step(cfg, plain_run, model, cp, lk[:, -1].argmax(-1)[:, None])
+    for a, b in ((lk, lp), (lk2, lp2), (ck["ssm"], cp["ssm"]), (ck["conv"], cp["conv"])):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

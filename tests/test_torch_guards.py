@@ -272,7 +272,7 @@ def test_what_this_slice_leaves_out_names_its_roadmap_item():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--arch", "jamba-1.5-large-398b"], "Queue 1 item 11"),     # hybrid
+    (["--arch", "jamba-1.5-large-398b", "--mesh", "2x1"], "Queue 1 item 11"),  # hybrid, mesh
     (["--arch", "whisper-small"], "Queue 1 item 11"),            # encdec
     (["--arch", "llava-next-34b"], "Queue 1 item 11"),           # embeds
 ])
