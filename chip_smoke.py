@@ -436,7 +436,29 @@ fatal on failure:
    between the special function units and a polynomial on the FMA pipes,
    at the card's max SM clock, which ``nvidia-smi`` reads; the
    exponentials on the special function units alone printed beside it)
-   and its plain time.
+   and its plain time.  (d) Jamba trained, after (a)-(c)'s model is
+   freed: one superblock at full width, the card holding expert 0 of each
+   MoE layer's 16 (one chip of a deployment that puts them over 16 chips,
+   one expert each; 9.00 B params, bf16 params, gradients and moments: 72
+   GB), its recurrence's gradient the ``selective_scan_bwd`` kernel (its
+   ptxas registers and spills in phase 2, fatal on a spill), the forward
+   keeping the state every 16 steps.  Step 0's gradients at B=8, S=128
+   against the plain scan's run (torch's autograd through its loop), the
+   expert choices pinned, each leaf within max(5e-2, 2 × a correct
+   control's gap, the scan in f64 rounded once), bounds that the backward
+   with dA_log = 0 and with dC of the step before must exceed.  Then the
+   launcher's own command, ``python3 -m repro_torch.launch.train --arch
+   jamba-1.5-large-398b --layers 8 --experts 0:1 --batch 8 --seq 512
+   --steps 4``, in this process: counts from 0 (21 scan launches a step:
+   the forward, the superblock's recompute and each Mamba layer's own; 7
+   ``selective_scan_bwd``; 2 ``flash_attention``; no plain call), finite
+   losses and gnorms, ms/step, tokens/s, peak, the last step profiled;
+   step 0's 7 ``selective_scan_bwd`` calls kept on the host and, once the
+   run has freed the card, each held against the plain backward on the
+   same inputs: each output within 1e-5 of its max, dC of the step before
+   and dA_log = 0 (made from the kernel's result) refused in every call.
+   Both kernels timed at the training shape (B=8, S=512) against their
+   bounds, beside their plain times.
    ``--jamba-only`` runs phases 1, 2 and 18.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
@@ -1601,6 +1623,47 @@ def _kernel_rows(prof) -> list:
     return sorted(((ns / 1e6, c, k) for k, (ns, c) in by_name.items()), reverse=True)
 
 
+#: the background threads of :func:`_warm_profiler` not yet joined
+_WARMING: list = []
+
+
+def _warm_profiler() -> None:
+    """Start and stop a first ``torch.profiler`` session (the card's
+    events) in a background thread.  A process's first start costs 7-18 s
+    on the card's machine and does not hold the interpreter, so untimed
+    work (a build, correctness checks, set-up) runs beside it;
+    :func:`_warmed` joins it before the first timed region.  Kineto then
+    prints "External init callback must run in same thread as
+    registerClient": the later sessions, from the main thread, record the
+    card's kernels all the same."""
+    import threading
+
+    def warm():
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]):
+            pass
+
+    thread = threading.Thread(target=warm, daemon=True)
+    thread.start()
+    _WARMING.append(thread)
+
+
+def _warmed(ctx=None) -> float:
+    """Join this process's :func:`_warm_profiler` threads, so that nothing
+    timed runs beside one; with ``ctx`` (a rank's), a barrier of all the
+    ranks after it, so that no rank starts a clock while rank 0 still
+    waits.  Returns the seconds it took."""
+    t0 = time.perf_counter()
+    while _WARMING:
+        _WARMING.pop().join()
+    if ctx is not None:
+        import torch.distributed as tdist
+
+        tdist.barrier()
+    return time.perf_counter() - t0
+
+
 def _profile(step, label: str, top: int = 8) -> dict:
     """Device time by kernel name over one call of ``step()`` from
     ``torch.profiler`` (this process's kernels), and the host-clock wall
@@ -1613,6 +1676,7 @@ def _profile(step, label: str, top: int = 8) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    join_s = _warmed()
     torch.cuda.synchronize()
     t_start = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1630,12 +1694,12 @@ def _profile(step, label: str, top: int = 8) -> dict:
         lines = [f"breakdown {label}: wall {wall_ms:.3f} ms, device busy "
                  f"{busy_ms:.3f} ms, idle {1 - busy_ms / wall_ms:.1%}, "
                  f"{sum(r[1] for r in rows)} kernels (the profiler started in "
-                 f"{start_s:.3f} s, stopped in {stop_s:.3f} s, its kernels summed in "
-                 f"{sum_s:.3f} s)"]
+                 f"{start_s:.3f} s after {join_s:.3f} s waiting for its warm-up, stopped "
+                 f"in {stop_s:.3f} s, its kernels summed in {sum_s:.3f} s)"]
         lines += [f"  {ms:9.3f} ms {ms / busy_ms:6.1%} x{c:<4d} {k[:90]}"
                   for ms, c, k in rows[:top]]
     return {"label": label, "wall_ms": wall_ms, "busy_ms": busy_ms,
-            "start_s": start_s, "stop_s": stop_s, "sum_s": sum_s,
+            "start_s": start_s, "warm_join_s": join_s, "stop_s": stop_s, "sum_s": sum_s,
             "kernels": [{"ms": ms, "count": c, "name": k[:120]}
                         for ms, c, k in rows], "lines": lines}
 
@@ -2120,6 +2184,7 @@ def _multi_rank_run(ctx, tag, case, mesh, cfg, ref_hist, n, doc, save_at=None):
     before = {k: (w.exchanges, w.rounds) for k, w in c.wires().items()}
     history = [solver.observables(state)]
     step_ms = []
+    r["warm_wait_s"] = _warmed(ctx)
     if cuda:
         torch.cuda.synchronize(dev)
     _zero_ring_counts()
@@ -2205,6 +2270,8 @@ def _ranks_main(ctx, ref_hists, tune, n=512):
     multi-rank main path (run (c) with its checkpoint), the restores, and
     phase 9's 2x2 sweep."""
     out = {"rank": ctx.rank, "calibration": _calibrate_folds(ctx, tune["weights"])}
+    if ctx.rank == 0 and ctx.device.type == "cuda":
+        _warm_profiler()  # beside the wire's check and run (a)'s set-up
     out["wire"] = _wire_vs_plain(ctx)
     out["runs"] = []
     for tag, case, mesh, cfg in MULTI_RANK:
@@ -2393,6 +2460,9 @@ def _staged_main(ctx, n, scales):
     from repro_torch.core.engine_spec import EngineSpec
     from repro_torch.core.fft3d import gather_pencil, make_fft3d
 
+    if ctx.rank == 0 and ctx.device.type == "cuda":
+        _warm_profiler()  # beside the first run's set-up and checks
+
     grid, dev = ctx.grid(), ctx.device
     cuda = dev.type == "cuda"
 
@@ -2437,6 +2507,7 @@ def _staged_main(ctx, n, scales):
                 del whole
             r["err"][name] = err / scales[name]
         del results
+        r["warm_wait_s"] = _warmed(ctx)
         times = {}
         for name in ("fwd", "roundtrip"):
             ms = []
@@ -6447,15 +6518,28 @@ def _rwkv_grads(cfg, run, model, tokens, microbatches: int):
     return total / microbatches, dict(zip(names, acc))
 
 
+#: the elements of a leaf :func:`_leaf_gaps` casts to f32 at once
+GAP_CHUNK = 1 << 26
+
+
 def _leaf_gaps(got: dict, want: dict) -> dict:
-    """{name: ||got - want|| / ||want||} of every leaf."""
+    """{name: ||got - want|| / ||want||} of every leaf, in f32, a flat
+    chunk of at most :data:`GAP_CHUNK` elements at a time (Jamba's stacked
+    ``in_proj`` whole would take 22 GB of f32 temporaries beside three
+    models' worth of gradients)."""
     import torch
 
+    def norm(chunks):
+        return torch.stack([torch.linalg.vector_norm(c) for c in chunks]).square().sum().sqrt()
+
     names = list(want)
-    gaps = torch.stack([torch.linalg.vector_norm(got[n] - want[n])
-                        / torch.linalg.vector_norm(want[n]).clamp_min(1e-30)
-                        for n in names])
-    return dict(zip(names, gaps.tolist()))
+    gaps = []
+    for n in names:
+        g, w = got[n].reshape(-1), want[n].reshape(-1)
+        cut = range(0, w.numel(), GAP_CHUNK)
+        gaps.append(norm(g[i:i + GAP_CHUNK].float() - w[i:i + GAP_CHUNK].float() for i in cut)
+                    / norm(w[i:i + GAP_CHUNK].float() for i in cut).clamp_min(1e-30))
+    return dict(zip(names, torch.stack(gaps).tolist()))
 
 
 def _max_gap(got, want):
@@ -6670,10 +6754,10 @@ def _held_calls(smi, rec: dict, n_layers: int) -> dict:
     return calls
 
 
-def _timed_train_steps(rec: dict, label: str):
-    """A wrapper of ``make_train_step`` whose steps are synchronised and
-    timed on the host clock (the last one under ``torch.profiler``), their
-    gnorms kept."""
+def _timed_train_steps(rec: dict, label: str, steps: int = RWKV_TRAIN_STEPS):
+    """A wrapper of ``make_train_step`` whose ``steps`` steps are
+    synchronised and timed on the host clock (the last one under
+    ``torch.profiler``), their gnorms kept."""
     import torch
 
     def wrap(make):
@@ -6682,7 +6766,7 @@ def _timed_train_steps(rec: dict, label: str):
 
             def timed(*a):
                 torch.cuda.synchronize()
-                if len(rec["ms"]) == RWKV_TRAIN_STEPS - 1:
+                if len(rec["ms"]) == steps - 1:
                     got = {}
                     rec["prof"] = _profile(lambda: got.setdefault("r", step(*a)), label,
                                            top=12)
@@ -7004,18 +7088,25 @@ def _arith_ms(flops_ms: float, sfu_ms: float, poly_ms: float) -> float:
 
 def scan_ptxas(log: str) -> list:
     """Phase 2, ``selective_scan``: registers and spill bytes of each
-    instantiation (f32 and bf16 x, d_state 8 and 16); fatal on a spill or
-    a missing one."""
+    instantiation of the forward and of the backward (f32 and bf16 x,
+    d_state 8 and 16); fatal on a spill or a missing one."""
     dtype = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
-    ks = _ptxas_entries(log, r"\dselective_scan_kernelI(f|13__nv_bfloat16)Li(\d+)E")
-    say("  ptxas selective_scan_kernel, registers / spill bytes: " + ", ".join(
-        f"<{dtype[k['groups'][0]]}, d_state={k['groups'][1]}>: {k['registers']}/"
-        f"{k['spill_bytes']}" for k in ks))
-    if len(ks) != 4 or any(k["spill_bytes"] != 0 for k in ks):
-        fail(f"selective_scan_kernel instantiations: {ks}")
-    return [{"source": "selective_scan", "kernel": "selective_scan_kernel",
-             "dtype": dtype[k["groups"][0]], "d_state": int(k["groups"][1]),
-             "registers": k["registers"], "spill_bytes": k["spill_bytes"]} for k in ks]
+    out = []
+    # the forward with (Lb1) and without (Lb0) its checkpoints, the backward
+    for kernel, keep, n in (("selective_scan_kernel", r"ELb([01])", 8),
+                            ("selective_scan_bwd_kernel", "", 4)):
+        ks = _ptxas_entries(log, rf"\d{kernel}I(f|13__nv_bfloat16)Li(\d+){keep}E")
+        say(f"  ptxas {kernel}, registers / spill bytes: " + ", ".join(
+            f"<{dtype[k['groups'][0]]}, d_state={k['groups'][1]}"
+            f"{', checkpoints' if k['groups'][2:] == ['1'] else ''}>: {k['registers']}/"
+            f"{k['spill_bytes']}" for k in ks))
+        if len(ks) != n or any(k["spill_bytes"] != 0 for k in ks):
+            fail(f"{kernel} instantiations: {ks}")
+        out += [{"source": "selective_scan", "kernel": kernel,
+                 "dtype": dtype[k["groups"][0]], "d_state": int(k["groups"][1]),
+                 "checkpoints": k["groups"][2:] == ["1"],
+                 "registers": k["registers"], "spill_bytes": k["spill_bytes"]} for k in ks]
+    return out
 
 
 def _scan_counts() -> dict:
@@ -7384,13 +7475,449 @@ def jamba_lm(smi):
         bad.append(f"f32: gap {max(gaps32):.3e}, counts {n32}")
     if tuple(kept_tokens.shape) != (LM_BATCH, LM_GEN):
         bad.append(f"tokens {tuple(kept_tokens.shape)}")
-    out["phase_s"] = time.perf_counter() - t_phase
-    say(f"[{smi}] Jamba: phase 18 on one card in {out['phase_s']:.3f} s")
+    say(f"[{smi}] Jamba: phase 18 (a)-(c) on one card in "
+        f"{time.perf_counter() - t_phase:.3f} s")
     if bad:
         fail("Jamba: " + "; ".join(bad))
     out["max_abs_err"] = layer["max_abs"]
     main = [launcher["counts"], counts, out["prefill_counts"], out["step_counts"], n32]
-    return out, {k: sum(c[k] for c in main) for k in ("selective_scan", "flash_attention")}
+    launches = {k: sum(c[k] for c in main) for k in ("selective_scan", "flash_attention")}
+    out["train"], trained = jamba_train(smi, clock_mhz)
+    for k, n in trained.items():
+        launches[k] = launches.get(k, 0) + n
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"[{smi}] Jamba: phase 18 on one card in {out['phase_s']:.3f} s")
+    return out, launches
+
+
+# phase 18 (d): Jamba trained at full width on one card, one superblock,
+# the card holding expert 0 of each MoE layer's 16: one chip's share of a
+# deployment that puts each MoE layer's experts over 16 chips, one expert
+# each, expert-parallel, everything else whole on every chip (9.00 B params;
+# bf16 params, gradients and both moments, the config's dtypes: 72.0 GB);
+# the launcher's default one microbatch (the config's 8 would add an f32
+# accumulator, 36 GB)
+JAMBA_TRAIN_EXPERTS = (0, 1)
+JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ, JAMBA_TRAIN_STEPS = 8, 512, 4
+# step 0's selective_scan_bwd calls (all 7) against the plain backward on
+# the same inputs: each output within JAMBA_BWD_TOL of its max (f32: the
+# same arithmetic summed in another order); two controls made from the
+# kernel's own result, dC of the step before and dA_log = 0, refused in
+# every call.  The forward with checkpoints on the same inputs too: y, the
+# final state and every checkpoint (the kernel's again and those the run
+# kept) within JAMBA_LAYER_TOL of max; the run's checkpoints a step late
+# refused in every call
+JAMBA_BWD_TOL = 1e-5
+# step 0's gradients at B=JAMBA_GATE_BATCH, S=JAMBA_GATE_SEQ (the first rows
+# and positions of the step's batch) against the plain scan's run (torch's
+# autograd through its step loop), the expert choices pinned to the kernel
+# run's: each leaf's ||g - g_plain|| / ||g_plain|| within max(floor,
+# JAMBA_DRIFT_RATIO x a correct control's gap on its kind of leaf, the scan
+# in f64 rounded once), bounds that each planted fault (JAMBA_FAULTS) must
+# exceed on some leaf.  Fewer positions than the steps': the plain loop's
+# autograd keeps ~4 (B, d_inner, d_state) f32 tensors a step of a Mamba
+# layer (16 GB at B=8, S=512) beside the model and two runs' gradients
+# (18 GB each), and its time goes with S (a few launches a step); one
+# run's gradients are compared and freed before the next
+JAMBA_GATE_BATCH, JAMBA_GATE_SEQ = 8, 128
+JAMBA_GRAD_FLOOR = TRAIN_GRAD_TOL["bfloat16"]
+
+
+def _dc_of_the_step_before(dc):
+    """dC (rows, S, d_state) as the control reads it: each step the step
+    before's, zeros before the first."""
+    import torch
+
+    return torch.cat([torch.zeros_like(dc[:, :1]), dc[:, :-1]], 1)
+
+
+def _scan_bwd_kept(rec: dict, first: int):
+    """A wrapper of ``selective_scan_bwd`` that keeps its ``first`` calls'
+    inputs and outputs on the host, for :func:`_held_scan_calls` to hold
+    against the plain backward once the run has freed the card: the plain
+    backward's temporaries beside a step's would raise the run's peak."""
+
+    def host(t):
+        return None if t is None else t.to("cpu", copy=True)
+
+    def wrap(kernel_bwd):
+        def both(*args):
+            got = kernel_bwd(*args)
+            rec["calls"] += 1
+            if rec["calls"] <= first:
+                rec["kept"].append(([host(t) for t in args], [host(t) for t in got]))
+            return got
+        return both
+    return wrap
+
+
+#: the gradients the kernel returns, in order
+SCAN_GRADS = ("d(dt)", "dx", "dB", "dC", "dA_log", "dD", "dh0")
+
+
+def _scan_bwd_fault(name: str):
+    """(d)'s planted faults in place of ``selective_scan_bwd``: ``"dA_log =
+    0"`` or ``"dC of the step before"``."""
+    import torch
+
+    def wrap(kernel_bwd):
+        def bwd(*args):
+            out = list(kernel_bwd(*args))
+            if name == "dA_log = 0":
+                out[4] = torch.zeros_like(out[4])
+            else:
+                out[3] = _dc_of_the_step_before(out[3])
+            return tuple(out)
+        return bwd
+    return wrap
+
+
+JAMBA_FAULTS = ("dA_log = 0", "dC of the step before")
+
+
+def _jamba_grad_gate(smi, cfg, tokens) -> dict:
+    """(d)'s model gate at step 0 on a model of its own (seed 0, the held
+    expert): the kernel run's gradients, the plain scan's and the f64
+    control's with the kernel run's expert choices pinned, and each
+    planted fault's."""
+    import torch
+
+    from repro_torch.kernels import selective_scan as SS
+    from repro_torch.models import mamba as MB
+    from repro_torch.models import transformer as T
+
+    run, plain = T.RunCfg(), T.RunCfg(plain_scan=True)
+    model = T.init_model(cfg, seed=0, device="cuda", experts=JAMBA_TRAIN_EXPERTS)
+    (loss_k, got), record = _record(lambda: _rwkv_grads(cfg, run, model, tokens, 1))
+    t0 = time.perf_counter()
+    (loss_p, want), flips = _replay(lambda: _rwkv_grads(cfg, plain, model, tokens, 1), record)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    kernel = _leaf_gaps(got, want)
+    del got
+    (loss_c, ctrl), _ = _replay(lambda: _patched(
+        MB, "selective_scan_plain", _scan_f64,
+        lambda: _rwkv_grads(cfg, plain, model, tokens, 1)), record)
+    control = _leaf_gaps(ctrl, want)
+    del ctrl
+    broken = {}
+    for fault in JAMBA_FAULTS:
+        (_, bad), _ = _replay(lambda: _patched(
+            SS, "selective_scan_bwd", _scan_bwd_fault(fault),
+            lambda: _rwkv_grads(cfg, run, model, tokens, 1)), record)
+        broken[fault] = _leaf_gaps(bad, want)
+        del bad
+    del want, model
+    torch.cuda.empty_cache()
+    kinds: dict = {}
+    for name, gap in control.items():
+        kind = _leaf_kind(name)
+        kinds[kind] = max(kinds.get(kind, 0.0), gap)
+    bound = {n: max(JAMBA_GRAD_FLOOR, JAMBA_DRIFT_RATIO * kinds[_leaf_kind(n)])
+             for n in control}
+    worst = max(kernel, key=lambda n: kernel[n] / bound[n])
+    caught = {f: max(b, key=lambda n: b[n] / bound[n]) for f, b in broken.items()}
+    out = {"batch": list(tokens.shape), "plain_s": plain_s, "loss": loss_k,
+           "loss_plain": loss_p, "loss_f64": loss_c, "pinned_flips": flips,
+           "kernel_max": max(kernel.values()), "control_max": max(control.values()),
+           "worst_leaf": worst, "worst": [kernel[worst], bound[worst]],
+           "passes": all(kernel[n] <= bound[n] for n in kernel),
+           "faults": {f: {"leaf": caught[f], "gap": [b[caught[f]], bound[caught[f]]],
+                          "refused": any(b[n] > bound[n] for n in b)}
+                      for f, b in broken.items()},
+           "leaves_over_floor": sum(b > JAMBA_GRAD_FLOOR for b in bound.values()),
+           "leaves": len(bound),
+           "by_leaf": {n: [kernel[n], control[n], bound[n]] + [b[n] for b in broken.values()]
+                       for n in control}}
+    say(f"[{smi}] Jamba training (d) step 0's gradients at B={tokens.shape[0]} "
+        f"S={tokens.shape[1]} against the plain scan's run ({plain_s:.3f} s; expert "
+        f"choices pinned to the kernel run's, its own differing on {flips:.2%}; loss "
+        f"{loss_k:.7f} against {loss_p:.7f}, f64 control {loss_c:.7f}): each leaf within "
+        f"max({JAMBA_GRAD_FLOOR:g}, {JAMBA_DRIFT_RATIO:g} x the f64 control's gap on its "
+        f"kind; {out['leaves_over_floor']} of {out['leaves']} bounds above the floor): the "
+        f"kernel's largest gap {out['kernel_max']:.3e}, the control's "
+        f"{out['control_max']:.3e}; closest to its bound {worst} {kernel[worst]:.3e} of "
+        f"{bound[worst]:.3e}: {'passes' if out['passes'] else 'FAILS'}; " + "; ".join(
+            f"{f} at {c['leaf']} {c['gap'][0]:.3e} against {c['gap'][1]:.3e}: "
+            f"{'refused' if c['refused'] else 'PASSED'}" for f, c in out["faults"].items()))
+    say("  by leaf, the gap of the kernel / the f64 control / the bound / " + " / ".join(
+        JAMBA_FAULTS) + ": " + "; ".join(
+        f"{n[len('blocks.0.'):] if n.startswith('blocks.0.') else n} "
+        + "/".join(f"{x:.2e}" for x in row) for n, row in out["by_leaf"].items()))
+    return out
+
+
+def _checkpoints_a_step_late(ck, dt, x, b, a_log):
+    """The checkpoints ``ck`` (B, n, d_inner, d_state) as a forward that
+    kept the state one step too late would hold them (the control of
+    :func:`_held_scan_calls`): each taken one step of the recurrence on,
+    from the kernel's own."""
+    import torch
+
+    from repro_torch.kernels import selective_scan as SS
+
+    at = torch.arange(0, dt.shape[1], SS.CKPT_STEPS, device=dt.device)
+    dts = dt[:, at, :, None]
+    return (torch.exp(dts * -torch.exp(a_log)) * ck
+            + dts * x[:, at, :, None].float() * b[:, at, None, :])
+
+
+#: the forward's outputs :func:`_held_scan_calls` holds, in order
+SCAN_FWD_OUTS = ("y", "h", "checkpoints", "the run's checkpoints")
+
+
+def _held_scan_calls(smi, rec: dict, n_mamba: int) -> dict:
+    """(d)'s per-call gate on step 0's ``selective_scan_bwd`` calls kept by
+    :func:`_scan_bwd_kept`: each against ``selective_scan_backward_plain``
+    on the same inputs, back on the card a call at a time: each output's
+    max gap over its max, the controls' (dC of the step before, dA_log = 0,
+    made from the kernel's result), the largest |d|.  The forward with
+    checkpoints too, on each call's inputs from the state its checkpoints
+    begin with, against ``selective_scan_plain(checkpoints=True)``: y, the
+    final state and every checkpoint, the kernel's again and those the
+    run's forward kept (the call's own), and the control: the run's
+    checkpoints a step late.  Fatal if a call parts from its plain version
+    or a control passes."""
+    import torch
+
+    from repro_torch.kernels import selective_scan as SS
+
+    gaps, fwd = [], []
+    while rec["kept"]:
+        args, got = ([None if t is None else t.cuda() for t in ts]
+                     for ts in rec["kept"].pop(0))
+        want = SS.selective_scan_backward_plain(*args)
+        gaps.append(torch.stack(
+            [_max_gap(g, w) for g, w in zip(got, want)]
+            + [_max_gap(_dc_of_the_step_before(got[3]), want[3]),
+               _max_gap(torch.zeros_like(want[4]), want[4]),
+               max((g - w).abs().max() for g, w in zip(got, want))]).cpu())
+        del got, want
+        dt, x, b, c, a_log, d, ck = args[:7]
+        inputs = (dt, x, b, c, a_log, d, ck[:, 0].contiguous())
+        again = SS._kernel(*inputs, checkpoints=True) + (ck,)
+        want = SS.selective_scan_plain(*inputs, checkpoints=True)
+        want += (want[2],)
+        fwd.append(torch.stack(
+            [_max_gap(g, w) for g, w in zip(again, want)]
+            + [_max_gap(_checkpoints_a_step_late(ck, dt, x, b, a_log), want[2]),
+               max((g - w).abs().max() for g, w in zip(again, want))]).cpu())
+        del args, again, want, inputs, ck
+    torch.cuda.empty_cache()
+    rec["gaps"], rec["fwd_gaps"] = gaps, fwd
+    g, f = torch.stack(gaps), torch.stack(fwd)
+    n, m = len(SCAN_GRADS), len(SCAN_FWD_OUTS)
+    calls = {"held": len(rec["gaps"]), "max": dict(zip(SCAN_GRADS, g[:, :n].max(0).values.tolist())),
+             "dc_shifted_min": float(g[:, n].min()), "da0_min": float(g[:, n + 1].min()),
+             "max_abs": float(g[:, n + 2].max()),
+             "dc_shifted_refused": int((g[:, n] > JAMBA_BWD_TOL).sum()),
+             "da0_refused": int((g[:, n + 1] > JAMBA_BWD_TOL).sum()),
+             "fwd_max": dict(zip(SCAN_FWD_OUTS, f[:, :m].max(0).values.tolist())),
+             "late_min": float(f[:, m].min()), "fwd_max_abs": float(f[:, m + 1].max()),
+             "late_refused": int((f[:, m] > JAMBA_LAYER_TOL).sum())}
+    say(f"[{smi}] Jamba training (d) step 0's selective_scan_bwd: {calls['held']} calls "
+        f"against selective_scan_backward_plain on their inputs: max gaps "
+        f"{ {k: f'{v:.3e}' for k, v in calls['max'].items()} } of max (tol "
+        f"{JAMBA_BWD_TOL:g}; max |d| {calls['max_abs']:.3e}); controls: dC of the step "
+        f"before refused in {calls['dc_shifted_refused']}, dA_log = 0 in "
+        f"{calls['da0_refused']} of {calls['held']} (smallest gaps "
+        f"{calls['dc_shifted_min']:.3e}, {calls['da0_min']:.3e}); the forward with "
+        f"checkpoints on their inputs against selective_scan_plain(checkpoints=True): max "
+        f"gaps { {k: f'{v:.3e}' for k, v in calls['fwd_max'].items()} } of max (tol "
+        f"{JAMBA_LAYER_TOL:g}; max |d| {calls['fwd_max_abs']:.3e}); control, the run's "
+        f"checkpoints a step late, refused in {calls['late_refused']} of {calls['held']} "
+        f"(smallest gap {calls['late_min']:.3e})")
+    bad = []
+    if calls["held"] != n_mamba:
+        bad.append(f"{calls['held']} calls held, want {n_mamba}")
+    if max(calls["max"].values()) > JAMBA_BWD_TOL:
+        bad.append(f"a selective_scan_bwd call parts from the plain backward: {calls['max']}")
+    if max(calls["fwd_max"].values()) > JAMBA_LAYER_TOL:
+        bad.append("a forward with checkpoints parts from the plain version: "
+                   f"{calls['fwd_max']}")
+    if calls["dc_shifted_refused"] != calls["held"] or calls["da0_refused"] != calls["held"] \
+            or calls["late_refused"] != calls["held"]:
+        bad.append("the per-call gate passes a control")
+    if bad:
+        fail("Jamba training (d): " + "; ".join(bad))
+    return calls
+
+
+def _jamba_train_timing(clock_mhz: float) -> list:
+    """``selective_scan`` with checkpoints and ``selective_scan_bwd`` at the
+    training shape (B=8, S=512, d_inner 16384, d_state 16, bf16 x): each
+    kernel (median of 7 CUDA-event timings), its plain version and its
+    bound, the larger of its bytes and its arithmetic (as
+    :func:`_scan_timing`'s: f32 flops on the FMA pipes, the exps split
+    between the SFU and a polynomial there).  No single PyTorch call
+    computes either."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import selective_scan as SS
+    from repro_torch.models import transformer as T
+
+    md = T.mamba_dims(get_config(JAMBA_ARCH))
+    b, s, di, ds = JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ, md.d_inner, md.d_state
+    gen = torch.Generator(device="cuda").manual_seed(180)
+    sfu_per_s = SFU_PER_CLOCK * H100_SMS * clock_mhz * 1e6
+    dt = torch.nn.functional.softplus(_rand((b, s, di), torch.float32, gen) - 1)
+    x = _rand((b, s, di), torch.float32, gen).bfloat16()
+    bm, cm = (_rand((b, s, ds), torch.float32, gen) for _ in range(2))
+    a_log = _rand((di, ds), torch.float32, gen) * 0.5
+    d = _rand((di,), torch.float32, gen)
+    h0 = _rand((b, di, ds), torch.float32, gen) * 0.3
+    dy = _rand((b, s, di), torch.float32, gen)
+    dh = _rand((b, di, ds), torch.float32, gen)
+    args = (dt, x, bm, cm, a_log, d, h0)
+    _, _, ck = SS._kernel(*args, checkpoints=True)
+    cases = (
+        ("selective_scan with checkpoints", lambda: SS._kernel(*args, checkpoints=True),
+         lambda: SS.selective_scan_plain(*args, checkpoints=True),
+         SS.selective_scan_bytes(b, s, di, ds, 2), SS.selective_scan_flops(b, s, di, ds),
+         SS.selective_scan_exps(b, s, di, ds)),
+        ("selective_scan_bwd", lambda: SS.selective_scan_bwd(*args[:6], ck, dy, dh),
+         lambda: SS.selective_scan_backward_plain(*args[:6], ck, dy, dh),
+         SS.selective_scan_bwd_bytes(b, s, di, ds, 2), SS.selective_scan_bwd_flops(b, s, di, ds),
+         SS.selective_scan_bwd_exps(b, s, di, ds)))
+    out = []
+    for name, kernel, plain, moved, flops, exps in cases:
+        ms, lo, hi = _median_ms(kernel, 10, 2)
+        plain_ms = _time_ms(plain, 1, 1)
+        terms = {"bytes": moved / HBM_BYTES_PER_S * 1e3, "flops": flops / FP32_FLOPS * 1e3,
+                 "exps_sfu": exps / sfu_per_s * 1e3,
+                 "exps_poly": exps * 2 * POLY_EXP2_FMA_INSTR / FP32_FLOPS * 1e3}
+        terms["arith"] = _arith_ms(terms["flops"], terms["exps_sfu"], terms["exps_poly"])
+        decides = "bytes" if terms["bytes"] >= terms["arith"] else "arith"
+        rec = {"kernel": name, "shape": [b, s, di, ds], "dtype": "bfloat16", "ms": ms,
+               "ms_spread": [lo, hi], "plain_ms": plain_ms, "library_ms": None,
+               "bytes": moved, "flops": flops, "exps": exps, "clock_mhz": clock_mhz,
+               "terms_ms": terms, "bound_ms": terms[decides],
+               "bound_by": "bytes" if decides == "bytes" else "operations"}
+        say(f"timing {name} B={b} S={s} d_inner={di} d_state={ds} bf16 x: kernel {ms:.4f} ms "
+            f"({lo:.4f}-{hi:.4f}), plain {plain_ms:.3f} ms, library none; bound "
+            f"{rec['bound_ms']:.4f} ms ({decides}: {moved} B {terms['bytes']:.4f} ms; "
+            f"arithmetic {terms['arith']:.4f} ms: {flops:.4g} flop {terms['flops']:.4f} ms "
+            f"beside {exps:.4g} exps, {terms['exps_sfu']:.4f} ms on the SFU alone at "
+            f"{clock_mhz:.0f} MHz), {rec['bound_ms'] / ms:.1%} of the bound")
+        out.append(rec)
+    del args, dt, x, bm, cm, h0, dy, dh, ck
+    torch.cuda.empty_cache()
+    return out
+
+
+def jamba_train(smi, clock_mhz: float) -> tuple:
+    """Phase 18 (d): jamba-1.5-large-398b trained at full width, one
+    superblock, expert 0 of each MoE layer's 16 held, bf16, through
+    ``launch/train.py``'s own command in this process; step 0's gates (the
+    model's gradients against the plain scan's run, each
+    ``selective_scan_bwd`` call against the plain backward), ms/step,
+    tokens/s, peak, a profiled step, both kernels timed at the training
+    shape.  Returns (results, the launches of ``selective_scan``,
+    ``selective_scan_bwd`` and ``flash_attention`` in the launcher's run)."""
+    import dataclasses
+    import math
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.kernels import attention
+    from repro_torch.kernels import selective_scan as SS
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(JAMBA_ARCH), n_layers=JAMBA_LAYERS)
+    run = T.RunCfg(remat=cfg.remat)
+    n_mamba = T.stack_sizes(cfg)["blocks"] * (cfg.hybrid_period - 1)
+    n_attn = T.stack_sizes(cfg)["blocks"]
+    torch.cuda.empty_cache()
+    held_before = torch.cuda.memory_allocated()
+    pipe = Pipeline(DataConfig(vocab=cfg.vocab, seq_len=JAMBA_TRAIN_SEQ,
+                               global_batch=JAMBA_TRAIN_BATCH))
+    tokens = torch.from_numpy(pipe.batch_for_step(0)["tokens"][
+        :JAMBA_GATE_BATCH, :JAMBA_GATE_SEQ].copy()).cuda()
+    t0 = time.perf_counter()
+    gate = _jamba_grad_gate(smi, cfg, tokens)
+    gate["s"] = time.perf_counter() - t0
+    del tokens
+    torch.cuda.empty_cache()
+
+    argv = ["--arch", JAMBA_ARCH, "--layers", str(JAMBA_LAYERS), "--experts",
+            f"{JAMBA_TRAIN_EXPERTS[0]}:{JAMBA_TRAIN_EXPERTS[1]}", "--batch",
+            str(JAMBA_TRAIN_BATCH), "--seq", str(JAMBA_TRAIN_SEQ), "--steps",
+            str(JAMBA_TRAIN_STEPS), "--log-every", "1"]
+    rec = {"ms": [], "gnorms": [], "prof": None}
+    label = (f"training step {JAMBA_ARCH} 1 superblock, expert 0 of 16 held, "
+             f"B={JAMBA_TRAIN_BATCH} S={JAMBA_TRAIN_SEQ}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_scan_counts()
+    SS.bwd_launches = SS.plain_bwd_calls = 0
+    held = {"calls": 0, "kept": []}
+    t0 = time.perf_counter()
+    # the launcher's own run (on the card it allocates through expandable
+    # segments: 72 GB of state beside a step's activations)
+    losses = _patched(train, "make_train_step",
+                      _timed_train_steps(rec, label, JAMBA_TRAIN_STEPS),
+                      lambda: _patched(SS, "selective_scan_bwd",
+                                       _scan_bwd_kept(held, n_mamba),
+                                       lambda: train.main(argv)))
+    wall = time.perf_counter() - t0
+    counts = dict(_scan_counts(), selective_scan_bwd=SS.bwd_launches,
+                  selective_scan_plain_bwd=SS.plain_bwd_calls)
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    calls = _held_scan_calls(smi, held, n_mamba)
+    ms = statistics.median(rec["ms"][1:-1])
+    steps = JAMBA_TRAIN_STEPS
+    want = {"selective_scan": steps * T.scan_forwards(cfg, run), "selective_scan_plain": 0,
+            "flash_attention": steps * n_attn * T.block_forwards(cfg, run),
+            "flash_attention_plain": 0, "selective_scan_bwd": steps * n_mamba,
+            "selective_scan_plain_bwd": 0}
+    n_params = sum(p.numel() for p in T.init_model(
+        cfg, device="meta", experts=JAMBA_TRAIN_EXPERTS).parameters())
+    out = {"arch": JAMBA_ARCH, "layers": JAMBA_LAYERS,
+           "experts_held": list(JAMBA_TRAIN_EXPERTS), "params": n_params,
+           "batch": JAMBA_TRAIN_BATCH, "seq": JAMBA_TRAIN_SEQ, "argv": argv,
+           "gate": gate, "calls": calls, "losses": losses, "gnorms": rec["gnorms"],
+           "step_ms": rec["ms"], "ms_per_step": ms,
+           "tokens_per_s": JAMBA_TRAIN_BATCH * JAMBA_TRAIN_SEQ / (ms / 1e3),
+           "peak_bytes": peak, "held_before": held_before,
+           "card_bytes": torch.cuda.get_device_properties(0).total_memory,
+           "wall_s": wall, "counts": counts, "want": want, "breakdown": rec["prof"]}
+    say(f"[{smi}] Jamba training (d) python3 -m repro_torch.launch.train {' '.join(argv)}: "
+        f"{n_params} params ({JAMBA_LAYERS} layers, expert {JAMBA_TRAIN_EXPERTS[0]} of "
+        f"{cfg.moe.n_experts} held), bf16, remat, {steps} steps in {wall:.3f} s; losses "
+        f"{[round(x, 4) for x in losses]}, gnorms {[round(x, 4) for x in rec['gnorms']]}; "
+        f"{ms:.3f} ms/step (steps {', '.join(f'{t:.3f}' for t in rec['ms'])}; the first, "
+        f"then timed, the last profiled), {out['tokens_per_s']:.1f} tokens/s, peak "
+        f"{peak / 2**30:.3f} GiB of {out['card_bytes'] / 2**30:.3f} ({held_before / 2**30:.3f} "
+        f"GiB held before); counts {counts} (want {want})")
+    for line in rec["prof"]["lines"]:
+        say(line)
+    out["timing"] = _jamba_train_timing(clock_mhz)
+    bad = []
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses + rec["gnorms"]):
+        bad.append(f"losses {losses}, gnorms {rec['gnorms']}")
+    if counts != want:
+        bad.append(f"counts {counts}, want {want}")
+    if peak > out["card_bytes"]:
+        bad.append(f"peak {peak} B over the card's {out['card_bytes']}")
+    if not gate["passes"]:
+        bad.append(f"gradients: {gate['worst_leaf']} {gate['worst']}")
+    for fault, c in gate["faults"].items():
+        if not c["refused"]:
+            bad.append(f"the gradients' bounds pass the kernel with {fault}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"[{smi}] Jamba training: 18 (d) in {out['phase_s']:.3f} s (the model gate "
+        f"{gate['s']:.3f} s, the launcher {wall:.3f} s)")
+    if bad:
+        fail("Jamba training (d): " + "; ".join(bad))
+    return out, {k: counts[k] for k in ("selective_scan", "selective_scan_bwd",
+                                        "flash_attention")}
 
 
 REPLACES = {"flash_attention": "src/repro/kernels/attention.py:68",
@@ -7403,8 +7930,10 @@ REPLACES = {"flash_attention": "src/repro/kernels/attention.py:68",
             # and, for the backward, jax.grad of it
             "wkv6": "src/repro/models/rwkv.py:90",
             "wkv6_bwd": "src/repro/models/rwkv.py:90",
-            # the reference's lax.scan of Mamba's step (mamba.py:102)
-            "selective_scan": "src/repro/models/mamba.py:102"}
+            # the reference's lax.scan of Mamba's step (mamba.py:102) and,
+            # for the backward, jax.grad of it
+            "selective_scan": "src/repro/models/mamba.py:102",
+            "selective_scan_bwd": "src/repro/models/mamba.py:102"}
 
 
 def main(argv) -> int:
@@ -7473,6 +8002,7 @@ def main(argv) -> int:
         finally:
             phase_s[label] = round(time.perf_counter() - t0, 3)
 
+    _warm_profiler()  # beside the build and the checks, before the first timing
     flash_sass_counts, ptxas_build = timed("2 build", build)
     gen = torch.Generator(device="cuda").manual_seed(0)
     t_checks = time.perf_counter()
@@ -7480,6 +8010,7 @@ def main(argv) -> int:
     max_abs.update(ring_vs_plain(gen))
     max_abs["flash_attention"], flash_rel, flash_gaps = flash_vs_plain(gen)
     phase_s["3 kernel vs plain"] = round(time.perf_counter() - t_checks, 3)
+    phase_s["3 the profiler's warm-up, waited for"] = round(_warmed(), 3)
     t_timing = time.perf_counter()
     mma_rates = mma_probe()
     times = timing(gen)
@@ -7503,6 +8034,7 @@ def main(argv) -> int:
     jamba, jamba_launches = timed("18 Jamba", jamba_lm, smi)
     launches["flash_attention"] += jamba_launches["flash_attention"]
     launches["selective_scan"] = jamba_launches["selective_scan"]
+    launches["selective_scan_bwd"] = jamba_launches["selective_scan_bwd"]
     tuned = timed("9 tuning", tuning, runs, ranks, tune_backends)
     served, serve_launches = timed("10 serving", serving, smi)
     for k, n in serve_launches.items():
@@ -7579,8 +8111,20 @@ def main(argv) -> int:
         "name": "selective_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/selective_scan.cu",
         "replaces": REPLACES["selective_scan"], "launches": launches["selective_scan"],
-        "max_abs_err": jamba["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        # (b)'s calls and, with checkpoints, (d)'s
+        "max_abs_err": max(jamba["max_abs_err"], jamba["train"]["calls"]["fwd_max_abs"]),
+        "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None})
+    # the training shape (B=8, S=512)
+    t = next(t for t in jamba["train"]["timing"] if t["kernel"] == "selective_scan_bwd")
+    kernels.append({
+        "name": "selective_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/selective_scan.cu",
+        "replaces": REPLACES["selective_scan_bwd"],
+        "launches": launches["selective_scan_bwd"],
+        "max_abs_err": jamba["train"]["calls"]["max_abs"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None})
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump({"card": smi, "device": name,

@@ -12,6 +12,7 @@ no fake host devices to make: a rank is a process.
 
 from __future__ import annotations
 
+import argparse
 import os
 
 import torch
@@ -32,6 +33,17 @@ def parse_mesh_arg(text: str) -> tuple[int, int]:
     if pu < 1 or pv < 1:
         raise SystemExit(f"--mesh must have positive sizes, got {text!r}")
     return pu, pv
+
+
+def parse_experts_arg(text: str) -> tuple[int, int]:
+    """Parse a CLI ``--experts FIRST:COUNT`` string (e.g. ``0:8``) into
+    ``(first, count)``, the block of every MoE layer's experts a card
+    holds."""
+    try:
+        first, count = (int(t) for t in text.split(":"))
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"--experts must look like 0:8, got {text!r}")
+    return first, count
 
 
 def rank_layout(shape: dict) -> dict:

@@ -169,14 +169,6 @@ def _config(args):
     return cfg
 
 
-def _experts(text: str) -> tuple:
-    try:
-        first, count = (int(t) for t in text.split(":"))
-    except ValueError:
-        raise argparse.ArgumentTypeError(f"--experts must look like 0:8, got {text!r}")
-    return first, count
-
-
 def _rank_main(ctx, argv):
     return serve(parse_args(argv), ctx)
 
@@ -205,7 +197,7 @@ def parse_args(argv):
                     help="bring-up runs only: serve the config cut to its first N "
                          "layers, full width (0: all of them; the reference's "
                          "launcher has no such option)")
-    ap.add_argument("--experts", type=_experts, default=None, metavar="FIRST:COUNT",
+    ap.add_argument("--experts", type=M.parse_experts_arg, default=None, metavar="FIRST:COUNT",
                     help="hold only this block of every MoE layer's experts, one "
                          "card's share of an expert-parallel deployment (one "
                          "device; default: all)")

@@ -14,7 +14,18 @@ as the reference's ``PRNGKey(0)``; the values differ)::
 ``--layers N`` (the port's, beside ``--device`` and ``--seed``; for
 bring-up and smoke runs, not a training setting: the reference's launcher
 has no such option) trains the config cut to its first N layers at full
-width, so that a check on one card fits its time.  It prints the
+width, so that a check on one card fits its time.  ``--experts
+FIRST:COUNT`` (the port's, for bring-up and smoke runs too, on one
+device) trains one card's share of every MoE layer's experts, the router
+whole, as ``launch/serve.py``'s does: each MoE layer gives the held
+experts' part of its output (routing and capacity those of all the
+experts), and only the held experts' weights have gradients and moments.
+That is the reference's whole model with the other experts' weights
+zero, leaf for leaf on the held leaves.  A share's checkpoint is not the
+JAX trainer's tree: ``--ckpt-dir`` with ``--experts`` raises
+``ValueError`` (ROADMAP Queue 1 item 11.6e).  On one card the run
+allocates through the CUDA caching allocator's expandable segments unless
+``PYTORCH_CUDA_ALLOC_CONF`` is set (:func:`_card_allocator`).  It prints the
 reference's lines (``step N loss … gnorm … lr …``,
 ``[resume] from step N``, ``[halt] …``, ``[done] …``) and returns the
 losses.  Resume is automatic: if the checkpoint directory has a LATEST
@@ -36,9 +47,17 @@ dense decoders do, its experts over ``model`` (expert-parallel on a mesh:
 over ``model`` (:mod:`repro_torch.models.mla`) and its leading dense block
 a stack of its own (``first_blocks``); so does rwkv6-3b, its time mix's
 heads over ``model`` and its recurrence's gradient the ``wkv6_bwd`` kernel
-(:mod:`repro_torch.models.rwkv`, :mod:`repro_torch.kernels.wkv`).  The
-hybrid, the encoder–decoder and the VLM are not ported yet (ROADMAP Queue
-1 item 11)::
+(:mod:`repro_torch.models.rwkv`, :mod:`repro_torch.kernels.wkv`); so does
+the Jamba hybrid on one device, each Mamba layer's recurrence's gradient
+the ``selective_scan_bwd`` kernel (:mod:`repro_torch.models.mamba`,
+:mod:`repro_torch.kernels.selective_scan`), the superblocks rematerialised
+and each Mamba sub-layer a checkpoint of its own, as the reference's.
+jamba-1.5-large's one superblock holds 45.2 B params, 362 GB of bf16
+params, gradients and moments: one card trains the share of a deployment
+that puts each MoE layer's 16 experts over 16 chips, one expert each
+(``--experts 0:1``, 9.0 B params, 72 GB).  Jamba on a mesh, the
+encoder–decoder and the VLM are not ported yet (ROADMAP Queue 1 item
+11)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b \
         --smoke --device cpu --steps 4 --batch 4 --seq 32 --mesh 2x2
@@ -46,12 +65,18 @@ hybrid, the encoder–decoder and the VLM are not ported yet (ROADMAP Queue
         --smoke --device cpu --steps 4 --batch 4 --seq 32 --mesh 2x2
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \
         --smoke --device cpu --steps 2 --mesh 2x2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-1.5-large-398b \
+        --smoke --device cpu --steps 2 --experts 0:2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-1.5-large-398b \
+        --layers 8 --experts 0:1 --batch 8 --seq 512 --steps 4
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
 import sys
 import time
 
@@ -61,6 +86,7 @@ import torch
 from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, Pipeline
+from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding as SH
 from repro_torch.launch import mesh as M
@@ -184,6 +210,11 @@ def parse_args(argv=None):
                     help="bring-up and smoke runs only: train the config cut to "
                          "its first N layers, full width (0: all of them; the "
                          "reference's launcher has no such option)")
+    ap.add_argument("--experts", type=M.parse_experts_arg, default=None,
+                    metavar="FIRST:COUNT",
+                    help="bring-up and smoke runs only: hold and train only this "
+                         "block of every MoE layer's experts, one card's share of an "
+                         "expert-parallel deployment (one device; default: all)")
     return ap.parse_args(argv)
 
 
@@ -196,8 +227,12 @@ def train(args, ctx=None) -> list:
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     check_supported(cfg, training=True)
+    if args.experts is not None and args.ckpt_dir:
+        raise ValueError("--ckpt-dir with --experts: a share of the experts is not the "
+                         "JAX trainer's tree (its checkpoints are ROADMAP Queue 1 item "
+                         "11.6e)")
     run, model, device = M.rank_setup(cfg, ctx, args.device, seed=args.seed,
-                                      remat=cfg.remat)
+                                      remat=cfg.remat, experts=args.experts)
     lead = ctx is None or ctx.rank == 0
     acfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
                              warmup_steps=max(args.steps // 20, 5),
@@ -253,12 +288,39 @@ def _rank_main(ctx, argv):
     return train(parse_args(argv), ctx)
 
 
+def _allocator_settings(text: str) -> None:
+    """Set the CUDA caching allocator's options (``PYTORCH_CUDA_ALLOC_CONF``'s
+    syntax) in this process, before or after its first allocation."""
+    setter = getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+    (setter or torch.cuda.memory._set_allocator_settings)(text)
+
+
+@contextlib.contextmanager
+def _card_allocator(device):
+    """A run on one card allocates through the CUDA caching allocator's
+    expandable segments, unless ``PYTORCH_CUDA_ALLOC_CONF`` sets its
+    options: a share that fills the card (jamba-1.5-large's one
+    superblock, 72 GB of state beside a step's activations on an 80 GB
+    card) runs out of memory to fragmentation without them.  The
+    allocator's default is back after the run, for a caller in the same
+    process."""
+    if resolve_device(device).type != "cuda" or os.environ.get("PYTORCH_CUDA_ALLOC_CONF"):
+        yield
+        return
+    _allocator_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        _allocator_settings("expandable_segments:False")
+
+
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
     dm, mm = M.parse_mesh_arg(args.mesh)
     if dm * mm == 1:
-        return train(args)
+        with _card_allocator(args.device):
+            return train(args)
     check_supported(get_config(args.arch, smoke=args.smoke), training=True, mesh=True)
     return M.run_on_mesh(_rank_main, {"data": dm, "model": mm}, device=args.device,
                          args=(argv,))[0]

@@ -53,14 +53,12 @@ def port_leaves(tree) -> dict:
     return out
 
 
-def params_from_jax(cfg: ArchConfig, tree, device="cuda",
-                    experts: tuple | None = None) -> Transformer:
-    """The port's model on ``device`` holding the JAX params ``tree``;
-    raises when a name or a shape does not match.  ``experts`` (first,
-    count): the model holds that block of every MoE layer's experts (its
-    ``experts`` axis cut from the whole tree's), the router whole."""
-    dev = resolve_device(device)
-    model = init_model(cfg, device="meta", experts=experts).to_empty(device=dev)
+def share_leaves(cfg: ArchConfig, tree, experts: tuple | None = None) -> dict:
+    """A JAX tree of the whole model's shape (its params, or their
+    gradients) under the port's names (:func:`port_leaves`), with
+    ``experts`` (first, count) every MoE layer's ``experts`` axis cut to
+    that block: the leaves of one card's share, as ``init_model(...,
+    experts=...)`` holds them."""
     leaves = port_leaves(tree)
     if experts is not None:
         first, count = experts
@@ -69,6 +67,19 @@ def params_from_jax(cfg: ArchConfig, tree, device="cuda",
             if ".experts." in name:
                 leaves[name] = np.take(np.asarray(leaves[name]), range(first, first + count),
                                        axis=axes[name].index("experts"))
+    return leaves
+
+
+def params_from_jax(cfg: ArchConfig, tree, device="cuda",
+                    experts: tuple | None = None) -> Transformer:
+    """The port's model on ``device`` holding the JAX params ``tree``;
+    raises when a name or a shape does not match.  ``experts`` (first,
+    count): the model holds that block of every MoE layer's experts (its
+    ``experts`` axis cut from the whole tree's, :func:`share_leaves`), the
+    router whole."""
+    dev = resolve_device(device)
+    model = init_model(cfg, device="meta", experts=experts).to_empty(device=dev)
+    leaves = share_leaves(cfg, tree, experts)
     names = dict(model.named_parameters())
     if set(names) != set(leaves):
         raise ValueError("parameter names differ: port only "

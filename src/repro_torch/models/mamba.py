@@ -16,9 +16,12 @@ f32; the ``D`` skip in f32; y cast back to the compute dtype, gated by
 one call of :func:`repro_torch.kernels.selective_scan.selective_scan` a
 layer (the kernel on the card, its plain version on the CPU, or with
 ``plain`` on any device), for a prompt (:func:`mamba_seq`) and for one
-decode step (:func:`mamba_step`).  The reference's ``chunked_time_scan``
-is its training's remat of the time scan; training waits (ROADMAP Queue 1
-item 11.6d).
+decode step (:func:`mamba_step`).  Under autograd :func:`mamba_seq` takes
+no other path: the scan's ``torch.autograd.Function`` carries the
+gradient (its backward the ``selective_scan_bwd`` kernel), and its
+forward keeps the state every 16 steps, the kernel's form of the
+reference's ``chunked_time_scan`` (its training's remat of the time
+scan, in chunks of 256 steps).
 """
 
 from __future__ import annotations

@@ -88,8 +88,12 @@ layer's experts (:attr:`Transformer.held`): jamba-1.5-large's one
 superblock, 45.2 B parameters, does not fit an 80 GB card, and the
 deployment it is cut from puts each MoE layer's 16 experts over 2 chips,
 expert-parallel, everything else whole on both; this card holds 8.  Jamba
-is served on one device; its training and its mesh wait (ROADMAP Queue 1
-items 11.6d, 11.6e).
+is served and trained on one device; its mesh waits (ROADMAP Queue 1 item
+11.6e).  Under autograd (:func:`lm_loss`) the superblocks run through
+:func:`_scan_blocks` and each Mamba sub-layer is a checkpoint of its own,
+as the reference's ``mamba_ck``; the recurrence goes through
+``selective_scan``'s ``torch.autograd.Function`` (its backward the
+``selective_scan_bwd`` kernel, from states kept every 16 steps).
 
 Configs outside this path raise ``NotImplementedError`` naming ROADMAP
 Queue 1 item 11: Whisper's encoder–decoder and the VLM ``embeds`` input.
@@ -179,18 +183,15 @@ class RunCfg:
 def check_supported(cfg: ArchConfig, *, mesh: bool = False,
                     training: bool = False) -> None:
     """Raise for what this slice does not run: on one device, or with
-    ``mesh`` on a mesh; with ``training``, trained.  It serves all it runs
-    and trains all but Jamba."""
+    ``mesh`` on a mesh; with ``training``, trained.  It trains all it
+    serves."""
     left = []
     if cfg.moe is not None and cfg.moe.every != 1 and cfg.mixer != "hybrid":
         left.append("MoE with dense blocks among its layers")
     if cfg.mixer not in ("attn", "rwkv", "hybrid"):
         left.append(f"mixer {cfg.mixer!r}")
-    if cfg.mixer == "hybrid" and training:
-        left.append("the Jamba hybrid's training (item 11.6d: the selective scan's "
-                    "backward kernel)")
     if cfg.mixer == "hybrid" and mesh:
-        left.append("the Jamba hybrid on a mesh (item 11.6e)")
+        left.append("the Jamba hybrid on a mesh, served or trained (item 11.6e)")
     if cfg.encdec:
         left.append("encoder-decoder")
     if cfg.embed_mode != "tokens":
@@ -199,7 +200,7 @@ def check_supported(cfg: ArchConfig, *, mesh: bool = False,
         raise NotImplementedError(
             f"{cfg.arch_id}: {', '.join(left)} not ported yet ({LM_ITEM}); the "
             "port runs the uniform decoder, dense or MoE, GQA or MLA, RWKV, and "
-            "serves the Jamba hybrid on one device")
+            "the Jamba hybrid on one device")
     if _quantized(cfg) and stack_sizes(cfg)["first_blocks"]:
         raise ValueError(
             f"{cfg.arch_id}: the int8 KV cache (kv_quant) with first_dense leading "
@@ -983,6 +984,17 @@ def block_forwards(cfg: ArchConfig, run: RunCfg) -> int:
     return total
 
 
+def scan_forwards(cfg: ArchConfig, run: RunCfg) -> int:
+    """Jamba's Mamba forward passes (``selective_scan`` launches) in one
+    training step's forward and backward of :func:`lm_loss`: each Mamba
+    layer's as often as its superblock's (:func:`block_forwards`), and with
+    remat once more for its own checkpoint's backward.  Its backward runs
+    once a Mamba layer (``selective_scan_bwd``)."""
+    blocks = sum(stack_sizes(cfg).values())
+    own = blocks if run.remat and cfg.remat else 0
+    return (cfg.hybrid_period - 1) * (block_forwards(cfg, run) + own)
+
+
 def _cache_shapes(cfg: ArchConfig, run: RunCfg, b: int, t: int) -> dict:
     """This rank's part of the cache (:func:`cache_shapes`), ``b`` its
     rows, ``t`` the whole cache's positions."""
@@ -1383,7 +1395,11 @@ def _hybrid_forward(cfg: ArchConfig, run: RunCfg, params: Transformer, batch, *,
     """Jamba's forward (``transformer.py:394``): each superblock's Mamba
     layers from zero states; the cache (:func:`cache_shapes` at T = max(S,
     t_max), zeros past S) holds each superblock's k and v and its Mamba
-    layers' final states."""
+    layers' final states.  Without a cache, under autograd and where
+    ``run.remat`` and ``cfg.remat`` are both on, the reference's training
+    structure: the superblocks through :func:`_scan_blocks`, each Mamba
+    sub-layer a checkpoint of its own (``mamba_ck``, ``transformer.py:285``),
+    so that one Mamba layer's intermediates are live at a time."""
     md = mamba_dims(cfg)
     top = _top_params(params, cfg, run)
     x = _embed_tokens(top, cfg, run, batch["tokens"])
@@ -1396,22 +1412,37 @@ def _hybrid_forward(cfg: ArchConfig, run: RunCfg, params: Transformer, batch, *,
     if collect_cache:
         cache = {k: torch.zeros(shape, dtype=dtypes[k], device=x.device)
                  for k, shape in shapes.items()}
-    for i, block in enumerate(_layers(params)):
-        def attend(p, h, i=i):
+    remat = cache is None and run.remat and cfg.remat and torch.is_grad_enabled()
+
+    def mamba_out(mi, p, h):
+        return MB.mamba_seq(p, md, h, zero["conv"][mi], zero["ssm"][mi],
+                            plain=run.plain_scan)[0]
+
+    def superblock(i, block, y):
+        def attend(p, h):
             a, (k, v) = L.apply_attention(p, attn_dims(cfg), h, positions,
                                           plain=run.plain_attention)
             if cache is not None:
                 cache["k"][i, :, :s], cache["v"][i, :, :s] = k, v
             return a
 
-        def scan(mi, p, h, i=i):
+        def scan(mi, p, h):
+            if cache is None:
+                return _checkpoint(mamba_out, mi, p, h) if remat else mamba_out(mi, p, h)
             a, (conv, ssm) = MB.mamba_seq(p, md, h, zero["conv"][mi], zero["ssm"][mi],
                                           plain=run.plain_scan)
-            if cache is not None:
-                cache["conv"][i, mi], cache["ssm"][i, mi] = conv, ssm
+            cache["conv"][i, mi], cache["ssm"][i, mi] = conv, ssm
             return a
 
-        x = _superblock(block, cfg, run, x, attend, scan, params.first_expert)
+        return _superblock(block, cfg, run, y, attend, scan, params.first_expert)
+
+    if remat:
+        for stack in STACKS:
+            x = _scan_blocks(getattr(params, stack), x,
+                             lambda block, y: superblock(None, block, y), True)
+    else:
+        for i, block in enumerate(_layers(params)):
+            x = superblock(i, block, x)
     if last_only:
         x = x[:, -1:]
     x = _apply_norm(top["final_norm"], x, cfg)

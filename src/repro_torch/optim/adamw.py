@@ -15,7 +15,12 @@ moments in place under ``torch.no_grad()``, each step of the arithmetic a
 ``torch._foreach_*`` call over a group of leaves of at most
 :data:`GROUP_BYTES` (the arithmetic is elementwise, so the grouping
 changes no bit; it bounds the temporaries to a few groups' size, where
-over all the leaves at once they would be several times the model's).
+over all the leaves at once they would be several times the model's).  A
+leaf of more than :data:`GROUP_BYTES` in f32 (Jamba's stacked Mamba
+``in_proj``, 7.5 GB; qwen3-moe's stacked experts) takes part as flat views
+of at most that size
+(:func:`pieces`): the update's arithmetic is the same, its global norm
+sums the pieces' squares.
 
 On a mesh the leaves are this rank's shards (the moments sharded like
 their parameters, the update elementwise on them) and :func:`global_norm`
@@ -51,7 +56,7 @@ class AdamWConfig:
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 #: the f32 bytes of the leaves one group of :func:`update`'s arithmetic
-#: takes at once (a larger leaf is a group of its own)
+#: takes at once (a larger leaf is cut into pieces of at most this size)
 GROUP_BYTES = 1 << 30
 
 
@@ -87,14 +92,47 @@ def init(c: AdamWConfig, params: dict) -> dict:
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def pieces(t: torch.Tensor) -> list:
+    """``t`` itself, or, above :data:`GROUP_BYTES` of f32, flat views of
+    it of at most that size, in order (in place arithmetic on them is on
+    ``t``)."""
+    step = GROUP_BYTES // 4
+    if t.numel() <= step:
+        return [t]
+    flat = t.view(-1)
+    return [flat[i:i + step] for i in range(0, flat.numel(), step)]
+
+
+def _runs(items: list, numel) -> list:
+    """``items`` in order, cut into runs of at most :data:`GROUP_BYTES` of
+    f32 (``numel(item)`` elements each)."""
+    out, size = [[]], 0
+    for x in items:
+        nbytes = numel(x) * 4
+        if out[-1] and size + nbytes > GROUP_BYTES:
+            out.append([])
+            size = 0
+        out[-1].append(x)
+        size += nbytes
+    return out
+
+
 def global_norm(leaves, cut_axes=None) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's sum of squares, f32
-    (each leaf's through ``torch._foreach_norm``, squared).  ``cut_axes``
-    (one tuple of mesh axes a leaf, or None on one device) names the axes
-    each leaf is a shard over: those leaves' squares are summed over the
-    ranks of those axes before the total."""
-    norms = torch._foreach_norm([g.to(torch.float32) for g in leaves])
+    (each leaf's, or each of a large leaf's :func:`pieces`', through
+    ``torch._foreach_norm``, squared; cast to f32 a group of at most
+    :data:`GROUP_BYTES` at a time, not all at once: bf16 gradients of 9 B
+    parameters would take 36 GB more).  ``cut_axes`` (one tuple of mesh
+    axes a leaf, or None on one device) names the axes each leaf is a
+    shard over: those leaves' squares are summed over the ranks of those
+    axes before the total."""
+    parts = [(x, i) for i, g in enumerate(leaves) for x in pieces(g)]
+    norms = []
+    for run in _runs(parts, lambda xi: xi[0].numel()):
+        norms += torch._foreach_norm([x.to(torch.float32) for x, _ in run])
     sq = torch.stack(norms).square()
+    if cut_axes is not None:
+        cut_axes = [cut_axes[i] for _, i in parts]
     if cut_axes is None:
         return sq.sum().sqrt()
     groups: dict = {}
@@ -137,26 +175,13 @@ def update(c: AdamWConfig, grads: dict, state: dict, params: dict,
     lr = schedule(c, count)
     cf = count.to(torch.float32)
     bc = (1 - torch.pow(c.b1, cf), 1 - torch.pow(c.b2, cf))
-    for group in _groups(names, params):
-        _update_group(c, [params[n] for n in group], [grads[n] for n in group],
-                      [state["m"][n] for n in group], [state["v"][n] for n in group],
-                      scale, lr, bc)
+    leaves = [pieces(t) for n in names
+              for t in (params[n], grads[n], state["m"][n], state["v"][n])]
+    quads = [q for i in range(0, len(leaves), 4) for q in zip(*leaves[i:i + 4])]
+    for run in _runs(quads, lambda q: q[0].numel()):
+        _update_group(c, *(list(x) for x in zip(*run)), scale, lr, bc)
     new_state = dict(state, count=count)
     return params, new_state, {"grad_norm": gnorm, "lr": lr}
-
-
-def _groups(names: list, params: dict) -> list:
-    """``names`` in order, cut into runs of at most :data:`GROUP_BYTES` of
-    f32 leaves."""
-    out, size = [[]], 0
-    for n in names:
-        nbytes = params[n].numel() * 4
-        if out[-1] and size + nbytes > GROUP_BYTES:
-            out.append([])
-            size = 0
-        out[-1].append(n)
-        size += nbytes
-    return out
 
 
 def _update_group(c: AdamWConfig, ps, gs, ms, vs, scale, lr, bc) -> None:

@@ -808,14 +808,93 @@ def test_selective_scan_kernel_carries_its_state_bitwise(cuda):
 
 
 def test_selective_scan_kernel_refuses_other_state_sizes_and_autograd(cuda):
+    # other state sizes are refused; under autograd the forward (with its
+    # checkpoints) and the backward each launch their kernel once, and the
+    # gradients reach dt
     args = _scan_inputs(cuda, 1, 4, 128, 4, torch.float32, seed=1)
     with pytest.raises(ValueError, match="d_state 4"):
         SS.selective_scan(*args)
-    dt, *rest = _scan_inputs(cuda, 1, 4, 128, 16, torch.float32, seed=1)
-    launches = SS.launches
-    with pytest.raises(NotImplementedError, match="item 11.6d"):
-        SS.selective_scan(dt.requires_grad_(), *rest)
-    assert SS.launches == launches
+    dt, *rest = _scan_inputs(cuda, 1, 40, 128, 16, torch.float32, seed=1)
+    counts = (SS.launches, SS.bwd_launches, SS.plain_calls, SS.plain_bwd_calls)
+    y, _ = SS.selective_scan(dt.requires_grad_(), *rest)
+    y.sum().backward()
+    assert (SS.launches, SS.bwd_launches, SS.plain_calls, SS.plain_bwd_calls) == \
+        (counts[0] + 1, counts[1] + 1, counts[2], counts[3])
+    assert dt.grad is not None and bool(dt.grad.abs().max() > 0)
+
+
+def _scan_grad_inputs(cuda, b, s, di, ds, dtype, seed):
+    """The forward's inputs, its checkpoints (the kernel's), dy and dS."""
+    args = _scan_inputs(cuda, b, s, di, ds, dtype, seed)
+    _, _, ck = SS._kernel(*args, checkpoints=True)
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    dy = torch.randn(b, s, di, device=cuda, generator=g)
+    dh = torch.randn(b, di, ds, device=cuda, generator=g)
+    return args[:6], ck, dy, dh
+
+
+@pytest.mark.parametrize("s", [1, 37, 512])
+@pytest.mark.parametrize("ds", [8, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_selective_scan_bwd_kernel_matches_plain_version(cuda, no_tf32, dtype, ds, s):
+    # one step, a ragged last chunk of 16, many chunks; d_inner 200 (a
+    # ragged last block of 64 channels) from a nonzero state with a nonzero
+    # dS: each gradient within 1e-5 of its max
+    ins, ck, dy, dh = _scan_grad_inputs(cuda, 3, s, 200, ds, dtype, seed=s + ds)
+    launches = SS.bwd_launches
+    got = SS.selective_scan_bwd(*ins, ck, dy, dh)
+    assert SS.bwd_launches == launches + 1
+    want = SS.selective_scan_backward_plain(*ins, ck, dy, dh)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("d(dt)", "dx", "dB", "dC", "dA_log", "dD", "dh0"), got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), name
+
+
+def test_selective_scan_bwd_kernel_gives_the_same_bits_twice(cuda):
+    ins, ck, dy, dh = _scan_grad_inputs(cuda, 2, 70, 256, 16, torch.bfloat16, seed=5)
+    one, two = SS.selective_scan_bwd(*ins, ck, dy, dh), SS.selective_scan_bwd(*ins, ck, dy, dh)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.parametrize("ds", [8, 16])
+def test_selective_scan_kernel_with_checkpoints_gives_the_same_bits(cuda, ds):
+    # keeping the states changes no bit of y or the final state; the states
+    # kept are the plain loop's within 1e-5
+    args = _scan_inputs(cuda, 2, 75, 200, ds, torch.bfloat16, seed=6)
+    y, h = SS.selective_scan(*args)
+    yc, hc, ck = SS._kernel(*args, checkpoints=True)
+    assert torch.equal(y, yc) and torch.equal(h, hc)
+    assert torch.equal(ck[:, 0], args[6])
+    _, _, cp = SS.selective_scan_plain(*args, checkpoints=True)
+    assert float((ck - cp).abs().max()) <= 1e-5 * float(cp.abs().max())
+
+
+def test_jamba_training_step_on_card_launches_both_kernels(cuda, no_tf32):
+    # jamba's smoke config (d_state 8, f32) with remat trained two steps on
+    # the card: 21 forward launches and 7 backward launches a step, no plain
+    # call, the losses within 1e-4 of the CPU's
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b", smoke=True), remat=True)
+    from repro_torch.optim import adamw
+    from repro_torch.training.train_loop import TrainCfg, make_train_step
+
+    tokens = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator().manual_seed(2))
+    losses = {}
+    for dev in ("cpu", cuda):
+        model = T.init_model(cfg, seed=0, device="cpu").to(dev)
+        acfg = adamw.AdamWConfig(warmup_steps=1, total_steps=2)
+        state = adamw.init(acfg, dict(model.named_parameters()))
+        run = T.RunCfg()
+        step = make_train_step(cfg, run, TrainCfg(adamw=acfg))
+        counts = (SS.launches, SS.bwd_launches, SS.plain_calls, SS.plain_bwd_calls)
+        losses[str(dev)] = [float(step(model, state, {"tokens": tokens.to(dev)})[0])
+                            for _ in range(2)]
+        if dev != "cpu":
+            n = 2 * T.scan_forwards(cfg, run)
+            assert n == 2 * 21
+            assert (SS.launches, SS.bwd_launches, SS.plain_calls, SS.plain_bwd_calls) \
+                == (counts[0] + n, counts[1] + 2 * 7, counts[2], counts[3])
+    assert losses["cpu"] == pytest.approx(losses["cuda"], abs=1e-4)
 
 
 def test_jamba_model_on_card_launches_the_scan_once_a_mamba_layer(cuda, no_tf32):

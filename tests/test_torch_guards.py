@@ -314,13 +314,15 @@ def test_serve_runs_a_mesh():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--arch", "jamba-1.5-large-398b"],                          # the hybrid
+    ["--arch", "jamba-1.5-large-398b", "--mesh", "2x1"],         # the hybrid on a mesh
     ["--arch", "whisper-small"],                                 # encoder-decoder
     ["--arch", "llava-next-34b"],                                # the VLM's embeds
 ])
 def test_train_refuses_what_is_not_ported(argv):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11") as got:
         train.main(argv + ["--smoke", "--device", "cpu", "--steps", "1"])
+    # Jamba trains on one device (item 11.6d); its mesh is item 11.6e
+    assert "--mesh" not in argv or "item 11.6e" in str(got.value)
 
 
 def test_train_refuses_rwkv_naming_its_item(capsys):

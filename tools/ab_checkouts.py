@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """One side of a comparison of two checkouts of the port on one card.
 
-    python3 tools/ab_checkouts.py ROOT TAG [--solver | --multi]
+    python3 tools/ab_checkouts.py ROOT TAG [--solver | --multi | --adamw]
 
 Imports ``repro_torch`` from ``ROOT/src`` (its kernels build into
 ``ROOT/build/kernels``) and prints one JSON line tagged ``TAG``.
@@ -28,6 +28,14 @@ step a timing).
 heat 2×2 ``pallas_ring`` fused; N=512 f64, 4 rank processes on the one
 card, one spawn), rank 0's ms a step on the host clock (one warm-up step,
 then ``MULTI_STEPS`` steps, each ended by a synchronize).
+
+``--adamw``: one AdamW step (``optim/adamw.py::update``: the global norm
+and the update, in place) over the leaves of each training cell of
+``chip_smoke.py`` that trains on one card through the launcher or its
+step (``ADAMW_CELLS``: smollm-360m at 12 layers, qwen3-moe-30b-a3b and
+deepseek-v2-lite-16b at 4, rwkv6-3b whole; the config's dtypes, seed 0,
+random gradients), ms a step as the host drives it: the median of
+``REPS`` steps after one.
 
 Run the two checkouts alternately in one call, e.g. parent, change,
 change, parent, to compare them on the same card.
@@ -184,6 +192,38 @@ def multi(torch, tag: str) -> dict:
     return out
 
 
+#: (arch, layers; 0: the config's) of the cells ``--adamw`` steps
+ADAMW_CELLS = (("smollm-360m", 12), ("qwen3-moe-30b-a3b", 4),
+               ("deepseek-v2-lite-16b", 4), ("rwkv6-3b", 0))
+
+
+def adamw_steps(torch, tag: str) -> dict:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    out = {"tag": tag, "device": torch.cuda.get_device_name(0), "reps": REPS}
+    for arch, layers in ADAMW_CELLS:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        params = dict(T.init_model(cfg, seed=0, device="cuda").named_parameters())
+        g = torch.Generator(device="cuda").manual_seed(0)
+        grads = {n: torch.randn(p.shape, device="cuda", generator=g).to(p.dtype)
+                 for n, p in params.items()}
+        c = adamw.AdamWConfig(lr=1e-4, total_steps=100, warmup_steps=5,
+                              moment_dtype=cfg.opt_state_dtype)
+        state = adamw.init(c, params)
+        ms = _median_ms(torch, lambda: adamw.update(c, grads, state, params), 1,
+                        warmup=1, fill=False)  # host time counts
+        out[arch] = dict(ms, params=sum(p.numel() for p in params.values()))
+        del params, grads, state
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     root, tag = args[0], args[1]
@@ -194,7 +234,8 @@ def main() -> int:
         print("ab_checkouts: no CUDA card", file=sys.stderr)
         return 1
     run = (solver if "--solver" in sys.argv[1:]
-           else multi if "--multi" in sys.argv[1:] else serving)
+           else multi if "--multi" in sys.argv[1:]
+           else adamw_steps if "--adamw" in sys.argv[1:] else serving)
     print(json.dumps(run(torch, tag)), flush=True)
     return 0
 
